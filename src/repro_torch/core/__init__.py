@@ -1,0 +1,28 @@
+"""Core library: the paper's contribution (A2CiD2) in PyTorch."""
+from .a2cid2 import (A2CiD2Params, acid_params, apply_mixing,
+                     baseline_params, consensus_distance, gradient_event,
+                     matched_p2p_update, mixing_coeff, params_from_graph,
+                     worker_mean)
+from .engine import FlatGossipEngine
+from .events import (CoalescedSchedule, EventStream, Schedule,
+                     coalesce_schedule, coalesced_stream, concat_schedules,
+                     make_schedule)
+from .flatbuf import FlatLayout, LeafSpec
+from .graphs import (Graph, TopologyPhase, TopologySchedule, build_graph,
+                     complete_graph, exponential_graph, hypercube_graph,
+                     ring_graph, star_graph, torus_graph)
+from .simulator import SimState, SimTrace, Simulator
+
+__all__ = [
+    "A2CiD2Params", "acid_params", "apply_mixing", "baseline_params",
+    "consensus_distance", "gradient_event", "matched_p2p_update",
+    "mixing_coeff", "params_from_graph", "worker_mean",
+    "FlatGossipEngine",
+    "CoalescedSchedule", "EventStream", "Schedule", "coalesce_schedule",
+    "coalesced_stream", "concat_schedules", "make_schedule",
+    "FlatLayout", "LeafSpec",
+    "Graph", "TopologyPhase", "TopologySchedule", "build_graph",
+    "complete_graph", "exponential_graph", "hypercube_graph", "ring_graph",
+    "star_graph", "torus_graph",
+    "SimState", "SimTrace", "Simulator",
+]

@@ -1,0 +1,155 @@
+"""A2CiD2 continuous momentum — the paper's core contribution (Sec 3.2, Algo 1).
+
+Each worker holds two buffers: the parameters ``x`` and a momentum copy
+``x_tilde``.  Between events they follow the mixing ODE
+
+    dx/dt      = eta (x_tilde - x)
+    dx_tilde/dt = eta (x - x_tilde)
+
+whose flow is the doubly-stochastic 2x2 matrix
+
+    exp(t*A) = 1/2 [[1+e, 1-e], [1-e, 1+e]],   e = exp(-2 eta t).
+
+Events:
+  * gradient event (rate 1 / worker):  x -= gamma*g ; x_tilde -= gamma*g   (Eq 4)
+  * p2p event on edge (i,j):  with m = x_i - x_j,
+        x_i -= alpha*m ; x_tilde_i -= alpha_t*m
+
+Prop 3.6 hyper-parameters:
+  * baseline (no acceleration): eta = 0, alpha = alpha_t = 1/2, chi = chi_1
+  * A2CiD2: eta = 1/(2 sqrt(chi1 chi2)), alpha = 1/2,
+            alpha_t = 1/2 sqrt(chi1/chi2), chi = sqrt(chi1 chi2)
+
+Update functions work on dict/list/tuple pytrees of tensors (see ``tree``)
+and follow the JAX package's order of operations, so the two agree to
+rounding of ``exp``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .tree import PyTree, tree_flatten, tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class A2CiD2Params:
+    """Scalar hyper-parameters of the dynamic (Eq 4 / Prop 3.6)."""
+
+    eta: float
+    alpha: float
+    alpha_tilde: float
+    chi: float  # effective chi entering the rate: chi1 (baseline) or sqrt(chi1 chi2)
+
+    @property
+    def accelerated(self) -> bool:
+        return self.eta > 0.0
+
+
+def baseline_params(chi1: float) -> A2CiD2Params:
+    """The non-accelerated asynchronous baseline (a refined AD-PSGD)."""
+    return A2CiD2Params(eta=0.0, alpha=0.5, alpha_tilde=0.5, chi=chi1)
+
+
+def acid_params(chi1: float, chi2: float) -> A2CiD2Params:
+    """Accelerated parameters from Prop 3.6."""
+    if not (0.0 < chi2 <= chi1 + 1e-9):
+        raise ValueError(f"need 0 < chi2 <= chi1, got chi1={chi1}, chi2={chi2}")
+    root = math.sqrt(chi1 * chi2)
+    return A2CiD2Params(
+        eta=1.0 / (2.0 * root),
+        alpha=0.5,
+        alpha_tilde=0.5 * math.sqrt(chi1 / chi2),
+        chi=root,
+    )
+
+
+def params_from_graph(graph, accelerated: bool = True) -> A2CiD2Params:
+    chi1 = graph.chi1()
+    if not accelerated:
+        return baseline_params(chi1)
+    return acid_params(chi1, graph.chi2())
+
+
+# ----------------------------------------------------------------- mixing ODE
+
+def mixing_coeff(eta: float, dt: torch.Tensor) -> torch.Tensor:
+    """Off-diagonal weight of exp(dt*A): (1 - exp(-2 eta dt)) / 2, in f32
+    for an f32 ``dt`` (``-2.0 * eta`` is formed in double, then applied as
+    an f32 scalar — how JAX binds the weak Python scalar)."""
+    return 0.5 * (1.0 - torch.exp(-2.0 * eta * dt))
+
+
+def apply_mixing(x: PyTree, x_tilde: PyTree, eta: float, dt
+                 ) -> tuple[PyTree, PyTree]:
+    """Lazily apply the continuous mixing for an elapsed time ``dt``.
+
+    Exact closed-form flow of the ODE.  ``dt`` is a scalar or a per-worker
+    (n,) tensor against leaves shaped (n, ...).  ``eta == 0`` returns the
+    inputs untouched: the baseline's exactness rests on it.
+    """
+    if eta == 0.0:
+        return x, x_tilde
+    flat_x, treedef = tree_flatten(x)
+    flat_t = treedef.flatten_up_to(x_tilde)
+    dt = torch.as_tensor(dt, dtype=torch.float32, device=flat_x[0].device)
+    c32 = mixing_coeff(eta, dt)
+
+    def mix(a, b):
+        c = c32.to(a.dtype)
+        c = c.reshape(c.shape + (1,) * (a.dim() - c.dim()))
+        d = b - a
+        return a + c * d, b - c * d
+
+    mixed = [mix(a, b) for a, b in zip(flat_x, flat_t)]
+    return (treedef.unflatten([m[0] for m in mixed]),
+            treedef.unflatten([m[1] for m in mixed]))
+
+
+# -------------------------------------------------------------- event updates
+
+def gradient_event(x: PyTree, x_tilde: PyTree, grads: PyTree, gamma
+                   ) -> tuple[PyTree, PyTree]:
+    """Apply a gradient event: both buffers take the step (Eq 4)."""
+    return (tree_map(lambda p, g: p - gamma * g, x, grads),
+            tree_map(lambda p, g: p - gamma * g, x_tilde, grads))
+
+
+def matched_p2p_update(x: PyTree, x_tilde: PyTree, partner: torch.Tensor,
+                       params: A2CiD2Params) -> tuple[PyTree, PyTree]:
+    """Apply one matching round to stacked worker states.
+
+    Leaves have a leading worker axis (n, ...).  ``partner[i] = j`` (with
+    partner[j] = i) for matched pairs, ``i`` for idle workers — idle workers
+    see m = x_i - x_i = 0, a clean no-op.
+    """
+    partner = partner.long()
+
+    def upd(a, at):
+        m = a - a.index_select(0, partner)
+        return a - params.alpha * m, at - params.alpha_tilde * m
+
+    flat_x, treedef = tree_flatten(x)
+    flat_t = treedef.flatten_up_to(x_tilde)
+    out = [upd(a, at) for a, at in zip(flat_x, flat_t)]
+    return (treedef.unflatten([o[0] for o in out]),
+            treedef.unflatten([o[1] for o in out]))
+
+
+# ---------------------------------------------------------------- diagnostics
+
+def consensus_distance(x: PyTree) -> torch.Tensor:
+    """||pi x||_F^2 / n = mean squared distance of workers to the mean
+    (the quantity tracked in the paper's Fig 5b).  Leaves have a leading
+    worker axis."""
+    def per_leaf(a):
+        mean = a.mean(dim=0, keepdim=True)
+        return ((a - mean) ** 2).sum() / a.shape[0]
+
+    return sum(per_leaf(a) for a in tree_leaves(x))
+
+
+def worker_mean(x: PyTree) -> PyTree:
+    return tree_map(lambda a: a.mean(dim=0), x)

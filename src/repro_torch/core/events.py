@@ -1,0 +1,520 @@
+"""Poisson event schedules for the asynchronous dynamic (Assumption 3.2).
+
+The paper's implementation emulates the point processes: "each worker samples
+a random number of p2p averagings to perform between each gradient
+computation, following a Poisson law using the communication rate as mean",
+and pairs available workers through a FIFO queue (~ uniform matchings,
+App E.2).  This module reproduces exactly that emulation:
+
+  * a *round* covers one unit of simulated time; every worker takes one
+    gradient step per round at a jittered time,
+  * the number of matching events in a round is Poisson(comm_rate) — a
+    matching event pairs (at most) all workers simultaneously,
+  * matchings are maximal matchings sampled from random edge orders.
+
+Schedules are host-side numpy data.  This is the subset of
+``repro.core.events`` that the flat-buffer replay needs (raw schedules,
+coalescing, the flattened event stream); every array it returns is equal,
+array for array, to the JAX package's for the same arguments and seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .graphs import Graph
+
+
+def _alive_arr(rounds: int, n: int, alive: np.ndarray | None) -> np.ndarray:
+    """(R, n) bool aliveness, materialized (None = all alive)."""
+    if alive is None:
+        return np.ones((rounds, n), dtype=bool)
+    return np.asarray(alive, dtype=bool)
+
+
+def _grad_scale(rounds: int, n: int, grad_mask: np.ndarray | None,
+                alive: np.ndarray | None) -> np.ndarray:
+    """(R, n) f32 gradient-application scale: 1.0 iff the worker both takes
+    the tick (grad_mask) and is attached (alive)."""
+    s = np.ones((rounds, n), dtype=bool)
+    if grad_mask is not None:
+        s &= np.asarray(grad_mask, dtype=bool)
+    s &= _alive_arr(rounds, n, alive)
+    return s.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """Precomputed event schedule for `rounds` units of simulated time.
+
+    Shapes (R = rounds, K = max events/round, n = workers):
+      partners    (R, K, n) int32 — partner[e, i] = j or i (idle / masked)
+      event_times (R, K) float32  — sorted within each round, masked events
+                                    repeat the previous valid time
+      event_mask  (R, K) bool
+      grad_times  (R, n) float32  — time of each worker's gradient event
+      grad_mask   (R, n) bool or None — straggler thinning (alive, no grad)
+      alive       (R, n) bool or None — churn (detached, clock frozen)
+      extras      dict of named (R, K, n) per-event arrays or None — the
+                  unreliable-channel keys ("stale", "corrupt") live here;
+                  the port's replay does not consume them yet
+    """
+
+    partners: np.ndarray
+    event_times: np.ndarray
+    event_mask: np.ndarray
+    grad_times: np.ndarray
+    grad_mask: np.ndarray | None = None
+    alive: np.ndarray | None = None
+    extras: dict[str, np.ndarray] | None = None
+
+    @property
+    def rounds(self) -> int:
+        return self.partners.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.partners.shape[2]
+
+    def alive_arr(self) -> np.ndarray:
+        return _alive_arr(self.rounds, self.n, self.alive)
+
+    def grad_scale(self) -> np.ndarray:
+        return _grad_scale(self.rounds, self.n, self.grad_mask, self.alive)
+
+    def extras_dict(self) -> dict[str, np.ndarray]:
+        return dict(self.extras) if self.extras else {}
+
+
+def make_schedule(
+    graph: Graph,
+    rounds: int,
+    comms_per_grad: float = 1.0,
+    seed: int = 0,
+    jitter_grad_times: bool = True,
+    grad_rates: np.ndarray | None = None,
+    edge_rates: np.ndarray | None = None,
+    per_edge: bool | None = None,
+    t_offset: float = 0.0,
+    active: np.ndarray | None = None,
+) -> Schedule:
+    """Build a Poisson event schedule, homogeneous or heterogeneous.
+
+    The JAX package routes these kwargs through its declarative World
+    compiler; for a static graph that compiler makes exactly one call to
+    the raw sampler with the same arguments, so calling the sampler
+    directly gives the identical schedule under the same seed.
+
+    comms_per_grad — expected number of p2p averagings per worker between two
+      of its gradient steps (the paper's "#com/#grad" knob, Tab 5).
+    grad_rates — (n,) per-worker gradient rates in [0, 1] (straggler
+      Bernoulli thinning of the unit-rate tick process).
+    edge_rates — (E,) per-edge rates overriding ``graph.rates``; non-uniform
+      rates switch to the per-edge point process of Def 3.1.
+    per_edge — force the per-edge path on/off (None = auto as above).
+    t_offset — shift all event/gradient times.
+    active — (n,) churn mask: detached workers join no matchings and are
+      marked dead for every round.
+    """
+    return _sample_schedule(graph, rounds, comms_per_grad, seed=seed,
+                            jitter_grad_times=jitter_grad_times,
+                            grad_rates=grad_rates, edge_rates=edge_rates,
+                            per_edge=per_edge, t_offset=t_offset,
+                            active=active)
+
+
+def _sample_schedule(
+    graph: Graph,
+    rounds: int,
+    comms_per_grad: float = 1.0,
+    seed: int = 0,
+    jitter_grad_times: bool = True,
+    grad_rates: np.ndarray | None = None,
+    edge_rates: np.ndarray | None = None,
+    per_edge: bool | None = None,
+    t_offset: float = 0.0,
+    active: np.ndarray | None = None,
+) -> Schedule:
+    """The raw Poisson sampler (byte-stable copy of the JAX package's)."""
+    rng = np.random.default_rng(seed)
+    # heterogeneity draws come from an independent stream so that uniform
+    # rates leave the main stream — and hence the schedule — untouched
+    het = np.random.default_rng(np.random.SeedSequence([int(seed), 0x48455]))
+    n = graph.n
+
+    # rate override first (edge_rates align with the FULL graph's edges),
+    # churn subgraph second (it filters rates along with edges)
+    if edge_rates is not None:
+        edge_rates = np.asarray(edge_rates, dtype=np.float64)
+        if per_edge is None:
+            per_edge = not np.allclose(edge_rates, graph.rates)
+        graph = graph.with_rates(edge_rates)
+    elif per_edge is None:
+        per_edge = False
+    if active is not None:
+        active = np.asarray(active, dtype=bool)
+        if not active.all():
+            graph = graph.subgraph(active)
+
+    if per_edge:
+        partners, event_times, event_mask = _per_edge_events(
+            graph, rounds, comms_per_grad, rng, t_offset)
+        kmax = partners.shape[1]
+    else:
+        counts = rng.poisson(lam=comms_per_grad, size=rounds)
+        kmax = max(1, int(counts.max()))
+        partners = np.tile(np.arange(n, dtype=np.int32), (rounds, kmax, 1))
+        event_times = np.zeros((rounds, kmax), dtype=np.float32)
+        event_mask = np.zeros((rounds, kmax), dtype=bool)
+        for r in range(rounds):
+            k = int(counts[r])
+            times = np.sort(rng.uniform(r + t_offset, r + t_offset + 1,
+                                        size=k)).astype(np.float32)
+            last = np.float32(r + t_offset)
+            for e in range(kmax):
+                if e < k:
+                    matching = graph.sample_matching(rng)
+                    partners[r, e] = graph.matching_to_partner(
+                        matching).astype(np.int32)
+                    event_times[r, e] = times[e]
+                    event_mask[r, e] = True
+                    last = times[e]
+                else:
+                    # masked: dt contribution handled by mask
+                    event_times[r, e] = last
+
+    grad_times = np.zeros((rounds, n), dtype=np.float32)
+    for r in range(rounds):
+        if jitter_grad_times:
+            # each worker's gradient lands at a jittered point in the second
+            # half of the round (unit-rate process, staggered workers)
+            grad_times[r] = (r + t_offset + 0.5
+                             + 0.5 * rng.uniform(size=n)).astype(np.float32)
+        else:
+            grad_times[r] = np.float32(r + t_offset + 1.0)
+        # gradient events must come after the last comm event of the round
+        grad_times[r] = np.maximum(grad_times[r],
+                                   event_times[r].max() + 1e-4)
+
+    grad_mask = None
+    if grad_rates is not None:
+        gr = np.clip(np.asarray(grad_rates, dtype=np.float64), 0.0, 1.0)
+        if gr.shape != (n,):
+            raise ValueError(f"grad_rates must be ({n},), got {gr.shape}")
+        grad_mask = het.uniform(size=(rounds, n)) < gr
+    alive = None
+    if active is not None and not active.all():
+        alive = np.broadcast_to(active, (rounds, n)).copy()
+
+    return Schedule(partners, event_times, event_mask, grad_times,
+                    grad_mask=grad_mask, alive=alive)
+
+
+def _per_edge_events(graph: Graph, rounds: int, comms_per_grad: float,
+                     rng: np.random.Generator, t_offset: float):
+    """Per-edge Poisson firing (Def 3.1): edge e fires Poisson(c * rate_e)
+    times per round; each firing is a single-pair event."""
+    n, E = graph.n, graph.num_edges
+    lam = comms_per_grad * np.asarray(graph.rates, dtype=np.float64)
+    counts = rng.poisson(lam=lam, size=(rounds, max(E, 1))) if E else \
+        np.zeros((rounds, 1), dtype=np.int64)
+    kmax = max(1, int(counts.sum(axis=1).max()))
+    partners = np.tile(np.arange(n, dtype=np.int32), (rounds, kmax, 1))
+    event_times = np.zeros((rounds, kmax), dtype=np.float32)
+    event_mask = np.zeros((rounds, kmax), dtype=bool)
+    for r in range(rounds):
+        fired = np.repeat(np.arange(counts.shape[1]), counts[r]) if E else \
+            np.zeros(0, np.int64)
+        k = len(fired)
+        rng.shuffle(fired)  # decorrelate edge identity from the sorted times
+        times = np.sort(rng.uniform(r + t_offset, r + t_offset + 1,
+                                    size=k)).astype(np.float32)
+        last = np.float32(r + t_offset)
+        for e in range(kmax):
+            if e < k:
+                i, j = graph.edges[int(fired[e])]
+                partners[r, e, i] = j
+                partners[r, e, j] = i
+                event_times[r, e] = times[e]
+                event_mask[r, e] = True
+                last = times[e]
+            else:
+                event_times[r, e] = last
+    return partners, event_times, event_mask
+
+
+def concat_schedules(schedules: list[Schedule]) -> Schedule:
+    """Concatenate per-phase schedules (absolute times) into one Schedule.
+
+    Rounds are padded to the widest per-phase kmax with masked
+    identity-partner slots, so the replay consumes the result exactly like
+    a single-phase schedule.
+    """
+    if not schedules:
+        raise ValueError("need at least one schedule")
+    if len(schedules) == 1:
+        return schedules[0]
+    n = schedules[0].n
+    if any(s.n != n for s in schedules):
+        raise ValueError("schedules must share one worker count")
+    kmax = max(s.partners.shape[1] for s in schedules)
+    parts, times, masks = [], [], []
+    for s in schedules:
+        R, K, _ = s.partners.shape
+        if K < kmax:
+            pad_p = np.tile(np.arange(n, dtype=np.int32), (R, kmax - K, 1))
+            # masked pads repeat the row's last time (dt handled by mask)
+            pad_t = np.repeat(s.event_times[:, -1:], kmax - K, axis=1)
+            parts.append(np.concatenate([s.partners, pad_p], axis=1))
+            times.append(np.concatenate([s.event_times, pad_t], axis=1))
+            masks.append(np.concatenate(
+                [s.event_mask, np.zeros((R, kmax - K), bool)], axis=1))
+        else:
+            parts.append(s.partners)
+            times.append(s.event_times)
+            masks.append(s.event_mask)
+    any_gmask = any(s.grad_mask is not None for s in schedules)
+    any_alive = any(s.alive is not None for s in schedules)
+    gmask = np.concatenate(
+        [s.grad_mask if s.grad_mask is not None
+         else np.ones((s.rounds, n), bool) for s in schedules]) \
+        if any_gmask else None
+    alive = np.concatenate([s.alive_arr() for s in schedules]) \
+        if any_alive else None
+    # extension channel: union of keys; schedules without a key contribute
+    # zero rows, the K axis pads with zeros like masked slots
+    keys: list[str] = []
+    for s in schedules:
+        keys += [k for k in s.extras_dict() if k not in keys]
+    extras = None
+    if keys:
+        extras = {}
+        for k in keys:
+            dtype = next(s.extras[k].dtype for s in schedules
+                         if s.extras_dict().get(k) is not None)
+            chunks = []
+            for s in schedules:
+                a = s.extras_dict().get(k)
+                if a is None:
+                    a = np.zeros((s.rounds, kmax, n), dtype)
+                elif a.shape[1] < kmax:
+                    a = np.concatenate(
+                        [a, np.zeros((s.rounds, kmax - a.shape[1], n),
+                                     a.dtype)], axis=1)
+                chunks.append(a)
+            extras[k] = np.concatenate(chunks)
+    return Schedule(
+        np.concatenate(parts), np.concatenate(times).astype(np.float32),
+        np.concatenate(masks),
+        np.concatenate([s.grad_times for s in schedules]).astype(np.float32),
+        grad_mask=gmask, alive=alive, extras=extras)
+
+
+# ---------------------------------------------------------------------------
+# Event coalescing (flat-buffer event engine)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CoalescedSchedule:
+    """Schedule compiled to fused event *batches* (B = max batches/round).
+
+    A batch is a set of events whose matchings are worker-disjoint, so their
+    updates commute and apply in ONE sweep of the state with a combined
+    partner involution and per-worker event times.  Masked slots vanish.
+
+    Shapes (R = rounds, B = max batches/round, n = workers):
+      partners     (R, B, n) int32 — combined involution; i for idle workers
+      wtimes       (R, B, n) f32   — per-worker event time (valid where the
+                                     worker is involved, i.e. partner != i)
+      batch_active (R, B) bool     — False = padding, skip the sweep
+      grad_times   (R, n) f32      — unchanged from the raw schedule
+      grad_mask / alive / extras   — carried through from the raw schedule
+    """
+
+    partners: np.ndarray
+    wtimes: np.ndarray
+    batch_active: np.ndarray
+    grad_times: np.ndarray
+    grad_mask: np.ndarray | None = None
+    alive: np.ndarray | None = None
+    extras: dict[str, np.ndarray] | None = None
+
+    @property
+    def rounds(self) -> int:
+        return self.partners.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.partners.shape[2]
+
+    def alive_arr(self) -> np.ndarray:
+        return _alive_arr(self.rounds, self.n, self.alive)
+
+    def grad_scale(self) -> np.ndarray:
+        return _grad_scale(self.rounds, self.n, self.grad_mask, self.alive)
+
+    def extras_dict(self) -> dict[str, np.ndarray]:
+        return dict(self.extras) if self.extras else {}
+
+    def num_batches(self) -> int:
+        """Fused sweeps the engine performs (vs kmax*rounds in the raw path)."""
+        return int(self.batch_active.sum())
+
+
+def coalesce_schedule(schedule: Schedule) -> CoalescedSchedule:
+    """Compile a raw per-event schedule into coalesced batches.
+
+    Greedy in event order: event e merges into the current batch iff none of
+    its involved workers already appears in the batch — disjoint matchings
+    commute and exp(dt1 A) exp(dt2 A) = exp((dt1+dt2) A) lets each worker
+    carry its own accumulated mixing horizon, so the merge is exact up to
+    float reordering.  Masked slots are dropped outright.
+    """
+    R, K, n = schedule.partners.shape
+    idx = np.arange(n)
+    raw_ext = schedule.extras_dict()
+    per_round: list[list[tuple]] = []
+    for r in range(R):
+        batches: list[tuple] = []  # (partner, wtime, {name: (n,) attr})
+        busy = np.zeros(n, dtype=bool)  # workers involved in current batch
+        for e in range(K):
+            if not schedule.event_mask[r, e]:
+                continue
+            p = schedule.partners[r, e]
+            involved = p != idx
+            if not involved.any():
+                continue
+            t = schedule.event_times[r, e]
+            if batches and not (busy & involved).any():
+                # disjoint from the open batch: merge
+                partner, wtime, ext = batches[-1]
+                partner[involved] = p[involved]
+                wtime[involved] = t
+            else:
+                partner = idx.astype(np.int32).copy()
+                partner[involved] = p[involved]
+                wtime = np.zeros(n, dtype=np.float32)
+                wtime[involved] = t
+                ext = {k: np.zeros(n, a.dtype) for k, a in raw_ext.items()}
+                batches.append((partner, wtime, ext))
+                busy = np.zeros(n, dtype=bool)
+            for k, a in raw_ext.items():
+                ext[k][involved] = a[r, e, involved]
+            busy |= involved
+        per_round.append(batches)
+
+    B = max(1, max(len(b) for b in per_round))
+    partners = np.tile(idx.astype(np.int32), (R, B, 1))
+    wtimes = np.zeros((R, B, n), dtype=np.float32)
+    batch_active = np.zeros((R, B), dtype=bool)
+    extras = {k: np.zeros((R, B, n), a.dtype) for k, a in raw_ext.items()} \
+        if raw_ext else None
+    for r, batches in enumerate(per_round):
+        for b, (partner, wtime, ext) in enumerate(batches):
+            partners[r, b] = partner
+            wtimes[r, b] = wtime
+            batch_active[r, b] = True
+            if extras is not None:
+                for k in extras:
+                    extras[k][r, b] = ext[k]
+    return CoalescedSchedule(partners, wtimes, batch_active,
+                             schedule.grad_times.astype(np.float32),
+                             grad_mask=schedule.grad_mask,
+                             alive=schedule.alive, extras=extras)
+
+
+@dataclasses.dataclass(frozen=True)
+class EventStream:
+    """A coalesced schedule flattened into ONE step stream.
+
+    The engine replays ``S = num_batches + rounds`` steps — one per fused
+    comm batch plus one per gradient tick.  Each step applies its own update
+    then the mixing segment to the NEXT step ([P_i, mix(d_{i+1})] grouping);
+    ``prologue`` is the per-worker mixing from the start clocks ``t0`` to
+    each worker's first event.  All segments are resolved host-side.
+
+    Shapes (S = steps, n = workers, R = rounds):
+      prologue   (n,) f32
+      partners   (S, n) int32 — identity rows for gradient steps
+      dt_next    (S, n) f32
+      is_grad    (S,) bool
+      grad_scale (S, n) f32  — gradient-application scale at gradient steps
+      grad_pos   (R,) int32  — step index of round r's gradient tick
+      t_final    (n,) f32    — per-worker clock after the last step
+      extras     dict of named (S, n) arrays (zero rows at gradient ticks)
+    """
+
+    prologue: np.ndarray
+    partners: np.ndarray
+    dt_next: np.ndarray
+    is_grad: np.ndarray
+    grad_scale: np.ndarray
+    grad_pos: np.ndarray
+    t_final: np.ndarray
+    extras: dict[str, np.ndarray] | None = None
+
+    @property
+    def steps(self) -> int:
+        return self.partners.shape[0]
+
+
+def coalesced_stream(cs: CoalescedSchedule, t0: np.ndarray) -> EventStream:
+    """Flatten a coalesced schedule into an EventStream given start clocks.
+
+    A detached worker's clock never advances (zero dt segments), a
+    straggler's masked gradient tick still advances its clock and mixing
+    horizon but contributes grad_scale 0.
+    """
+    R, B, n = cs.partners.shape
+    idx = np.arange(n)
+    alive = cs.alive_arr()
+    gscale = cs.grad_scale()
+    cs_ext = cs.extras_dict()
+    partners, dt_next, is_grad, grad_scale, grad_pos = [], [], [], [], []
+    ext_rows: dict[str, list[np.ndarray]] = {k: [] for k in cs_ext}
+    ext_zero = {k: np.zeros(n, a.dtype) for k, a in cs_ext.items()}
+    prologue = None
+    tl = np.array(t0, np.float32).copy()
+
+    def emit(partner, delta, grad, gs, ext):
+        nonlocal prologue
+        if prologue is None:
+            prologue = delta
+        else:
+            dt_next[-1] = delta
+        partners.append(partner)
+        dt_next.append(np.zeros(n, np.float32))
+        is_grad.append(grad)
+        grad_scale.append(gs)
+        for k in ext_rows:
+            ext_rows[k].append(ext[k])
+
+    ones = np.ones(n, np.float32)
+    for r in range(R):
+        for b in range(B):
+            if not cs.batch_active[r, b]:
+                continue
+            inv = cs.partners[r, b] != idx
+            delta = np.zeros(n, np.float32)
+            delta[inv] = cs.wtimes[r, b, inv] - tl[inv]
+            tl[inv] = cs.wtimes[r, b, inv]
+            emit(cs.partners[r, b].astype(np.int32), delta, False, ones,
+                 {k: a[r, b] for k, a in cs_ext.items()})
+        adv = alive[r]
+        delta = np.where(adv, cs.grad_times[r] - tl, 0.0).astype(np.float32)
+        tl = np.where(adv, cs.grad_times[r], tl).astype(np.float32)
+        emit(idx.astype(np.int32), delta, True, gscale[r], ext_zero)
+        grad_pos.append(len(partners) - 1)
+
+    return EventStream(
+        prologue=prologue,
+        partners=np.stack(partners),
+        dt_next=np.stack(dt_next),
+        is_grad=np.asarray(is_grad, bool),
+        grad_scale=np.stack(grad_scale).astype(np.float32),
+        grad_pos=np.asarray(grad_pos, np.int32),
+        t_final=tl.copy(),
+        extras={k: np.stack(v) for k, v in ext_rows.items()}
+        if ext_rows else None,
+    )

@@ -1,0 +1,138 @@
+"""Flat-buffer layout for worker-stacked pytree state.
+
+The gossip-event loop is the unit of cost: every event touches the whole
+replica.  ``FlatLayout`` packs the replica into ONE contiguous buffer with a
+static layout spec, so an event is a single fused sweep:
+
+  * stacked form — leaves (W, *shape) -> one (W, D) buffer, worker-major;
+  * local form   — leaves (*shape)    -> one (D,) vector.
+
+D is the sum of leaf sizes rounded up to a multiple of ``LANE`` (128), so
+every row starts 16-byte aligned for any buffer dtype and the hand kernel
+can use 16-byte vector loads.  Padding columns are zeros and stay zero under
+mixing, p2p and gradient updates (all linear with a 0 fixed point).
+
+Leaves are visited in the JAX package's order (sorted dict keys, see
+``tree``), so a packed buffer equals the JAX ``FlatLayout.pack`` output
+column for column.  The buffer dtype is inferred as in the JAX package: a
+uniform-dtype tree packs at its own precision, mixed floating dtypes pack at
+the narrowest dtype that embeds every leaf exactly (f32, else f64), anything
+else raises ``TypeError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .tree import PyTree, TreeDef, tree_flatten
+
+LANE = 128  # row width granule: 16-byte aligned rows for every dtype
+
+# floating dtypes whose values embed losslessly in each buffer dtype
+_EXACT_EMBED = {
+    torch.float16: {torch.float16},
+    torch.bfloat16: {torch.bfloat16},
+    torch.float32: {torch.float32, torch.bfloat16, torch.float16},
+    torch.float64: {torch.float64, torch.float32, torch.bfloat16,
+                    torch.float16},
+}
+
+
+def _infer_buf_dtype(dtypes: set) -> torch.dtype:
+    """Narrowest buffer dtype that round-trips every leaf dtype exactly."""
+    if len(dtypes) == 1:
+        (d,) = dtypes
+        if d in _EXACT_EMBED:
+            return d
+        raise TypeError(f"leaf dtype {d} is not a supported buffer dtype")
+    for buf in (torch.float32, torch.float64):
+        if dtypes <= _EXACT_EMBED[buf]:
+            return buf
+    raise TypeError("no buffer dtype embeds leaf dtypes "
+                    f"{sorted(map(str, dtypes))} exactly")
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """Static placement of one pytree leaf inside the flat buffer."""
+
+    offset: int              # start column in the flat axis
+    size: int                # number of elements (= prod(shape))
+    shape: tuple[int, ...]   # per-worker shape (no leading worker axis)
+    dtype: torch.dtype       # original leaf dtype, restored on unpack
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Static pack/unpack spec between a replica pytree and a flat buffer."""
+
+    treedef: TreeDef
+    specs: tuple[LeafSpec, ...]
+    d: int                   # padded flat width (multiple of ``lane``)
+    d_real: int              # sum of leaf sizes (<= d)
+    buf_dtype: torch.dtype
+
+    @classmethod
+    def from_pytree(cls, tree: PyTree, *, stacked: bool = False,
+                    buf_dtype: torch.dtype | None = None,
+                    lane: int = LANE) -> "FlatLayout":
+        """Build a layout from a template pytree (shapes and dtypes only).
+
+        stacked=True strips a leading worker axis from every leaf.
+        buf_dtype=None infers the narrowest exact buffer dtype; passing one
+        explicitly still validates exactness.
+        """
+        leaves, treedef = tree_flatten(tree)
+        if buf_dtype is None:
+            buf_dtype = _infer_buf_dtype({a.dtype for a in leaves})
+        lead = 1 if stacked else 0
+        specs = []
+        off = 0
+        for leaf in leaves:
+            shape = tuple(leaf.shape[lead:])
+            if leaf.dtype not in _EXACT_EMBED.get(buf_dtype, ()):
+                raise TypeError(
+                    f"leaf dtype {leaf.dtype} does not round-trip exactly "
+                    f"through buffer dtype {buf_dtype}")
+            size = math.prod(shape)
+            specs.append(LeafSpec(off, size, shape, leaf.dtype))
+            off += size
+        d = ((off + lane - 1) // lane) * lane if off else lane
+        return cls(treedef=treedef, specs=tuple(specs), d=d, d_real=off,
+                   buf_dtype=buf_dtype)
+
+    def pack(self, tree: PyTree) -> torch.Tensor:
+        """Stacked pytree (leaves (W, *shape)) -> fresh (W, D) buffer."""
+        leaves = self.treedef.flatten_up_to(tree)
+        w = leaves[0].shape[0]
+        buf = torch.empty((w, self.d), dtype=self.buf_dtype,
+                          device=leaves[0].device)
+        for leaf, s in zip(leaves, self.specs):
+            buf[:, s.offset:s.offset + s.size] = leaf.reshape(w, s.size)
+        buf[:, self.d_real:] = 0
+        return buf
+
+    def unpack(self, buf: torch.Tensor) -> PyTree:
+        """(W, D) buffer -> stacked pytree with original shapes/dtypes.
+        Leaves of the buffer dtype are views into ``buf``."""
+        w = buf.shape[0]
+        return self.treedef.unflatten([
+            buf[:, s.offset:s.offset + s.size]
+            .to(s.dtype).reshape((w,) + s.shape) for s in self.specs])
+
+    def pack_local(self, tree: PyTree) -> torch.Tensor:
+        """Replica pytree (leaves (*shape)) -> fresh (D,) vector."""
+        leaves = self.treedef.flatten_up_to(tree)
+        vec = torch.zeros((self.d,), dtype=self.buf_dtype,
+                          device=leaves[0].device)
+        for leaf, s in zip(leaves, self.specs):
+            vec[s.offset:s.offset + s.size] = leaf.reshape(s.size)
+        return vec
+
+    def unpack_local(self, vec: torch.Tensor) -> PyTree:
+        """(D,) vector -> replica pytree with original shapes/dtypes."""
+        return self.treedef.unflatten([
+            vec[s.offset:s.offset + s.size].to(s.dtype).reshape(s.shape)
+            for s in self.specs])
