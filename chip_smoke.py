@@ -6,24 +6,46 @@ It needs one card, the CUDA toolkit (``nvcc``) and this checkout; it never
 imports JAX or the JAX package.  Phases, each fatal on failure:
 
   1. device and build: the card, the TF32 settings (both set off: f32
-     means f32 here), the hand kernel built from ``src/`` with nvcc's
-     register and spill report;
-  2. the kernel against its plain PyTorch version on the same inputs, at
-     the slice's real shape (16 workers x ResNet-18-CIFAR's padded width,
-     f32) and at a small bf16 shape, with the exact identities (an idle row
-     with eta = 0 is untouched, padding columns stay 0), and its time beside
-     its memory bound and the plain version's time;
-  3. the slice: ResNet-18-CIFAR at full width, 16 workers on a ring, a
-     SyntheticCIFAR batch of 32 per worker, the baseline and the A2CiD2 arm
-     for 4 rounds each at one comm per gradient, through
-     ``Simulator.run_schedule``, with every comm batch and gradient tick of
-     the replay timed by CUDA events; the kernel's launch count must equal
-     the stream's comm steps, losses must be finite, and the engine must
-     agree with the per-event replay on a quadratic (n=16, d=256).
+     means f32 here), both hand kernels built from ``src/`` in parallel
+     with nvcc's register and spill report;
+  2. the clean kernel ``mixing_gossip_stacked`` against its plain PyTorch
+     version on the same inputs, at the slice's real shape (16 workers x
+     ResNet-18-CIFAR's padded width, f32) and at a small bf16 shape, with
+     the exact identities (an idle row with eta = 0 is untouched, padding
+     columns stay 0), and its time beside its memory bound and the plain
+     version's time;
+  3. the clean slice: ResNet-18-CIFAR at full width, 16 workers on a ring,
+     a SyntheticCIFAR batch of 32 per worker, the baseline and the A2CiD2
+     arm for 4 rounds each at one comm per gradient, through
+     ``Simulator.run_schedule``, with every comm batch and gradient tick
+     timed by CUDA events; the clean kernel's launch count must equal the
+     stream's comm steps (and the channel kernel must not launch), losses
+     must be finite, and the engine must agree with the per-event replay on
+     a quadratic (n=16, d=256);
+  4. the channel kernel ``channel_gossip_stacked`` against its plain
+     version at the real shape (f32) and a small bf16 shape, with and
+     without a coordinate clip, with the rejection mask, on rows that mix
+     honest reads, a 1e3 scale, a sign flip, a rejected read (mscale 0), a
+     norm-clipped read and idle rows; the exact reductions (bitwise the
+     clean kernel at corrupt 0 / mscale 1 / no clip, a rejected row with
+     eta = 0 untouched, padding 0, the mask exactly ``mscale == 0``); its
+     time beside its bound and the plain version's;
+  5. the channel slice: the same model and workers for 6 rounds over a
+     hostile channel (stale reads from a ring of 2 snapshots, a 1e3 scale
+     attack on 2 of the 16 ring edges at a 50% duty cycle, 10% drops), two
+     A2CiD2 arms with the trim rule at tau = 5: static, and the
+     self-healing defense.  The channel kernel must launch once per comm
+     step (the clean kernel never), losses and consensus must be finite,
+     and the defense must reject or quarantine at least once.  Each comm
+     kernel, partner gather, delta-norm reduce and gradient tick is timed
+     by CUDA events inside the replay;
+  6. engine against the per-event replay for the channel and the defense
+     flavours on the hostile channel (quadratic, n=16, d=256, 20 rounds),
+     the defense's rejection and quarantine counts exactly equal.
 
-The line before the last is a JSON summary of every kernel of the path, the
-last line the status object.  Every printed number is prefixed with the
-card's name and power limit.
+The line before the last is a JSON summary of every kernel, the last line
+the status object.  Every printed number is prefixed with the card's name
+and power limit.
 """
 from __future__ import annotations
 
@@ -43,14 +65,31 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 N_WORKERS, BATCH, ROUNDS, SEED, GAMMA = 16, 32, 4, 0, 0.01
+# the channel slice: 6 rounds so that stale reads reach 2 snapshots back;
+# schedule seed 1 puts 8 corrupted reads in them, the first in round 0
+CHANNEL_ROUNDS, CHANNEL_SEED = 6, 1
+# the repo's own channel settings (benchmarks/run.py, _CHAN_BENCH): scale
+# 1e3 at a 50% duty cycle, stale prob 1, trim at tau 5
+ROBUST_CLIP = 5.0
 F32_TOL = 1e-5      # kernel vs plain, f32: same correctly rounded ops, exp
 BF16_TOL = 5e-2     # bf16: a one-ulp flip of c moves an output by < 2^-6 * 4
 ENGINE_TOL = 1e-5   # engine vs per-event replay, as the JAX package holds it
 FLOPS_PER_ELEM = 9  # m, 2 scaled subtractions, d, c*d, 2 outputs: 9 f32 ops
-KERNEL = {"name": "mixing_gossip_stacked", "route": "cuda",
-          "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
-                    "mixing_gossip_stacked.cu",
-          "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:222"}
+# (1+c)*xp, x - that, * mscale, then the 9 of the clean batch less its m:
+# 11 f32 ops an element (no clip)
+CHANNEL_FLOPS_PER_ELEM = 11
+KERNELS = {
+    "mixing_gossip_stacked": {
+        "name": "mixing_gossip_stacked", "route": "cuda",
+        "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
+                  "mixing_gossip_stacked.cu",
+        "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:222"},
+    "channel_gossip_stacked": {
+        "name": "channel_gossip_stacked", "route": "cuda",
+        "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
+                  "channel_gossip_stacked.cu",
+        "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:524"},
+}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -91,6 +130,52 @@ def involution(w: int, idle: int, seed: int) -> np.ndarray:
     return partner
 
 
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ops_ms": ops_ms}
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels.a2cid2_mixing import kernel
+    for name in KERNELS:
+        getattr(kernel, name).launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.a2cid2_mixing import kernel
+    return {name: getattr(kernel, name).launches for name in KERNELS}
+
+
+class ReplayTimer:
+    """CUDA-event pairs around calls made inside a replay, keyed by
+    (arm, kind); nothing waits for the card until ``ms`` is read."""
+
+    def __init__(self):
+        self.events: dict[tuple[str, str], list] = {}
+        self.arm = "warm-up"
+
+    def wrap(self, kind, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.setdefault((self.arm, kind), []).append((start, end))
+            return out
+        return call
+
+    def ms(self, arm, kind) -> list[float]:
+        return [s.elapsed_time(e) for s, e in self.events.get((arm, kind),
+                                                              [])]
+
+
+# ---------------------------------------------------------- clean kernel
 def check_kernel(card, kernel, ref, dyn, w, d, d_real, dtype, tol, gen):
     """Kernel vs plain version on one input set, plus the exact
     identities.  Returns (max_abs_err, inputs)."""
@@ -144,18 +229,15 @@ def phase_kernel(card, d, d_real, dyn):
                        warmup=1)
     # each input read once (x, x~, partner, dt), each output written once
     nbytes = 4 * w * d * x.element_size() + 2 * w * 4
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = FLOPS_PER_ELEM * w * d / PEAK_F32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    b = bound(nbytes, FLOPS_PER_ELEM * w * d)
     print(f"[{card}] kernel ({w}, {d}) f32: {ms:.4f} ms over 20 launches, "
-          f"bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB at "
-          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; ops bound {ops_ms:.4f} ms), "
-          f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved, plain version "
-          f"{plain_ms:.4f} ms; no single PyTorch call computes this "
-          f"function (library_ms null)")
+          f"bound {b['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} GB at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; ops bound "
+          f"{b['ops_ms']:.4f} ms), {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s "
+          f"achieved, plain version {plain_ms:.4f} ms; no single PyTorch "
+          f"call computes this function (library_ms null)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": None}
 
 
@@ -164,7 +246,6 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
                                   coalesce_schedule, coalesced_stream,
                                   make_schedule, params_from_graph,
                                   ring_graph)
-    from repro_torch.kernels.a2cid2_mixing.kernel import mixing_gossip_stacked
     dev = torch.device("cuda")
     graph = ring_graph(N_WORKERS)
     sched = make_schedule(graph, ROUNDS, comms_per_grad=1.0, seed=SEED)
@@ -172,30 +253,10 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
                              np.zeros(N_WORKERS, np.float32))
     comm_steps = int((~steps.is_grad).sum())
     base_grad = grad_fn_for(cfg, stream_cls(batch_size=BATCH))
-    # CUDA-event pairs around each gradient call and each comm batch of the
-    # replay, keyed by (arm, "grad" | "comm")
-    events: dict[tuple[str, str], list] = {}
-    arm_now = ["warm-up"]
-
-    def timed(kind, fn):
-        def call(*args):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args)
-            end.record()
-            events.setdefault((arm_now[0], kind), []).append((start, end))
-            return out
-        return call
-
-    timed_grad_fn = timed("grad", base_grad)
+    timer = ReplayTimer()
     engine_batch = FlatGossipEngine.batch
-
-    def timed_batch(self, *args):
-        return timed("comm", engine_batch)(self, *args)
-
-    sims = {arm: Simulator(timed_grad_fn, params_from_graph(graph, accel),
-                           GAMMA)
+    sims = {arm: Simulator(timer.wrap("grad", base_grad),
+                           params_from_graph(graph, accel), GAMMA)
             for arm, accel in (("baseline", False), ("a2cid2", True))}
     # warm-up: one model step outside the measured replay (cuDNN set-up)
     warm = sims["baseline"].init(params0, N_WORKERS,
@@ -205,12 +266,12 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    mixing_gossip_stacked.launches = 0
     walls, traces = {}, {}
-    FlatGossipEngine.batch = timed_batch
+    FlatGossipEngine.batch = timer.wrap("comm", engine_batch)
+    reset_launches()
     try:
         for arm, sim in sims.items():
-            arm_now[0] = arm
+            timer.arm = arm
             gen = torch.Generator(device=dev).manual_seed(SEED + 1)
             state = sim.init(params0, N_WORKERS, gen)
             torch.cuda.synchronize()
@@ -222,14 +283,14 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
             del state, final
     finally:
         FlatGossipEngine.batch = engine_batch
-    launches = mixing_gossip_stacked.launches
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    ms = {key: [s.elapsed_time(e) for s, e in pairs]
-          for key, pairs in events.items() if key[0] in sims}
 
-    require(launches == 2 * comm_steps,
-            f"kernel launched {launches} times, stream has {comm_steps} "
-            f"comm steps per arm")
+    require(launches["mixing_gossip_stacked"] == 2 * comm_steps,
+            f"clean kernel launched {launches['mixing_gossip_stacked']} "
+            f"times, stream has {comm_steps} comm steps per arm")
+    require(launches["channel_gossip_stacked"] == 0,
+            "the channel kernel launched on the clean path")
     for arm, tr in traces.items():
         require(tr.loss.shape == (ROUNDS,)
                 and bool(torch.isfinite(tr.loss).all())
@@ -237,11 +298,12 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
                 f"{arm}: non-finite or misshapen trace")
         print(f"[{card}] {arm}: loss {tr.loss.tolist()} consensus "
               f"{tr.consensus.tolist()} replay {walls[arm]:.1f} ms")
-    print(f"[{card}] slice: {comm_steps} comm steps + {ROUNDS} gradient "
-          f"ticks per arm; kernel launches {launches} == 2 x {comm_steps}; "
-          f"peak memory {peak / 2**30:.2f} GiB")
+    print(f"[{card}] clean slice: {comm_steps} comm steps + {ROUNDS} "
+          f"gradient ticks per arm; clean kernel launches "
+          f"{launches['mixing_gossip_stacked']} == 2 x {comm_steps}, "
+          f"channel kernel 0; peak memory {peak / 2**30:.2f} GiB")
     for arm, wall in walls.items():
-        comm, grad = ms[(arm, "comm")], ms[(arm, "grad")]
+        comm, grad = timer.ms(arm, "comm"), timer.ms(arm, "grad")
         require(len(comm) == comm_steps and len(grad) == ROUNDS,
                 f"{arm}: timed {len(comm)} comm batches and {len(grad)} "
                 f"gradient ticks")
@@ -252,23 +314,30 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
               f"(16 workers x {BATCH}) {np.mean(grad):.2f} ms x {ROUNDS}, "
               f"rest per tick (pack, update, metrics, mix, host) "
               f"{rest:.2f} ms; replay {wall:.1f} ms")
-    return launches
+    return launches["mixing_gossip_stacked"]
 
 
-def phase_engine_vs_reference(card):
-    from repro_torch.core import (Simulator, make_schedule,
-                                  params_from_graph, ring_graph)
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    b = torch.randn(N_WORKERS, 256, generator=gen, device=dev)
+def quadratic_sim(dev, gen, scale=1.0, **kw):
+    """A2CiD2 on a ring of 16 workers pulling toward their own optimum
+    ``scale * N(0, 1)`` in d = 256."""
+    from repro_torch.core import Simulator, params_from_graph, ring_graph
+    b = scale * torch.randn(N_WORKERS, 256, generator=gen, device=dev)
 
     def quad(x, generator, ids):
         return 0.5 * ((x - b[ids]) ** 2).sum(dim=1), x - b[ids]
 
-    graph = ring_graph(N_WORKERS)
-    sim = Simulator(quad, params_from_graph(graph, True), GAMMA)
-    state = sim.init(torch.zeros(256, device=dev), N_WORKERS, gen)
-    sched = make_schedule(graph, 20, comms_per_grad=1.5, seed=SEED + 2)
+    sim = Simulator(quad, params_from_graph(ring_graph(N_WORKERS), True),
+                    GAMMA, **kw)
+    return sim, sim.init(torch.zeros(256, device=dev), N_WORKERS, gen)
+
+
+def phase_engine_vs_reference(card):
+    from repro_torch.core import make_schedule, ring_graph
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sim, state = quadratic_sim(dev, gen)
+    sched = make_schedule(ring_graph(N_WORKERS), 20, comms_per_grad=1.5,
+                          seed=SEED + 2)
     ef, et = sim.run_schedule(state, sched)
     rf, rt = sim.run_schedule(state, sched, engine=False)
     for a, c in ((et.loss, rt.loss), (et.consensus, rt.consensus),
@@ -279,6 +348,287 @@ def phase_engine_vs_reference(card):
           f"rounds: max abs err {err:.3e} (tolerance {ENGINE_TOL:g})")
 
 
+# -------------------------------------------------------- channel kernel
+def channel_inputs(w, d, d_real, dtype, gen, with_inf=False):
+    """Rows: honest pairs (corrupt 0), a 1e3 scale read, a sign-flip read,
+    a rejected read (mscale 0), a norm-clipped read (mscale 0.3), and four
+    idle rows; the partner values pre-gathered as the engine does."""
+    dev = torch.device("cuda")
+    partner = torch.from_numpy(involution(w, idle=4, seed=d + 1)).to(dev)
+    x = torch.randn(w, d, generator=gen, device=dev).to(dtype)
+    xt = torch.randn(w, d, generator=gen, device=dev).to(dtype)
+    x[:, d_real:] = 0
+    xt[:, d_real:] = 0
+    xp = x.index_select(0, partner.long())
+    active = (partner != torch.arange(w, device=dev)).nonzero().flatten()
+    corrupt = torch.zeros(w, device=dev)
+    mscale = torch.ones(w, device=dev)
+    corrupt[active[0]], corrupt[active[1]] = 999.0, -2.0
+    mscale[active[2]], mscale[active[3]] = 0.0, 0.3
+    if with_inf:   # inf * mscale 0 = NaN in m: the clip must keep it
+        xp[active[2], :8] = float("inf")
+    dt = torch.rand(w, generator=gen, device=dev) * 1.5
+    return x, xt, xp, corrupt, mscale, dt, partner, active[2]
+
+
+def check_channel(card, dyn, w, d, d_real, dtype, tol, gen, with_inf):
+    from repro_torch.kernels.a2cid2_mixing.kernel import (
+        channel_gossip_stacked, mixing_gossip_stacked)
+    from repro_torch.kernels.a2cid2_mixing.ops import channel_event_stacked
+    x, xt, xp, corrupt, mscale, dt, partner, rejected = channel_inputs(
+        w, d, d_real, dtype, gen, with_inf)
+    err = 0.0
+    for clip in (None, 2.5):
+        for want_rej in (False, True):
+            kw = dict(clip=clip, want_rej=want_rej, **dyn)
+            ref = channel_event_stacked(x, xt, xp, corrupt, mscale, dt,
+                                        backend="ref", **kw)
+            out = channel_gossip_stacked(x, xt.clone(), xp, corrupt, mscale,
+                                         dt, **kw)
+            torch.cuda.synchronize()
+            for k, r in zip(out[:2], ref[:2]):
+                finite = torch.isfinite(r)
+                require(torch.equal(finite, torch.isfinite(k))
+                        and torch.equal(k[~finite].isnan(),
+                                        r[~finite].isnan()),
+                        f"{dtype} clip={clip}: non-finite entries differ")
+                e = (k.float() - r.float())[finite].abs().max().item()
+                ok = torch.allclose(k.float()[finite], r.float()[finite],
+                                    rtol=tol, atol=tol)
+                require(ok, f"{dtype} clip={clip}: channel kernel "
+                            f"disagrees with plain version ({e})")
+                err = max(err, e)
+            if want_rej:
+                require(torch.equal(out[2], ref[2])
+                        and torch.equal(out[2], (mscale == 0).float()),
+                        "rejection mask is not exactly mscale == 0")
+            require(bool((out[0][:, d_real:] == 0).all()
+                         and (out[1][:, d_real:] == 0).all()),
+                    "padding columns did not stay 0")
+    print(f"[{card}] channel kernel vs plain {dtype} ({w}, {d}), clip "
+          f"none/2.5, with and without the mask: max abs err {err:.3e} "
+          f"(tolerance {tol:g}); rejection mask == (mscale == 0) exactly"
+          + ("; NaN from inf x 0 propagated through the clip" if with_inf
+             else ""))
+    # exact reductions: corrupt 0, mscale 1, no clip is the clean kernel
+    ones, zeros = torch.ones_like(mscale), torch.zeros_like(corrupt)
+    cx, cxt = mixing_gossip_stacked(x, xt.clone(), partner, dt, **dyn)
+    kx, kxt = channel_gossip_stacked(x, xt.clone(),
+                                     x.index_select(0, partner.long()),
+                                     zeros, ones, dt, **dyn)
+    require(torch.equal(cx, kx) and torch.equal(cxt, kxt),
+            "corrupt 0 / mscale 1 / no clip is not the clean kernel")
+    kx0, kxt0 = channel_gossip_stacked(x, xt.clone(),
+                                       x.index_select(0, partner.long()),
+                                       corrupt, mscale, dt, eta=0.0,
+                                       alpha=0.5, alpha_t=0.5)
+    require(torch.equal(kx0[rejected], x[rejected])
+            and torch.equal(kxt0[rejected], xt[rejected]),
+            "a rejected row with eta = 0 was changed")
+    print(f"[{card}] channel identities exact: corrupt 0 / mscale 1 / no "
+          f"clip == mixing_gossip_stacked bit for bit, a rejected row with "
+          f"eta=0 untouched, {d - d_real} padding columns stay 0")
+    return err, (x, xt, xp, corrupt, mscale, dt)
+
+
+def phase_channel_kernel(card, d, d_real, dyn):
+    from repro_torch.kernels.a2cid2_mixing.kernel import \
+        channel_gossip_stacked
+    from repro_torch.kernels.a2cid2_mixing.ops import channel_event_stacked
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    err_bf16, _ = check_channel(card, dyn, N_WORKERS, 4096, 4096 - 54,
+                                torch.bfloat16, BF16_TOL, gen, True)
+    err, (x, xt, xp, corrupt, mscale, dt) = check_channel(
+        card, dyn, N_WORKERS, d, d_real, torch.float32, F32_TOL, gen, False)
+    w = N_WORKERS
+    xt_run = xt.clone()
+    ms = cuda_ms(lambda: channel_gossip_stacked(x, xt_run, xp, corrupt,
+                                                mscale, dt, **dyn), reps=20)
+    plain_ms = cuda_ms(lambda: channel_event_stacked(
+        x, xt, xp, corrupt, mscale, dt, backend="ref", **dyn), reps=5,
+        warmup=1)
+    # x, xp, x~ read once and two outputs written once; corrupt, mscale
+    # and dt read once
+    nbytes = 5 * w * d * x.element_size() + 3 * w * 4
+    b = bound(nbytes, CHANNEL_FLOPS_PER_ELEM * w * d)
+    print(f"[{card}] channel kernel ({w}, {d}) f32, no clip: {ms:.4f} ms "
+          f"over 20 launches, bound {b['bound_ms']:.4f} ms "
+          f"({nbytes / 1e9:.3f} GB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"ops bound {b['ops_ms']:.4f} ms), "
+          f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved, plain version "
+          f"{plain_ms:.4f} ms; no single PyTorch call computes this "
+          f"function (library_ms null)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None}
+
+
+# --------------------------------------------------------- channel slice
+def hostile_channel(graph):
+    from repro_torch.core import ByzantineEdges, ChannelModel, DelayProcess
+    picks = np.linspace(0, len(graph.edges), 2, endpoint=False).astype(int)
+    return ChannelModel(
+        delay=DelayProcess(horizon=2, prob=1.0),
+        adversary=ByzantineEdges(tuple(graph.edges[i] for i in picks),
+                                 "scale", scale=1e3, prob=0.5),
+        drop_prob=0.1)
+
+
+def phase_channel_slice(card, params0, cfg, stream_cls, grad_fn_for):
+    from repro_torch.core import (AdaptiveDefense, FlatGossipEngine,
+                                  Simulator, coalesce_schedule,
+                                  coalesced_stream, make_schedule,
+                                  params_from_graph, ring_graph)
+    from repro_torch.core import engine as engine_mod
+    dev = torch.device("cuda")
+    graph = ring_graph(N_WORKERS)
+    chan = hostile_channel(graph)
+    sched = chan.apply(make_schedule(graph, CHANNEL_ROUNDS,
+                                     comms_per_grad=1.0, seed=CHANNEL_SEED),
+                       seed=CHANNEL_SEED)
+    stream = coalesced_stream(coalesce_schedule(sched),
+                              np.zeros(N_WORKERS, np.float32))
+    comm_steps = int((~stream.is_grad).sum())
+    corrupt_reads = int((stream.extras["corrupt"] != 0).sum())
+    stale_reads = int((stream.extras["stale"] > 0).sum())
+    base_grad = grad_fn_for(cfg, stream_cls(batch_size=BATCH))
+    timer = ReplayTimer()
+    norms = []   # (arm, nrm, corrupt) per reduce, read after the replay
+
+    def recorded_norms(bx, xp, corrupt):
+        nrm = orig_norms(bx, xp, corrupt)
+        norms.append((timer.arm, nrm, corrupt))
+        return nrm
+
+    orig_kernel = engine_mod.channel_event_stacked
+    orig_gather = FlatGossipEngine.partner_values
+    orig_norms = FlatGossipEngine.delta_norms
+    # the class attributes themselves (staticmethod objects), to restore
+    saved = {k: FlatGossipEngine.__dict__[k] for k in ("partner_values",
+                                                       "delta_norms")}
+    params = params_from_graph(graph, True)
+    sim = Simulator(timer.wrap("grad", base_grad), params, GAMMA,
+                    robust_clip=ROBUST_CLIP, robust_rule="trim")
+    arms = {"static trim": None, "defense": AdaptiveDefense()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, traces = {}, {}
+    engine_mod.channel_event_stacked = timer.wrap("kernel", orig_kernel)
+    FlatGossipEngine.partner_values = staticmethod(
+        timer.wrap("gather", orig_gather))
+    FlatGossipEngine.delta_norms = staticmethod(
+        timer.wrap("norms", recorded_norms))
+    reset_launches()
+    try:
+        for arm, defense in arms.items():
+            timer.arm = arm
+            state = sim.init(params0, N_WORKERS, torch.Generator(
+                device=dev).manual_seed(SEED + 1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final, trace = sim.run_schedule(state, sched, defense=defense)
+            torch.cuda.synchronize()
+            walls[arm] = (time.perf_counter() - t0) * 1e3
+            traces[arm] = trace
+            del state, final
+    finally:
+        engine_mod.channel_event_stacked = orig_kernel
+        for k, v in saved.items():
+            setattr(FlatGossipEngine, k, v)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    require(launches["channel_gossip_stacked"] == 2 * comm_steps,
+            f"channel kernel launched {launches['channel_gossip_stacked']} "
+            f"times, stream has {comm_steps} comm steps per arm")
+    require(launches["mixing_gossip_stacked"] == 0,
+            "the clean kernel launched on the channel path")
+    for arm, tr in traces.items():
+        require(tr.loss.shape == (CHANNEL_ROUNDS,)
+                and bool(torch.isfinite(tr.loss).all())
+                and bool(torch.isfinite(tr.consensus).all()),
+                f"{arm}: non-finite or misshapen trace")
+        print(f"[{card}] channel {arm}: loss {tr.loss.tolist()} consensus "
+              f"{tr.consensus.tolist()} replay {walls[arm]:.1f} ms")
+    dtr = traces["defense"].defense
+    acted = float((dtr.rejections + dtr.quarantined).sum())
+    require(acted >= 1, "the defense rejected and quarantined nothing")
+    print(f"[{card}] defense: tau {dtr.tau.tolist()} rejections "
+          f"{dtr.rejections.tolist()} quarantined "
+          f"{dtr.quarantined.tolist()}")
+    for arm in arms:
+        rows = [(n, c) for a, n, c in norms if a == arm]
+        nrm = torch.cat([n for n, _ in rows]).cpu()
+        cor = torch.cat([c for _, c in rows]).cpu()
+        honest, bad = nrm[(cor == 0) & (nrm > 0)], nrm[cor != 0]
+        print(f"[{card}] channel {arm}: delta norms, honest reads "
+              f"{honest.min().item():.4g}..{honest.max().item():.4g} "
+              f"({honest.numel()}), corrupted reads "
+              f"{bad.min().item():.4g}..{bad.max().item():.4g} "
+              f"({bad.numel()}); tau {ROBUST_CLIP:g}")
+    print(f"[{card}] channel slice: {comm_steps} comm steps + "
+          f"{CHANNEL_ROUNDS} gradient ticks per arm, {stale_reads} stale "
+          f"and {corrupt_reads} corrupted reads; channel kernel launches "
+          f"{launches['channel_gossip_stacked']} == 2 x {comm_steps}, clean "
+          f"kernel 0; peak memory {peak / 2**30:.2f} GiB")
+    for arm, wall in walls.items():
+        parts = {k: timer.ms(arm, k) for k in ("kernel", "gather", "norms",
+                                                "grad")}
+        require(len(parts["kernel"]) == comm_steps
+                and len(parts["grad"]) == CHANNEL_ROUNDS
+                and len(parts["gather"]) == comm_steps
+                and len(parts["norms"]) == comm_steps,
+                f"{arm}: timed {[len(v) for v in parts.values()]} calls")
+        rest = (wall - sum(sum(v) for v in parts.values())) / CHANNEL_ROUNDS
+        print(f"[{card}] channel {arm} step breakdown (CUDA events in the "
+              f"replay): kernel {np.mean(parts['kernel']):.4f} ms x "
+              f"{comm_steps} {[round(t, 4) for t in parts['kernel']]}, "
+              f"partner_values {np.mean(parts['gather']):.4f} ms x "
+              f"{comm_steps}, delta_norms {np.mean(parts['norms']):.4f} ms "
+              f"x {comm_steps}, gradient tick model (16 workers x {BATCH}) "
+              f"{np.mean(parts['grad']):.2f} ms x {CHANNEL_ROUNDS}, rest "
+              f"per tick (pack, update, metrics, ring push, mix, defense, "
+              f"host) {rest:.2f} ms; replay {wall:.1f} ms")
+    return launches["channel_gossip_stacked"]
+
+
+def phase_channel_engine_vs_reference(card):
+    from repro_torch.core import AdaptiveDefense, make_schedule, ring_graph
+    dev = torch.device("cuda")
+    graph = ring_graph(N_WORKERS)
+    sched = hostile_channel(graph).apply(
+        make_schedule(graph, 20, comms_per_grad=1.5, seed=SEED + 4),
+        seed=SEED + 4)
+    for flavour, defense in (("channel", None),
+                             ("defense", AdaptiveDefense())):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        # optima at scale 0.1 keep honest delta norms (about 0.1-2) under
+        # tau while the 1e3 scale reads land far above it
+        sim, state = quadratic_sim(dev, gen, scale=0.1,
+                                   robust_clip=ROBUST_CLIP)
+        ef, et = sim.run_schedule(state, sched, defense=defense)
+        rf, rt = sim.run_schedule(state, sched, defense=defense,
+                                  engine=False)
+        for a, c in ((et.loss, rt.loss), (et.consensus, rt.consensus),
+                     (ef.x, rf.x), (ef.x_tilde, rf.x_tilde)):
+            torch.testing.assert_close(a, c, rtol=ENGINE_TOL, atol=1e-6)
+        err = (ef.x - rf.x).abs().max().item()
+        extra = ""
+        if defense is not None:
+            require(torch.equal(et.defense.rejections, rt.defense.rejections)
+                    and torch.equal(et.defense.quarantined,
+                                    rt.defense.quarantined),
+                    "defense counts differ between engine and per-event")
+            torch.testing.assert_close(et.defense.tau, rt.defense.tau,
+                                       rtol=ENGINE_TOL, atol=1e-6)
+            extra = (f"; rejections {int(et.defense.rejections.sum())} and "
+                     f"quarantined {int(et.defense.quarantined.sum())}, "
+                     f"equal exactly")
+        print(f"[{card}] {flavour} engine vs per-event replay, quadratic "
+              f"n=16 d=256, 20 rounds, hostile channel: max abs err "
+              f"{err:.3e} (tolerance {ENGINE_TOL:g}){extra}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -287,7 +637,7 @@ def main() -> int:
     from repro_torch.core.a2cid2 import params_from_graph
     from repro_torch.core.graphs import ring_graph
     from repro_torch.data import SyntheticCIFAR
-    from repro_torch.kernels.a2cid2_mixing.kernel import build
+    from repro_torch.kernels.a2cid2_mixing.kernel import build_all
     from repro_torch.models.resnet import (init_resnet, resnet18_cifar,
                                            resnet_grad_fn)
 
@@ -298,11 +648,14 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    lib, log = build()
-    print(f"[{card}] built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[{card}] ptxas: {line.strip()}")
+    built = build_all()
+    print(f"[{card}] built {', '.join(p.name for p, _ in built.values())} "
+          f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in "
+          f"parallel)")
+    for name, (_, log) in built.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[{card}] ptxas {name}: {line.strip()}")
 
     cfg = resnet18_cifar()
     params0 = init_resnet(torch.Generator(device="cuda").manual_seed(SEED),
@@ -310,17 +663,26 @@ def main() -> int:
     layout = FlatLayout.from_pytree(params0)
     print(f"[{card}] resnet18_cifar: {layout.d_real} parameters in "
           f"{len(layout.specs)} leaves, D = {layout.d}")
-    dyn = params_from_graph(ring_graph(N_WORKERS), True)
-    row = phase_kernel(card, layout.d, layout.d_real,
-                       dict(eta=dyn.eta, alpha=dyn.alpha,
-                            alpha_t=dyn.alpha_tilde))
+    dyn_p = params_from_graph(ring_graph(N_WORKERS), True)
+    dyn = dict(eta=dyn_p.eta, alpha=dyn_p.alpha, alpha_t=dyn_p.alpha_tilde)
+    rows = {"mixing_gossip_stacked": phase_kernel(card, layout.d,
+                                                  layout.d_real, dyn)}
     torch.cuda.empty_cache()
-    launches = phase_slice(card, params0, cfg, SyntheticCIFAR,
-                           resnet_grad_fn)
+    launches = {"mixing_gossip_stacked": phase_slice(
+        card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)}
     phase_engine_vs_reference(card)
+    torch.cuda.empty_cache()
+    rows["channel_gossip_stacked"] = phase_channel_kernel(
+        card, layout.d, layout.d_real, dyn)
+    torch.cuda.empty_cache()
+    launches["channel_gossip_stacked"] = phase_channel_slice(
+        card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)
+    phase_channel_engine_vs_reference(card)
 
     print(card)
-    print(json.dumps({"kernels": [{**KERNEL, "launches": launches, **row}]}))
+    print(json.dumps({"kernels": [
+        {**KERNELS[name], "launches": launches[name], **rows[name]}
+        for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,9 @@ from .a2cid2 import (A2CiD2Params, acid_params, apply_mixing,
                      baseline_params, consensus_distance, gradient_event,
                      matched_p2p_update, mixing_coeff, params_from_graph,
                      worker_mean)
+from .channel import (ByzantineEdges, ChannelModel, DelayProcess,
+                      degradation_profile, has_channel_extras)
+from .defense import AdaptiveDefense, DefenseTrace
 from .engine import FlatGossipEngine
 from .events import (CoalescedSchedule, EventStream, Schedule,
                      coalesce_schedule, coalesced_stream, concat_schedules,
@@ -17,6 +20,9 @@ __all__ = [
     "A2CiD2Params", "acid_params", "apply_mixing", "baseline_params",
     "consensus_distance", "gradient_event", "matched_p2p_update",
     "mixing_coeff", "params_from_graph", "worker_mean",
+    "ByzantineEdges", "ChannelModel", "DelayProcess",
+    "degradation_profile", "has_channel_extras",
+    "AdaptiveDefense", "DefenseTrace",
     "FlatGossipEngine",
     "CoalescedSchedule", "EventStream", "Schedule", "coalesce_schedule",
     "coalesced_stream", "concat_schedules", "make_schedule",

@@ -14,6 +14,12 @@ The engine owns three ingredients:
      ``[mix(d_0)] [S_0, mix(d_1)] ... [S_{K-1}, mix(d_K)]`` — the same
      composition (the mixing flow is a semigroup), but each bracketed comm
      group is ONE fused sweep reading 3 state-sized buffers and writing 2.
+
+The unreliable-channel passes (``channel_batch``, ``channel_batch_scaled``)
+take the partner values pre-gathered (``partner_values``: fresh rows or
+snapshot-ring rows) and apply the robust m-term; around the fused kernel
+they run plain PyTorch, as the JAX package runs XLA there: the ring
+gathers and the ``delta_norms`` reduce.
 """
 from __future__ import annotations
 
@@ -21,21 +27,37 @@ import dataclasses
 
 import torch
 
-from ..kernels.a2cid2_mixing.ops import gossip_event_stacked
+from ..kernels.a2cid2_mixing.ops import (channel_event_stacked,
+                                         gossip_event_stacked)
 from .a2cid2 import A2CiD2Params, apply_mixing
-from .flatbuf import FlatLayout
+from .flatbuf import FlatLayout, ring_read
 from .tree import PyTree
+
+
+def norm_scale(nrm: torch.Tensor, tau: float, rule: str) -> torch.Tensor:
+    """Per-worker robust scale from the delta norms under a norm rule:
+    'trim' rejects (0) a delta with ||m|| > tau, 'clip' rescales it to norm
+    tau.  Accepted deltas get exactly 1.0 (a bitwise no-op)."""
+    if rule == "trim":
+        return (nrm <= tau).float()
+    return torch.clamp(tau / torch.clamp(nrm, min=1e-30), max=1.0).float()
 
 
 @dataclasses.dataclass(frozen=True)
 class FlatGossipEngine:
     """Fused event engine bound to a layout and A2CiD2 params.
 
-    Comm batches launch the kernel on CUDA buffers and take the plain
-    version on CPU buffers.  ``robust_clip``/``robust_rule`` name the
-    robust aggregation of the unreliable-channel passes: the rule is
-    validated here, and a clip is refused because those passes are not
-    ported yet.
+    Comm batches launch the kernels on CUDA buffers and take the plain
+    versions on CPU buffers.  ``robust_clip`` + ``robust_rule`` engage
+    robust aggregation on the channel passes (None = plain m-term; tau =
+    robust_clip):
+
+      'trim'  — reject the whole delta when ||m||_2 > tau (m -> 0);
+      'clip'  — rescale to m * min(1, tau / ||m||_2);
+      'coord' — clip each coordinate to [-tau, +tau] inside the kernel.
+
+    The norm rules cost one extra reduce over (x, xp) for the per-worker
+    scale; the kernel itself stays 3 reads + 2 writes.
     """
 
     layout: FlatLayout
@@ -47,15 +69,13 @@ class FlatGossipEngine:
         if self.robust_rule not in ("trim", "clip", "coord"):
             raise ValueError("robust_rule must be 'trim', 'clip', or "
                              f"'coord', got {self.robust_rule!r}")
-        if self.robust_clip is not None:
-            raise NotImplementedError(
-                "robust_clip (the unreliable-channel passes) is not ported "
-                "to PyTorch yet")
 
     @classmethod
     def for_pytree(cls, tree: PyTree, params: A2CiD2Params, *,
-                   stacked: bool = True) -> "FlatGossipEngine":
-        return cls(FlatLayout.from_pytree(tree, stacked=stacked), params)
+                   stacked: bool = True, robust_clip: float | None = None,
+                   robust_rule: str = "trim") -> "FlatGossipEngine":
+        return cls(FlatLayout.from_pytree(tree, stacked=stacked), params,
+                   robust_clip, robust_rule)
 
     def pack(self, tree: PyTree) -> torch.Tensor:
         return self.layout.pack(tree)
@@ -77,3 +97,62 @@ class FlatGossipEngine:
         p = self.params
         return gossip_event_stacked(bx, bxt, partner, dt_next, eta=p.eta,
                                     alpha=p.alpha, alpha_t=p.alpha_tilde)
+
+    # ------------------------------------------- unreliable-channel passes
+    def _coord_clip(self) -> float | None:
+        return self.robust_clip if self.robust_rule == "coord" else None
+
+    @staticmethod
+    def delta_norms(bx: torch.Tensor, xp: torch.Tensor,
+                    corrupt: torch.Tensor) -> torch.Tensor:
+        """(W,) f32 L2 norms of the corrupted channel deltas: the
+        subtraction at the buffer dtype, the squares and sum in f32."""
+        cadv = (1.0 + corrupt.float()).to(bx.dtype)[:, None]
+        m32 = (bx - cadv * xp).float()
+        return torch.sqrt((m32 * m32).sum(dim=1))
+
+    def _mscale(self, bx: torch.Tensor, xp: torch.Tensor,
+                corrupt: torch.Tensor) -> torch.Tensor:
+        """Per-worker robust scale (ones when no norm rule is on)."""
+        if self.robust_clip is None or self.robust_rule == "coord":
+            return torch.ones(corrupt.shape, dtype=torch.float32,
+                              device=corrupt.device)
+        return norm_scale(self.delta_norms(bx, xp, corrupt),
+                          self.robust_clip, self.robust_rule)
+
+    def channel_batch(self, bx: torch.Tensor, bxt: torch.Tensor,
+                      xp: torch.Tensor, corrupt: torch.Tensor,
+                      dt_next: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One fused channel group on (W, D) buffers: ``xp`` the
+        pre-gathered partner values, ``corrupt`` the (W,) received-value
+        multiplier offsets; the engine's robust rule selects the m-term.
+        ``bxt`` is consumed (the CUDA kernel updates it in place)."""
+        p = self.params
+        mscale = self._mscale(bx, xp, corrupt)
+        return channel_event_stacked(bx, bxt, xp, corrupt, mscale, dt_next,
+                                     eta=p.eta, alpha=p.alpha,
+                                     alpha_t=p.alpha_tilde,
+                                     clip=self._coord_clip())
+
+    def channel_batch_scaled(self, bx: torch.Tensor, bxt: torch.Tensor,
+                             xp: torch.Tensor, corrupt: torch.Tensor,
+                             mscale: torch.Tensor, dt_next: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+        """Channel group with an EXTERNAL (W,) mscale (the self-healing
+        defense's decision); also returns the kernel's (W,) rejection mask
+        for the trust loop."""
+        p = self.params
+        return channel_event_stacked(bx, bxt, xp, corrupt, mscale, dt_next,
+                                     eta=p.eta, alpha=p.alpha,
+                                     alpha_t=p.alpha_tilde, clip=None,
+                                     want_rej=True)
+
+    @staticmethod
+    def partner_values(ring: torch.Tensor, bx: torch.Tensor,
+                       partner: torch.Tensor, src_slot: torch.Tensor
+                       ) -> torch.Tensor:
+        """Per-worker partner reads: fresh rows of ``bx`` where
+        ``src_slot == H``, ring slots otherwise."""
+        return ring_read(ring, bx, partner, src_slot)

@@ -57,8 +57,9 @@ class Schedule:
       grad_mask   (R, n) bool or None — straggler thinning (alive, no grad)
       alive       (R, n) bool or None — churn (detached, clock frozen)
       extras      dict of named (R, K, n) per-event arrays or None — the
-                  unreliable-channel keys ("stale", "corrupt") live here;
-                  the port's replay does not consume them yet
+                  unreliable-channel keys ("stale", "corrupt") live here
+                  (``channel.ChannelModel.apply`` attaches them with
+                  ``with_extras``; the channel replays consume them)
     """
 
     partners: np.ndarray
@@ -85,6 +86,26 @@ class Schedule:
 
     def extras_dict(self) -> dict[str, np.ndarray]:
         return dict(self.extras) if self.extras else {}
+
+    def with_extras(self, **arrays: np.ndarray) -> "Schedule":
+        """Attach named per-event attribute arrays (merged with existing).
+
+        Each array must be (R, K, n) — per event, per worker — or (R, K)
+        (a per-event scalar, broadcast across workers here so downstream
+        compilation stages handle one shape).
+        """
+        R, K, n = self.partners.shape
+        out = self.extras_dict()
+        for name, a in arrays.items():
+            a = np.asarray(a)
+            if a.shape == (R, K):
+                a = np.broadcast_to(a[:, :, None], (R, K, n)).copy()
+            if a.shape != (R, K, n):
+                raise ValueError(
+                    f"extras[{name!r}] must have shape ({R}, {K}, {n}) = "
+                    f"(rounds, kmax, n) or ({R}, {K}), got {a.shape}")
+            out[name] = a
+        return dataclasses.replace(self, extras=out)
 
 
 def make_schedule(

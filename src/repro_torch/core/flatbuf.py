@@ -136,3 +136,50 @@ class FlatLayout:
         return self.treedef.unflatten([
             vec[s.offset:s.offset + s.size].to(s.dtype).reshape(s.shape)
             for s in self.specs])
+
+
+# ---------------------------------------------------------------------------
+# snapshot ring (unreliable-channel stale reads)
+# ---------------------------------------------------------------------------
+# The channel's delay axis reads partner values from past flat states.  The
+# replay keeps an (H, W, D) ring of the last H snapshots, written at each
+# gradient tick (one snapshot per round).  Slot indices are schedule data
+# resolved on the host ((r - staleness) mod H); the loop only gathers and
+# copies.  Unlike the JAX package's ring (an immutable broadcast), this one
+# owns its (H, W, D) storage: ``ring_push`` writes a slot in place, which
+# through an ``expand`` view would overwrite every slot at once.
+
+def ring_init(buf: torch.Tensor, horizon: int) -> torch.Tensor:
+    """(H, W, D) ring with its own storage, every slot a copy of ``buf``
+    (staleness clamping guarantees no slot is read before round r >= 1 has
+    written it anyway)."""
+    if horizon <= 0:
+        raise ValueError(f"ring_init needs horizon >= 1, got {horizon}")
+    return buf.unsqueeze(0).repeat((horizon,) + (1,) * buf.dim())
+
+
+def ring_push(ring: torch.Tensor, buf: torch.Tensor, pos: int
+              ) -> torch.Tensor:
+    """Copy ``buf`` into slot ``pos`` (= round mod H, host-resolved), in
+    place; the ring never aliases ``buf``.  Returns the ring."""
+    ring[pos].copy_(buf)
+    return ring
+
+
+def ring_read(ring: torch.Tensor, buf: torch.Tensor, partner: torch.Tensor,
+              src_slot: torch.Tensor) -> torch.Tensor:
+    """(W, ...) partner values under staleness (``buf`` (W, ...), ``ring``
+    (H, W, ...): a flat buffer or one leaf of a stacked pytree).
+
+    ``src_slot[w]`` selects where worker w's read is served from: the
+    sentinel ``H`` (= ring depth) means a fresh read of the partner's
+    current row in ``buf``; ``0..H-1`` name a ring slot.  Two row gathers
+    plus a select, as in the JAX package.
+    """
+    h = ring.shape[0]
+    partner = partner.long()
+    src_slot = src_slot.long()
+    fresh = buf.index_select(0, partner)
+    stale = ring[src_slot.clamp(max=h - 1), partner]
+    sel = (src_slot < h).reshape((-1,) + (1,) * (buf.dim() - 1))
+    return torch.where(sel, stale, fresh)

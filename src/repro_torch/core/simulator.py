@@ -1,4 +1,4 @@
-"""Discrete-event simulator of Algorithm 1, plain flavor.
+"""Discrete-event simulator of Algorithm 1.
 
 Simulates n asynchronous workers on one device: every leaf of the worker
 state carries a leading worker axis ``(n, ...)``, gradients are computed for
@@ -21,11 +21,24 @@ Two replay paths, as in the JAX package:
     of fused comm batches and gradient ticks, and each comm batch is ONE
     launch of the Hopper kernel on the packed (n, D) buffers.
 
+Both paths have unreliable-channel twins (``run_channel`` and
+``run_channel_coalesced``) that ``run_schedule`` takes when the schedule
+carries ``stale``/``corrupt`` extras or robust aggregation is on: they keep
+a ring of the last H states (one snapshot per round, taken right after the
+gradient tick) to serve stale partner reads, apply per-event corruption
+multipliers, and trim/clip the p2p delta (``robust_clip``/``robust_rule``).
+Each engine comm batch is then ONE launch of the channel kernel.  Given
+``defense=AdaptiveDefense(...)`` the same twins run the self-healing
+control loop (``core/defense.py``): per comm step the delta norms feed
+``defense_comm``, the kernel's rejection mask feeds ``defense_absorb``, and
+each gradient tick runs ``defense_grad``.  Channel-free schedules run the
+plain paths.
+
 The JAX ``lax.scan``/``lax.cond`` become a host loop over the precomputed
-stream.  ``is_grad`` stays on the host, the per-step partners and mixing
-horizons are copied to the device once, and the per-round metrics stay on
-the device until the replay ends, so the loop never waits for the card.
-The unreliable-channel, defense, telemetry and sharded flavors are not
+stream.  ``is_grad`` and the ring slots stay on the host, the per-step
+schedule arrays are copied to the device once, and the per-round metrics
+and the defense state stay on the device until the replay ends, so the
+loop never waits for the card.  The telemetry and sharded flavors are not
 ported yet; ``run_schedule`` refuses them instead of taking another path.
 """
 from __future__ import annotations
@@ -33,15 +46,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from .a2cid2 import (A2CiD2Params, apply_mixing, consensus_distance,
                      matched_p2p_update, worker_mean)
-from .engine import FlatGossipEngine
+from .channel import CORRUPT_KEY, STALE_KEY
+from .defense import (DefenseTrace, defense_absorb, defense_comm,
+                      defense_grad, defense_init, knobs_single)
+from .engine import FlatGossipEngine, norm_scale
 from .events import Schedule, coalesce_schedule, coalesced_stream
-from .flatbuf import FlatLayout
-from .tree import PyTree, tree_leaves, tree_map
+from .flatbuf import FlatLayout, ring_init, ring_push, ring_read
+from .tree import PyTree, tree_flatten, tree_leaves, tree_map
 
 # grad_fn(x_stacked, generator, worker_ids) -> (losses (n,), grads) for ALL
 # workers at once: ``x_stacked`` is the state pytree with leaves (n, ...),
@@ -51,8 +68,6 @@ from .tree import PyTree, tree_leaves, tree_map
 # keys instead; torch generators do not split, so the port batches here.
 GradFn = Callable[[PyTree, torch.Generator, torch.Tensor],
                   tuple[torch.Tensor, PyTree]]
-
-_CHANNEL_KEYS = ("stale", "corrupt")
 
 
 class SimState(NamedTuple):
@@ -66,6 +81,27 @@ class SimTrace(NamedTuple):
     loss: torch.Tensor             # (rounds,) mean worker loss
     consensus: torch.Tensor        # (rounds,) ||pi x||^2 / n
     mean_param_norm: torch.Tensor  # (rounds,)
+    # control-loop trace (defense.DefenseTrace) on the self-healing
+    # replays, None elsewhere
+    defense: Any = None
+
+
+def _stack_rows(rows, cls):
+    """Per-round tuples of 0-d tensors -> ``cls`` of (rounds,) tensors."""
+    return cls(*(torch.stack(c) for c in zip(*rows)))
+
+
+def _cadv(corrupt: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """(1 + corrupt) in f32, rounded to ``a``'s dtype, shaped to broadcast
+    against the (n, ...) leaf ``a``."""
+    c = (1.0 + corrupt.float()).to(a.dtype)
+    return c.reshape(c.shape + (1,) * (a.dim() - 1))
+
+
+def _per_worker(v: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """(n,) per-worker scale at ``a``'s dtype, broadcastable against it."""
+    v = v.to(a.dtype)
+    return v.reshape(v.shape + (1,) * (a.dim() - 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +109,18 @@ class Simulator:
     grad_fn: GradFn
     params: A2CiD2Params
     gamma: float
+    # robust aggregation against Byzantine channels: None = plain m-term;
+    # with tau = robust_clip, robust_rule is 'trim' (reject the delta when
+    # ||m|| > tau), 'clip' (rescale to norm tau) or 'coord' (clip each
+    # coordinate)
     robust_clip: float | None = None
+    robust_rule: str = "trim"
     device: Any = "cuda"   # the card unless the caller names the CPU
 
     def __post_init__(self):
+        if self.robust_rule not in ("trim", "clip", "coord"):
+            raise ValueError("robust_rule must be 'trim', 'clip', or "
+                             f"'coord', got {self.robust_rule!r}")
         object.__setattr__(self, "device", resolve_device(self.device))
 
     def init(self, x0: PyTree, n: int, generator: torch.Generator
@@ -104,41 +148,186 @@ class Simulator:
                 torch.as_tensor(sched.grad_scale(), device=dev),
                 torch.as_tensor(sched.alive_arr(), device=dev))
 
+    def _comm_mix(self, x, xt, t_last, partner, time, mask, ids):
+        """Lazy mixing of the involved workers up to the event time (their
+        clocks advance); returns (x, x~, t_last, involved)."""
+        involved = (partner != ids) & mask
+        dt = torch.where(involved, time - t_last, 0.0)
+        x, xt = apply_mixing(x, xt, self.params.eta, dt)
+        return x, xt, torch.where(involved, time, t_last), involved
+
+    def _gradient_round(self, x, xt, t_last, generator, grad_times,
+                        grad_scale, alive, ids):
+        """The per-event path's gradient tick: mixing up to each worker's
+        gradient time, the batched gradient step on both buffers, the
+        round's metrics row.  Detached workers neither advance their clock
+        nor mix; stragglers advance and mix but skip the gradient."""
+        dt = torch.where(alive, grad_times - t_last, 0.0)
+        x, xt = apply_mixing(x, xt, self.params.eta, dt)
+        losses, grads = self.grad_fn(x, generator, ids)
+
+        def upd(p, g):
+            sc = grad_scale.reshape(grad_scale.shape
+                                    + (1,) * (g.dim() - 1)).to(g.dtype)
+            return p - self.gamma * (sc * g)
+
+        x, xt = tree_map(upd, x, grads), tree_map(upd, xt, grads)
+        row = (losses.mean().float(), consensus_distance(x).float(),
+               sum((m ** 2).sum() for m in
+                   tree_leaves(worker_mean(x))).float())
+        return x, xt, torch.where(alive, grad_times, t_last), row
+
     def run(self, state: SimState, schedule_arrays
             ) -> tuple[SimState, SimTrace]:
         """Per-event reference replay (unfused, sweeps masked slots too)."""
         partners, times, mask, grad_times, grad_scale, alive = schedule_arrays
         x, xt, t_last = state.x, state.x_tilde, state.t_last
-        n = t_last.shape[0]
-        ids = torch.arange(n, device=t_last.device)
+        ids = torch.arange(t_last.shape[0], device=t_last.device)
         rows = []
         for r in range(partners.shape[0]):
             for k in range(partners.shape[1]):
-                partner, time = partners[r, k], times[r, k]
-                involved = (partner != ids) & mask[r, k]
-                dt = torch.where(involved, time - t_last, 0.0)
-                x, xt = apply_mixing(x, xt, self.params.eta, dt)
-                t_last = torch.where(involved, time, t_last)
-                x, xt = matched_p2p_update(x, xt, partner, self.params)
-            # detached workers neither advance their clock nor mix;
-            # stragglers advance and mix but skip the gradient
-            dt = torch.where(alive[r], grad_times[r] - t_last, 0.0)
-            x, xt = apply_mixing(x, xt, self.params.eta, dt)
-            losses, grads = self.grad_fn(x, state.generator, ids)
-            s = grad_scale[r]
-
-            def upd(p, g):
-                sc = s.reshape(s.shape + (1,) * (g.dim() - 1)).to(g.dtype)
-                return p - self.gamma * (sc * g)
-
-            x, xt = tree_map(upd, x, grads), tree_map(upd, xt, grads)
-            t_last = torch.where(alive[r], grad_times[r], t_last)
-            rows.append((losses.mean().float(),
-                         consensus_distance(x).float(),
-                         sum((m ** 2).sum() for m in
-                             tree_leaves(worker_mean(x))).float()))
+                x, xt, t_last, _ = self._comm_mix(
+                    x, xt, t_last, partners[r, k], times[r, k], mask[r, k],
+                    ids)
+                x, xt = matched_p2p_update(x, xt, partners[r, k],
+                                           self.params)
+            x, xt, t_last, row = self._gradient_round(
+                x, xt, t_last, state.generator, grad_times[r],
+                grad_scale[r], alive[r], ids)
+            rows.append(row)
         return (SimState(x, xt, t_last, state.generator),
-                SimTrace(*(torch.stack(c) for c in zip(*rows))))
+                _stack_rows(rows, SimTrace))
+
+    # ------------------------------------------- per-event channel path
+    @staticmethod
+    def _delta_norms_tree(x, xp, corrupt):
+        """Pytree twin of ``FlatGossipEngine.delta_norms``: (n,) f32 L2
+        norms of the corrupted channel deltas (per-leaf f32 square-sums)."""
+        flat_x, treedef = tree_flatten(x)
+        flat_p = treedef.flatten_up_to(xp)
+        nrm2 = sum(((a - _cadv(corrupt, a) * b).float() ** 2)
+                   .reshape(a.shape[0], -1).sum(dim=1)
+                   for a, b in zip(flat_x, flat_p))
+        return torch.sqrt(nrm2)
+
+    def _p2p_from(self, x, xt, xp, corrupt, mscale=None, clip=None):
+        """p2p update from received values: m = x - (1+corrupt) xp, scaled
+        by a per-worker ``mscale`` or clipped per coordinate to ``clip``."""
+        p = self.params
+
+        def upd(a, at, b):
+            m = a - _cadv(corrupt, a) * b
+            if mscale is not None:
+                m = m * _per_worker(mscale, a)
+            elif clip is not None:
+                m = torch.clamp(m, -clip, clip)
+            return a - p.alpha * m, at - p.alpha_tilde * m
+
+        flat_x, treedef = tree_flatten(x)
+        out = [upd(a, at, b) for a, at, b in
+               zip(flat_x, treedef.flatten_up_to(xt),
+                   treedef.flatten_up_to(xp))]
+        return (treedef.unflatten([o[0] for o in out]),
+                treedef.unflatten([o[1] for o in out]))
+
+    def _channel_p2p(self, x, xt, xp, corrupt):
+        """p2p update with the robust rule on the m-term: a norm trim/clip
+        across the whole replica (the engine's flat-row norm), or the
+        per-coordinate clip."""
+        tau, rule = self.robust_clip, self.robust_rule
+        if tau is None or rule == "coord":
+            return self._p2p_from(x, xt, xp, corrupt, clip=tau)
+        mscale = norm_scale(self._delta_norms_tree(x, xp, corrupt), tau,
+                            rule)
+        return self._p2p_from(x, xt, xp, corrupt, mscale=mscale)
+
+    @staticmethod
+    def _channel_extras(extras: dict, shape):
+        """(stale, corrupt, horizon) materialized at ``shape`` (zeros where
+        a key is absent); the ring depth is the largest staleness the
+        schedule demands, so replays are self-contained."""
+        stale = extras.get(STALE_KEY)
+        stale = np.zeros(shape, np.int32) if stale is None \
+            else np.asarray(stale, np.int32)
+        corrupt = extras.get(CORRUPT_KEY)
+        corrupt = np.zeros(shape, np.float32) if corrupt is None \
+            else np.asarray(corrupt, np.float32)
+        horizon = int(stale.max()) if stale.size else 0
+        return stale, corrupt, horizon
+
+    def channel_reference_arrays(self, sched: Schedule):
+        """Per-event channel replay inputs + the ring depth H.  A read in
+        round r that is s rounds stale is served from ring slot
+        ``(r - s) mod H``; the sentinel H means a fresh read.  ``ring_pos``
+        (the slot each round's snapshot goes to) stays host numpy."""
+        R, K, n = sched.partners.shape
+        stale, corrupt, horizon = self._channel_extras(sched.extras_dict(),
+                                                       (R, K, n))
+        h = max(horizon, 1)
+        rr = np.arange(R)[:, None, None]
+        src_slot = np.where(stale > 0, (rr - stale) % h,
+                            horizon).astype(np.int32)
+        ring_pos = (np.arange(R) % h).astype(np.int32)
+        partners, times, mask, grad_times, grad_scale, alive = \
+            self.reference_arrays(sched)
+        dev = self.device
+        return (partners, times, mask,
+                torch.as_tensor(src_slot, device=dev).long(),
+                torch.as_tensor(corrupt, device=dev), grad_times,
+                grad_scale, alive, ring_pos), horizon
+
+    def run_channel(self, state: SimState, schedule_arrays, horizon: int,
+                    knobs=None) -> tuple[SimState, SimTrace]:
+        """Per-event channel replay: stale reads from a ring of per-round
+        snapshots, corrupted received values, the robust m-term.  With
+        defense ``knobs`` (``defense.knobs_single``) the self-healing loop
+        runs per event and the trace carries a ``DefenseTrace``."""
+        (partners, times, mask, src_slots, corrupts, grad_times, grad_scale,
+         alive, ring_pos) = schedule_arrays
+        x, xt, t_last = state.x, state.x_tilde, state.t_last
+        n = t_last.shape[0]
+        ids = torch.arange(n, device=t_last.device)
+        ring = tree_map(lambda a: ring_init(a, horizon), x) \
+            if horizon else None
+        ds = None if knobs is None else defense_init(n, t_last.device)
+        rows, drows = [], []
+        for r in range(partners.shape[0]):
+            for k in range(partners.shape[1]):
+                partner, corrupt = partners[r, k], corrupts[r, k]
+                x, xt, t_last, involved = self._comm_mix(
+                    x, xt, t_last, partner, times[r, k], mask[r, k], ids)
+                if horizon:
+                    xp = tree_map(lambda a, ra: ring_read(
+                        ra, a, partner, src_slots[r, k]), x, ring)
+                else:
+                    xp = tree_map(lambda a: a.index_select(0, partner), x)
+                if ds is None:
+                    # idle/masked rows read themselves fresh with corrupt
+                    # 0, so m = 0
+                    x, xt = self._channel_p2p(x, xt, xp, corrupt)
+                    continue
+                nrm = self._delta_norms_tree(x, xp, corrupt)
+                mscale, quar, ds = defense_comm(knobs, ds, partner,
+                                                involved, nrm)
+                x, xt = self._p2p_from(x, xt, xp, corrupt, mscale=mscale)
+                # the kernel's rejection output IS (mscale == 0)
+                ds = defense_absorb(ds, (mscale == 0.0).float(), quar,
+                                    involved)
+            x, xt, t_last, row = self._gradient_round(
+                x, xt, t_last, state.generator, grad_times[r],
+                grad_scale[r], alive[r], ids)
+            rows.append(row)
+            if ds is not None:
+                ds, drow = defense_grad(knobs, ds)
+                drows.append(drow)
+            if horizon:
+                # end-of-round snapshot: post-gradient, pre-trailing-mixing
+                tree_map(lambda ra, a: ring_push(ra, a, int(ring_pos[r])),
+                         ring, x)
+        trace = _stack_rows(rows, SimTrace)
+        if ds is not None:
+            trace = trace._replace(defense=_stack_rows(drows, DefenseTrace))
+        return SimState(x, xt, t_last, state.generator), trace
 
     # ----------------------------------------------- coalesced engine path
     def coalesced_arrays(self, state: SimState, sched: Schedule):
@@ -146,6 +335,9 @@ class Simulator:
         ``(prologue, partners, dt_next, is_grad, grad_scale, grad_pos,
         t_final)``.  ``is_grad`` and ``grad_pos`` stay host numpy (they
         steer the loop); the rest is copied to the device once."""
+        return self._stream_arrays(state, sched)[0]
+
+    def _stream_arrays(self, state: SimState, sched: Schedule):
         stream = coalesced_stream(coalesce_schedule(sched),
                                   state.t_last.cpu().numpy())
         dev = self.device
@@ -154,7 +346,26 @@ class Simulator:
                 torch.as_tensor(stream.dt_next, device=dev),
                 stream.is_grad, torch.as_tensor(stream.grad_scale,
                                                 device=dev),
-                stream.grad_pos, torch.as_tensor(stream.t_final, device=dev))
+                stream.grad_pos, torch.as_tensor(stream.t_final,
+                                                 device=dev)), stream
+
+    def _grad_tick(self, engine: FlatGossipEngine, bx, bxt, generator,
+                   gscale, ids):
+        """The engine's gradient tick: the batched gradient on the unpacked
+        buffer, the step on both buffers and the round's metrics row (the
+        trailing mixing segment is the caller's)."""
+        n = ids.shape[0]
+        losses, grads = self.grad_fn(engine.unpack(bx), generator, ids)
+        g = engine.pack(grads)
+        # grad_scale masks straggler/churned ticks (1.0 elsewhere)
+        g = gscale[:, None].to(g.dtype) * g
+        bx = bx - self.gamma * g
+        bxt = bxt - self.gamma * g
+        mean = bx.mean(dim=0, keepdim=True)
+        # padding columns are zero across workers: they add 0 to both
+        return bx, bxt, (losses.mean().float(),
+                         (((bx - mean) ** 2).sum() / n).float(),
+                         (mean ** 2).sum().float())
 
     def run_coalesced(self, state: SimState, stream_arrays
                       ) -> tuple[SimState, SimTrace]:
@@ -167,51 +378,124 @@ class Simulator:
         bx = engine.pack(state.x)
         bxt = engine.pack(state.x_tilde)
         bx, bxt = engine.mix(bx, bxt, prologue)
-        n = prologue.shape[0]
-        ids = torch.arange(n, device=bx.device)
+        ids = torch.arange(prologue.shape[0], device=bx.device)
         rows = []
         for s in range(len(is_grad)):
             if not is_grad[s]:
                 bx, bxt = engine.batch(bx, bxt, partners[s], dt_next[s])
                 continue
-            losses, grads = self.grad_fn(engine.unpack(bx), state.generator,
-                                         ids)
-            g = engine.pack(grads)
-            # grad_scale masks straggler/churned ticks (1.0 elsewhere)
-            g = grad_scale[s][:, None].to(g.dtype) * g
-            bx = bx - self.gamma * g
-            bxt = bxt - self.gamma * g
-            mean = bx.mean(dim=0, keepdim=True)
-            # padding columns are zero across workers: they add 0 to both
-            rows.append((losses.mean().float(),
-                         (((bx - mean) ** 2).sum() / n).float(),
-                         (mean ** 2).sum().float()))
+            bx, bxt, row = self._grad_tick(engine, bx, bxt, state.generator,
+                                           grad_scale[s], ids)
+            rows.append(row)
             bx, bxt = engine.mix(bx, bxt, dt_next[s])
         final = SimState(engine.unpack(bx), engine.unpack(bxt), t_final,
                          state.generator)
         # one row per gradient tick, in round order (= grad_pos order)
-        return final, SimTrace(*(torch.stack(c) for c in zip(*rows)))
+        return final, _stack_rows(rows, SimTrace)
+
+    def channel_coalesced_arrays(self, state: SimState, sched: Schedule):
+        """Engine inputs for a channel schedule + the ring depth H: the
+        ``coalesced_arrays`` tuple extended by ``(corrupt, src_slot,
+        ring_pos)``.  Staleness offsets resolve to absolute ring slots on
+        the host: a step of round r reading s rounds back is served from
+        slot ``(r - s) mod H``; the sentinel H means a fresh read.
+        ``ring_pos`` (the slot each step's snapshot goes to) stays host
+        numpy."""
+        arrays, stream = self._stream_arrays(state, sched)
+        S, n = stream.partners.shape
+        stale, corrupt, horizon = self._channel_extras(stream.extras or {},
+                                                       (S, n))
+        h = max(horizon, 1)
+        # round index per step: a round closes at its gradient tick
+        step_round = np.searchsorted(np.asarray(stream.grad_pos),
+                                     np.arange(S), side="left")
+        src_slot = np.where(stale > 0, (step_round[:, None] - stale) % h,
+                            horizon).astype(np.int32)
+        ring_pos = (step_round % h).astype(np.int32)
+        dev = self.device
+        return arrays + (torch.as_tensor(corrupt, device=dev),
+                         torch.as_tensor(src_slot, device=dev).long(),
+                         ring_pos), horizon
+
+    def run_channel_coalesced(self, state: SimState, stream_arrays,
+                              horizon: int, knobs=None
+                              ) -> tuple[SimState, SimTrace]:
+        """Flat-buffer engine replay of a channel stream: per comm step the
+        partner values are gathered (fresh rows or ring snapshots) and ONE
+        channel-kernel launch applies the batch; the ring takes a snapshot
+        at each gradient tick.  With defense ``knobs`` the self-healing loop
+        runs per fused batch, fed by the kernel's own rejection mask."""
+        (prologue, partners, dt_next, is_grad, grad_scale, _grad_pos,
+         t_final, corrupt, src_slot, ring_pos) = stream_arrays
+        engine = FlatGossipEngine.for_pytree(state.x, self.params,
+                                             robust_clip=self.robust_clip,
+                                             robust_rule=self.robust_rule)
+        bx = engine.pack(state.x)
+        bxt = engine.pack(state.x_tilde)
+        bx, bxt = engine.mix(bx, bxt, prologue)
+        n = prologue.shape[0]
+        ids = torch.arange(n, device=bx.device)
+        ring = ring_init(bx, horizon) if horizon else None
+        ds = None if knobs is None else defense_init(n, bx.device)
+        rows, drows = [], []
+        for s in range(len(is_grad)):
+            if not is_grad[s]:
+                partner = partners[s]
+                if horizon:
+                    xp = engine.partner_values(ring, bx, partner,
+                                               src_slot[s])
+                else:
+                    xp = bx.index_select(0, partner.long())
+                if ds is None:
+                    bx, bxt = engine.channel_batch(bx, bxt, xp, corrupt[s],
+                                                   dt_next[s])
+                    continue
+                nrm = engine.delta_norms(bx, xp, corrupt[s])
+                involved = partner != ids
+                mscale, quar, ds = defense_comm(knobs, ds, partner,
+                                                involved, nrm)
+                bx, bxt, rej = engine.channel_batch_scaled(
+                    bx, bxt, xp, corrupt[s], mscale, dt_next[s])
+                ds = defense_absorb(ds, rej, quar, involved)
+                continue
+            bx, bxt, row = self._grad_tick(engine, bx, bxt, state.generator,
+                                           grad_scale[s], ids)
+            rows.append(row)
+            if ds is not None:
+                ds, drow = defense_grad(knobs, ds)
+                drows.append(drow)
+            if horizon:
+                ring_push(ring, bx, int(ring_pos[s]))
+            bx, bxt = engine.mix(bx, bxt, dt_next[s])
+        final = SimState(engine.unpack(bx), engine.unpack(bxt), t_final,
+                         state.generator)
+        trace = _stack_rows(rows, SimTrace)
+        if ds is not None:
+            trace = trace._replace(defense=_stack_rows(drows, DefenseTrace))
+        return final, trace
 
     def run_schedule(self, state: SimState, sched: Schedule, *,
                      engine: bool = True, defense=None, telemetry=None,
                      mesh=None) -> tuple[SimState, SimTrace]:
         """Replay a schedule: the engine by default, the per-event path
-        with ``engine=False``.  On the CPU a tree that no flat buffer can
-        hold (e.g. int leaves) takes the per-event path; on the card it is
-        refused, so the kernel is never skipped quietly."""
+        with ``engine=False``.  Channel schedules (``stale``/``corrupt``
+        extras) and robust aggregation take the channel twins, an active
+        ``defense`` their self-healing form; everything else the plain
+        paths.  On the CPU a tree that no flat buffer can hold (e.g. int
+        leaves) takes the per-event path; on the card it is refused, so
+        the kernels are never skipped quietly."""
         missing = [(mesh is not None, "mesh=... (the sharded replay)"),
-                   (defense is not None, "defense=... (the defense slice)"),
                    (telemetry is not None,
-                    "telemetry=... (the telemetry slice)"),
-                   (self.robust_clip is not None,
-                    "robust_clip (the unreliable-channel slice)"),
-                   (any(k in sched.extras_dict() for k in _CHANNEL_KEYS),
-                    "channel extras 'stale'/'corrupt' (the "
-                    "unreliable-channel slice)")]
+                    "telemetry=... (the telemetry slice)")]
         for hit, what in missing:
             if hit:
                 raise NotImplementedError(
                     f"{what} is not ported to PyTorch yet")
+        active = defense is not None and defense.is_active
+        if active and self.robust_rule != "trim":
+            raise ValueError("the self-healing defense needs "
+                             "robust_rule='trim' (its accept/reject loop "
+                             f"is binary), got {self.robust_rule!r}")
         if engine:
             try:
                 # layout build validates an exact buffer dtype exists
@@ -223,7 +507,18 @@ class Simulator:
                         f"{self.device} ({err}); pass engine=False for the "
                         f"per-event replay") from err
                 engine = False  # e.g. int leaves: per-event path handles
+        extras = sched.extras_dict()
+        channel = (active or STALE_KEY in extras or CORRUPT_KEY in extras
+                   or self.robust_clip is not None)
+        knobs = knobs_single(defense, self.robust_clip, self.device) \
+            if active else None
+        if engine and channel:
+            arrays, horizon = self.channel_coalesced_arrays(state, sched)
+            return self.run_channel_coalesced(state, arrays, horizon, knobs)
         if engine:
             return self.run_coalesced(state,
                                       self.coalesced_arrays(state, sched))
+        if channel:
+            arrays, horizon = self.channel_reference_arrays(sched)
+            return self.run_channel(state, arrays, horizon, knobs)
         return self.run(state, self.reference_arrays(sched))

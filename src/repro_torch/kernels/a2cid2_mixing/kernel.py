@@ -1,14 +1,15 @@
-"""Hopper kernel for the fused A2CiD2 gossip batch, built and bound by hand.
+"""Hopper kernels for the fused A2CiD2 gossip batches, built and bound by hand.
 
-``csrc/mixing_gossip_stacked.cu`` is compiled with ``nvcc`` for ``sm_90a``
-into a shared library with a plain C entry point, at first use, into the
-repository's ``build/`` directory, keyed by a hash of the source and the
-flags; it is loaded with ``ctypes``.  Nothing is built or loaded when this
-module is imported, so the CPU tests import it freely.
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with one plain C entry point, ``<name>_launch``, at first
+use, into the repository's ``build/`` directory, keyed by a hash of the
+source and the flags; it is loaded with ``ctypes``.  ``build_all`` starts
+one ``nvcc`` per missing library, all at once.  Nothing is built or loaded
+when this module is imported, so the CPU tests import it freely.
 
-The kernel replaces the JAX package's Pallas TPU kernel
-``repro/kernels/a2cid2_mixing/kernel.py::mixing_gossip_stacked``; the
-source file states what it computes, what bounds it and how it is laid out.
+The kernels replace the JAX package's Pallas TPU kernels of the same names
+in ``repro/kernels/a2cid2_mixing/kernel.py``; each source file states what
+it computes, what bounds it and how it is laid out.
 """
 from __future__ import annotations
 
@@ -22,12 +23,27 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "mixing_gossip_stacked.cu"
+from .ref import dtype_scalar
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("mixing_gossip_stacked", "channel_gossip_stacked")
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LANE = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_P, _LL, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                   ctypes.c_int)
+_ARGTYPES = {
+    # dtype, x, x_tilde, out_x, partner, dt_next, w, d, neg2eta, alpha,
+    # alpha_t, stream
+    "mixing_gossip_stacked": [_I, _P, _P, _P, _P, _P, _LL, _LL, _F, _F, _F,
+                              _P],
+    # dtype, x, xp, x_tilde, out_x, corrupt, mscale, dt_next, rej, w, d,
+    # neg2eta, alpha, alpha_t, has_clip, clip, stream
+    "channel_gossip_stacked": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                               _F, _F, _F, _I, _F, _P],
+}
 
 
 def _nvcc() -> str:
@@ -37,77 +53,98 @@ def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernel can only be built "
+    raise RuntimeError("nvcc not found: the CUDA kernels can only be built "
                        "where the CUDA toolkit is installed")
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel library if this source and these flags have not
-    been built yet.  Returns its path and the compiler's ``-Xptxas -v``
-    report (registers, shared memory, spills)."""
-    key = hashlib.sha256(SOURCE.read_bytes()
+def _lib_path(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
+    key = hashlib.sha256(source.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libmixing_gossip_stacked_{key}.so"
-    log = lib.with_suffix(".log")
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
+    return BUILD_DIR / f"lib{name}_{key}.so"
+
+
+def build_all(names=KERNELS) -> dict[str, tuple[Path, str]]:
+    """Compile every named kernel library that this source and these flags
+    have not built yet, one ``nvcc`` each, all started together.  Returns
+    ``{name: (library path, the compiler's -Xptxas -v report)}``."""
+    jobs = {}
+    for name in names:
+        lib = _lib_path(name)
+        if not lib.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+            jobs[name] = (lib, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (lib, tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
+            failed.append(f"nvcc failed for {name} ({proc.returncode}):\n"
+                          f"{out}")
+            continue
+        lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
-    return lib, log.read_text() if log.exists() else ""
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    out = {}
+    for name in names:
+        lib = _lib_path(name)
+        log = lib.with_suffix(".log")
+        out[name] = (lib, log.read_text() if log.exists() else "")
+    return out
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    fn = lib.mixing_gossip_stacked_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+def _entry(name: str):
+    path, _ = build_all((name,))[name]
+    fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _check(x: torch.Tensor, x_tilde: torch.Tensor, partner: torch.Tensor,
-           dt_next: torch.Tensor) -> None:
+def _check_rows(name: str, x: torch.Tensor, rows: dict,
+                vectors: dict) -> None:
+    """The checks both wrappers share: ``x`` and the (W, D) ``rows`` are
+    contiguous, 16-byte aligned, of one supported dtype and shape on one
+    card; ``vectors`` maps a name to its (W,) tensor and required dtype."""
     if not x.is_cuda:
-        raise ValueError("mixing_gossip_stacked runs on CUDA tensors only; "
-                         "CPU tensors take the plain version (ops.py)")
-    for name, t in (("x_tilde", x_tilde), ("partner", partner),
-                    ("dt_next", dt_next)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    for name, t in (("x", x), ("x_tilde", x_tilde), ("partner", partner),
-                    ("dt_next", dt_next)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        raise ValueError(f"{name} runs on CUDA tensors only; CPU tensors "
+                         f"take the plain version (ops.py)")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"buffer dtype {x.dtype} is not supported by the "
                         f"CUDA kernel (float32, bfloat16)")
-    if x_tilde.dtype != x.dtype:
-        raise TypeError(f"x_tilde is {x_tilde.dtype}, x is {x.dtype}")
-    if x.dim() != 2 or x_tilde.shape != x.shape:
-        raise ValueError(f"x and x_tilde must share one (W, D) shape, got "
-                         f"{tuple(x.shape)} and {tuple(x_tilde.shape)}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (W, D), got {tuple(x.shape)}")
     w, d = x.shape
     if not 1 <= w <= 65535 or d % LANE:
         raise ValueError(f"need 1 <= W <= 65535 and D % {LANE} == 0, got "
                          f"({w}, {d})")
-    if partner.dtype != torch.int32 or partner.shape != (w,):
-        raise ValueError(f"partner must be ({w},) int32, got "
-                         f"{tuple(partner.shape)} {partner.dtype}")
-    if dt_next.dtype != torch.float32 or dt_next.shape != (w,):
-        raise ValueError(f"dt_next must be ({w},) float32, got "
-                         f"{tuple(dt_next.shape)} {dt_next.dtype}")
-    if x.data_ptr() % 16 or x_tilde.data_ptr() % 16:
-        raise ValueError("x and x_tilde must be 16-byte aligned")
+    for key, t in {"x": x, **rows}.items():
+        if t.device != x.device:
+            raise ValueError(f"{key} is on {t.device}, x on {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{key} is {t.dtype}, x is {x.dtype}")
+        if t.shape != x.shape:
+            raise ValueError(f"{key} must share x's (W, D) shape, got "
+                             f"{tuple(t.shape)} and {tuple(x.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{key} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{key} must be 16-byte aligned")
+    for key, (t, dtype) in vectors.items():
+        if t.device != x.device:
+            raise ValueError(f"{key} is on {t.device}, x on {x.device}")
+        if t.dtype != dtype or t.shape != (w,) or not t.is_contiguous():
+            raise ValueError(f"{key} must be a contiguous ({w},) {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def mixing_gossip_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
@@ -126,15 +163,16 @@ def mixing_gossip_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
     The launch is queued on the current stream and not waited for.  Each
     launch adds one to ``mixing_gossip_stacked.launches``.
     """
-    _check(x, x_tilde, partner, dt_next)
+    _check_rows("mixing_gossip_stacked", x, {"x_tilde": x_tilde},
+                {"partner": (partner, torch.int32),
+                 "dt_next": (dt_next, torch.float32)})
     w, d = x.shape
     out_x = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().mixing_gossip_stacked_launch(
+        err = _entry("mixing_gossip_stacked")(
             _DTYPE_CODE[x.dtype], x.data_ptr(), x_tilde.data_ptr(),
             out_x.data_ptr(), partner.data_ptr(), dt_next.data_ptr(), w, d,
-            float(-2.0 * eta), float(alpha), float(alpha_t), stream)
+            float(-2.0 * eta), float(alpha), float(alpha_t), _stream(x))
     if err != 0:
         raise RuntimeError(f"mixing_gossip_stacked launch failed: CUDA "
                            f"error {err}")
@@ -143,3 +181,54 @@ def mixing_gossip_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
 
 
 mixing_gossip_stacked.launches = 0
+
+
+def channel_gossip_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
+                           x_partner: torch.Tensor, corrupt: torch.Tensor,
+                           mscale: torch.Tensor, dt_next: torch.Tensor, *,
+                           eta: float, alpha: float, alpha_t: float,
+                           clip: float | None = None,
+                           want_rej: bool = False):
+    """One unreliable-channel gossip batch on the card: p2p then mix.
+
+    x, x_tilde, x_partner: (W, D) float32 or bfloat16, contiguous, D % 128
+    == 0, the partner values pre-gathered (fresh rows or ring snapshots);
+    corrupt, mscale, dt_next: (W,) float32.  ``clip`` is the coordinate
+    clip (None: none), rounded here to the buffer dtype as JAX binds a weak
+    scalar.  ``want_rej`` adds the (W,) float32 rejection mask
+    ``mscale == 0`` as a third output.
+
+    ``x_tilde`` is updated IN PLACE, as the Pallas kernel aliases it;
+    ``out_x`` (and the mask) are fresh.  The launch is queued on the current
+    stream and not waited for.  Each launch adds one to
+    ``channel_gossip_stacked.launches``.
+    """
+    _check_rows("channel_gossip_stacked", x,
+                {"x_tilde": x_tilde, "x_partner": x_partner},
+                {"corrupt": (corrupt, torch.float32),
+                 "mscale": (mscale, torch.float32),
+                 "dt_next": (dt_next, torch.float32)})
+    w, d = x.shape
+    out_x = torch.empty_like(x)
+    rej = torch.empty(w, dtype=torch.float32, device=x.device) \
+        if want_rej else None
+    with torch.cuda.device(x.device):
+        err = _entry("channel_gossip_stacked")(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), x_partner.data_ptr(),
+            x_tilde.data_ptr(), out_x.data_ptr(), corrupt.data_ptr(),
+            mscale.data_ptr(), dt_next.data_ptr(),
+            None if rej is None else rej.data_ptr(), w, d,
+            float(-2.0 * eta), float(alpha), float(alpha_t),
+            int(clip is not None),
+            0.0 if clip is None else dtype_scalar(clip, x.dtype),
+            _stream(x))
+    if err != 0:
+        raise RuntimeError(f"channel_gossip_stacked launch failed: CUDA "
+                           f"error {err}")
+    channel_gossip_stacked.launches += 1
+    if want_rej:
+        return out_x, x_tilde, rej
+    return out_x, x_tilde
+
+
+channel_gossip_stacked.launches = 0

@@ -1,4 +1,4 @@
-"""Dispatch between the hand kernel and its plain PyTorch version.
+"""Dispatch between the hand kernels and their plain PyTorch versions.
 
 The backend follows the tensor: a CUDA tensor launches the Hopper kernel
 (or the call raises; there is no fallback), a CPU tensor takes the plain
@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import mixing_gossip_stacked
-from .ref import mixing_gossip_stacked_ref
+from .kernel import channel_gossip_stacked, mixing_gossip_stacked
+from .ref import channel_gossip_stacked_ref, mixing_gossip_stacked_ref
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -40,3 +40,23 @@ def gossip_event_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
                                          alpha_t=alpha_t)
     return mixing_gossip_stacked(x, x_tilde, partner, dt_next, eta=eta,
                                  alpha=alpha, alpha_t=alpha_t)
+
+
+def channel_event_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
+                          x_partner: torch.Tensor, corrupt: torch.Tensor,
+                          mscale: torch.Tensor, dt_next: torch.Tensor, *,
+                          eta: float, alpha: float, alpha_t: float,
+                          clip: float | None = None, want_rej: bool = False,
+                          backend: str = "auto"):
+    """Fused channel gossip batch on (W, D) buffers: pre-gathered partner
+    values, per-worker ``corrupt`` multiplier offsets, per-worker robust
+    ``mscale`` (norm trim/clip), optional coordinate ``clip``; with
+    ``want_rej`` also the (W,) rejection mask.  ``x_tilde`` is consumed,
+    as in ``gossip_event_stacked``."""
+    kw = dict(eta=eta, alpha=alpha, alpha_t=alpha_t, clip=clip,
+              want_rej=want_rej)
+    if resolve_backend(backend, x) == "ref":
+        return channel_gossip_stacked_ref(x, x_tilde, x_partner, corrupt,
+                                          mscale, dt_next, **kw)
+    return channel_gossip_stacked(x, x_tilde, x_partner, corrupt, mscale,
+                                  dt_next, **kw)

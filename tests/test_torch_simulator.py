@@ -19,14 +19,18 @@ from repro.core import Simulator as JSim
 from repro.core import make_schedule as j_make_schedule
 from repro.core import params_from_graph as j_params
 from repro.core import ring_graph as j_ring
-from repro_torch.core import (FlatGossipEngine, FlatLayout, Simulator,
-                              make_schedule, params_from_graph, ring_graph)
+from repro_torch.core import (AdaptiveDefense, FlatGossipEngine, FlatLayout,
+                              Simulator, make_schedule, params_from_graph,
+                              ring_graph)
 from repro_torch.core import simulator as simulator_mod
-from repro_torch.core.simulator import SimState, SimTrace
+from repro_torch.core.simulator import SimState
 
 N, DIM, ROUNDS, GAMMA = 16, 64, 30, 0.05
 B = np.random.default_rng(1).normal(size=(N, DIM)).astype(np.float32)
 TOL = dict(rtol=1e-5, atol=1e-6)
+# the per-round metric fields of SimTrace (its ``defense`` tail is None on
+# clean replays)
+METRICS = ("loss", "consensus", "mean_param_norm")
 
 
 def j_grad_fn(x, key, worker_id):
@@ -59,7 +63,8 @@ def test_port_matches_jax_run_schedule(accelerated, cpg):
     kw = dict(comms_per_grad=cpg, seed=3)
     jf, jt = _jax(accelerated, j_make_schedule(j_ring(N), ROUNDS, **kw))
     tf, tt = _port(accelerated, make_schedule(ring_graph(N), ROUNDS, **kw))
-    for name in SimTrace._fields:
+    assert tt.defense is None and jt.defense is None
+    for name in METRICS:
         np.testing.assert_allclose(getattr(tt, name).numpy(),
                                    np.asarray(getattr(jt, name)),
                                    err_msg=name, **TOL)
@@ -74,7 +79,8 @@ def test_engine_matches_per_event_run(accelerated):
     sched = make_schedule(ring_graph(N), ROUNDS, comms_per_grad=1.5, seed=4)
     ef, et = _port(accelerated, sched, engine=True)
     rf, rt = _port(accelerated, sched, engine=False)
-    for name in SimTrace._fields:
+    assert et.defense is None and rt.defense is None
+    for name in METRICS:
         torch.testing.assert_close(getattr(et, name), getattr(rt, name),
                                    **TOL)
     torch.testing.assert_close(ef.x, rf.x, **TOL)
@@ -96,24 +102,26 @@ def test_unported_flavors_raise():
                     device="cpu")
     state = sim.init(torch.zeros(DIM), N, torch.Generator())
     sched = make_schedule(ring_graph(N), 2, seed=0)
-    for kw in ({"defense": object()}, {"telemetry": object()},
-               {"mesh": object()}):
+    for kw in ({"telemetry": object()}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             sim.run_schedule(state, sched, **kw)
-    stale = np.zeros_like(sched.partners)
-    with pytest.raises(NotImplementedError, match="channel"):
-        sim.run_schedule(state, dataclasses.replace(
-            sched, extras={"stale": stale}))
+    # the channel and defense flavors are ported, but not their telemetry
+    # or sharded forms: those are refused before any replay starts
+    stale = dataclasses.replace(
+        sched, extras={"stale": np.zeros_like(sched.partners)})
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        sim.run_schedule(state, stale, telemetry=object())
     robust = Simulator(t_grad_fn, params_from_graph(ring_graph(N)), GAMMA,
                        robust_clip=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="robust_clip"):
-        robust.run_schedule(state, sched)
-    with pytest.raises(NotImplementedError, match="robust_clip"):
-        FlatGossipEngine(FlatLayout.from_pytree(state.x, stacked=True),
-                         robust.params, robust_clip=1.0)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        robust.run_schedule(state, sched, defense=AdaptiveDefense(),
+                            mesh=object())
     with pytest.raises(ValueError):
         FlatGossipEngine(FlatLayout.from_pytree(state.x, stacked=True),
                          robust.params, robust_rule="median")
+    with pytest.raises(ValueError, match="robust_rule"):
+        Simulator(t_grad_fn, robust.params, GAMMA, robust_clip=1.0,
+                  robust_rule="median", device="cpu")
 
 
 def test_int_tree_refused_on_card(monkeypatch):
