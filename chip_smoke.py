@@ -41,7 +41,33 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      by CUDA events inside the replay;
   6. engine against the per-event replay for the channel and the defense
      flavours on the hostile channel (quadratic, n=16, d=256, 20 rounds),
-     the defense's rejection and quarantine counts exactly equal.
+     the defense's rejection and quarantine counts exactly equal;
+  7. the world-batched kernels ``mixing_gossip_worlds`` and
+     ``channel_gossip_worlds`` against their plain versions at (4 worlds,
+     16 workers, ResNet-18-CIFAR's padded width) f32 (max abs err <= 1e-5)
+     and a small bf16 shape (exactly), in one launch that mixes baseline
+     and A2CiD2 worlds; per world bit for bit the stacked kernels; the
+     exact identities (an idle row of an eta = 0 world untouched, padding
+     0, the mask exactly ``mscale == 0``, the channel worlds kernel at
+     corrupt 0 / mscale 1 / no clip bitwise the clean one); each time the
+     mean of 20 launches beside its bound and the plain version's time;
+  8. the clean worlds slice: the same model and workers, a
+     ``WorldSweep`` of {adpsgd, a2cid2} x comms_per_grad {1, 2} (B = 4
+     ragged worlds) for 4 rounds through ``Simulator.run_worlds``; the
+     clean worlds kernel launches once per shared comm step and no other
+     gossip kernel launches; per-step breakdown by CUDA events (the
+     gradient tick of each world, the comm kernel, the mixing pass) and
+     the peak device memory;
+  9. the channel and defense worlds slice: 6 rounds over the hostile
+     channel of phase 5, B = 4 worlds in ONE defense-flavour call, {static
+     trim at tau 5, the self-healing defense} x {adpsgd, a2cid2}; the
+     channel worlds kernel launches once per comm step and no other; each
+     defense arm rejects or quarantines; the breakdown adds the partner
+     gather and the delta-norm reduce;
+ 10. each world of ``run_worlds`` against its own serial ``run_schedule``
+     on the card (quadratic, n=16, d=256, 20 rounds, B = 4) for the plain,
+     channel and defense flavours, within 1e-5, the defense counts exactly
+     equal.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -49,6 +75,7 @@ and power limit.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -72,12 +99,16 @@ CHANNEL_ROUNDS, CHANNEL_SEED = 6, 1
 # 1e3 at a 50% duty cycle, stale prob 1, trim at tau 5
 ROBUST_CLIP = 5.0
 F32_TOL = 1e-5      # kernel vs plain, f32: same correctly rounded ops, exp
-BF16_TOL = 5e-2     # bf16: a one-ulp flip of c moves an output by < 2^-6 * 4
+# bf16: the kernels round every intermediate and every scalar where the
+# plain versions do, so they agree exactly
+BF16_TOL = 0.0
 ENGINE_TOL = 1e-5   # engine vs per-event replay, as the JAX package holds it
 FLOPS_PER_ELEM = 9  # m, 2 scaled subtractions, d, c*d, 2 outputs: 9 f32 ops
 # (1+c)*xp, x - that, * mscale, then the 9 of the clean batch less its m:
 # 11 f32 ops an element (no clip)
 CHANNEL_FLOPS_PER_ELEM = 11
+# the world-batched slices: B = 4 worlds in one call
+N_WORLDS = 4
 KERNELS = {
     "mixing_gossip_stacked": {
         "name": "mixing_gossip_stacked", "route": "cuda",
@@ -89,6 +120,16 @@ KERNELS = {
         "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
                   "channel_gossip_stacked.cu",
         "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:524"},
+    "mixing_gossip_worlds": {
+        "name": "mixing_gossip_worlds", "route": "cuda",
+        "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
+                  "mixing_gossip_worlds.cu",
+        "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:306"},
+    "channel_gossip_worlds": {
+        "name": "channel_gossip_worlds", "route": "cuda",
+        "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
+                  "channel_gossip_worlds.cu",
+        "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:408"},
 }
 
 
@@ -149,6 +190,11 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     from repro_torch.kernels.a2cid2_mixing import kernel
     return {name: getattr(kernel, name).launches for name in KERNELS}
+
+
+def only_launched(launches: dict, name: str) -> bool:
+    """True when no gossip kernel other than ``name`` launched."""
+    return all(v == 0 for k, v in launches.items() if k != name)
 
 
 class ReplayTimer:
@@ -289,8 +335,8 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
     require(launches["mixing_gossip_stacked"] == 2 * comm_steps,
             f"clean kernel launched {launches['mixing_gossip_stacked']} "
             f"times, stream has {comm_steps} comm steps per arm")
-    require(launches["channel_gossip_stacked"] == 0,
-            "the channel kernel launched on the clean path")
+    require(only_launched(launches, "mixing_gossip_stacked"),
+            f"another kernel launched on the clean path: {launches}")
     for arm, tr in traces.items():
         require(tr.loss.shape == (ROUNDS,)
                 and bool(torch.isfinite(tr.loss).all())
@@ -495,8 +541,8 @@ def phase_channel_slice(card, params0, cfg, stream_cls, grad_fn_for):
     timer = ReplayTimer()
     norms = []   # (arm, nrm, corrupt) per reduce, read after the replay
 
-    def recorded_norms(bx, xp, corrupt):
-        nrm = orig_norms(bx, xp, corrupt)
+    def recorded_norms(bx, xp, corrupt, axes=1):
+        nrm = orig_norms(bx, xp, corrupt, axes)
         norms.append((timer.arm, nrm, corrupt))
         return nrm
 
@@ -541,8 +587,8 @@ def phase_channel_slice(card, params0, cfg, stream_cls, grad_fn_for):
     require(launches["channel_gossip_stacked"] == 2 * comm_steps,
             f"channel kernel launched {launches['channel_gossip_stacked']} "
             f"times, stream has {comm_steps} comm steps per arm")
-    require(launches["mixing_gossip_stacked"] == 0,
-            "the clean kernel launched on the channel path")
+    require(only_launched(launches, "channel_gossip_stacked"),
+            f"another kernel launched on the channel path: {launches}")
     for arm, tr in traces.items():
         require(tr.loss.shape == (CHANNEL_ROUNDS,)
                 and bool(torch.isfinite(tr.loss).all())
@@ -629,6 +675,413 @@ def phase_channel_engine_vs_reference(card):
               f"{err:.3e} (tolerance {ENGINE_TOL:g}){extra}")
 
 
+# ------------------------------------------------------- worlds kernels
+def worlds_dyn(dyn, dev):
+    """Per-world (eta, alpha, alpha_t) as (B,) f32: baseline worlds 0 and 2,
+    A2CiD2 worlds 1 and 3."""
+    base = dict(eta=0.0, alpha=0.5, alpha_t=0.5)
+    rows = [base if b % 2 == 0 else dyn for b in range(N_WORLDS)]
+    return tuple(torch.tensor([r[k] for r in rows], dtype=torch.float32,
+                              device=dev)
+                 for k in ("eta", "alpha", "alpha_t"))
+
+
+def worlds_inputs(d, d_real, dtype, gen):
+    """(B, 16, d) buffers, per-world involutions with idle rows, dt, and
+    channel rows mixing honest, 1e3-scale, sign-flip, rejected and
+    norm-clipped reads (as in phase 4), partner values pre-gathered."""
+    dev = torch.device("cuda")
+    w = N_WORKERS
+    partner = torch.stack([torch.from_numpy(involution(w, idle=4,
+                                                       seed=d + b))
+                           for b in range(N_WORLDS)]).to(dev)
+    x = torch.randn(N_WORLDS, w, d, generator=gen, device=dev).to(dtype)
+    xt = torch.randn(N_WORLDS, w, d, generator=gen, device=dev).to(dtype)
+    x[:, :, d_real:] = 0
+    xt[:, :, d_real:] = 0
+    dt = torch.rand(N_WORLDS, w, generator=gen, device=dev) * 1.5
+    b_idx = torch.arange(N_WORLDS, device=dev)[:, None]
+    xp = x[b_idx, partner.long()].contiguous()
+    corrupt = torch.zeros(N_WORLDS, w, device=dev)
+    mscale = torch.ones(N_WORLDS, w, device=dev)
+    for b in range(N_WORLDS):
+        active = (partner[b] != torch.arange(w, device=dev)).nonzero()
+        active = active.flatten()
+        corrupt[b, active[0]], corrupt[b, active[1]] = 999.0, -2.0
+        mscale[b, active[2]], mscale[b, active[3]] = 0.0, 0.3
+    return x, xt, xp, partner, dt, corrupt, mscale
+
+
+def check_worlds(card, pw, d, d_real, dtype, tol, gen):
+    """Both worlds kernels against their plain versions and, per world,
+    against the stacked kernels bit for bit; the exact identities.
+    Returns (max abs err clean, max abs err channel, inputs)."""
+    from repro_torch.kernels.a2cid2_mixing import kernel as k
+    from repro_torch.kernels.a2cid2_mixing.ops import (channel_event_worlds,
+                                                       gossip_event_worlds)
+    x, xt, xp, partner, dt, corrupt, mscale = worlds_inputs(d, d_real,
+                                                            dtype, gen)
+    rx, rxt = gossip_event_worlds(x, xt, partner, dt, *pw, backend="ref")
+    kx, kxt = k.mixing_gossip_worlds(x, xt.clone(), partner, dt, *pw)
+    torch.cuda.synchronize()
+    err = max((kx.float() - rx.float()).abs().max().item(),
+              (kxt.float() - rxt.float()).abs().max().item())
+    del rx, rxt
+    require(err <= tol, f"clean worlds kernel {dtype}: max abs err {err}")
+    cerr = 0.0
+    for clip in (None, 2.5):
+        kw = dict(clip=clip, want_rej=True)
+        ref = channel_event_worlds(x, xt, xp, corrupt, mscale, dt, *pw,
+                                   backend="ref", **kw)
+        out = k.channel_gossip_worlds(x, xt.clone(), xp, corrupt, mscale,
+                                      dt, *pw, **kw)
+        torch.cuda.synchronize()
+        for a, r in zip(out[:2], ref[:2]):
+            cerr = max(cerr, (a.float() - r.float()).abs().max().item())
+        require(torch.equal(out[2], ref[2])
+                and torch.equal(out[2], (mscale == 0).float()),
+                "worlds rejection mask is not exactly mscale == 0")
+        require(bool((out[0][:, :, d_real:] == 0).all()
+                     and (out[1][:, :, d_real:] == 0).all()),
+                "worlds padding columns did not stay 0")
+        del ref
+    require(cerr <= tol, f"channel worlds kernel {dtype}: max abs err "
+                         f"{cerr}")
+    cx, cxt = k.channel_gossip_worlds(x, xt.clone(), xp, corrupt, mscale,
+                                      dt, *pw)
+    for b in range(N_WORLDS):   # per world, the stacked kernels bit for bit
+        dyn_b = dict(eta=float(pw[0][b]), alpha=float(pw[1][b]),
+                     alpha_t=float(pw[2][b]))
+        sx, sxt = k.mixing_gossip_stacked(x[b], xt[b].clone(), partner[b],
+                                          dt[b], **dyn_b)
+        require(torch.equal(kx[b], sx) and torch.equal(kxt[b], sxt),
+                f"clean worlds kernel world {b} is not the stacked kernel")
+        sx, sxt = k.channel_gossip_stacked(x[b], xt[b].clone(), xp[b],
+                                           corrupt[b], mscale[b], dt[b],
+                                           **dyn_b)
+        require(torch.equal(cx[b], sx) and torch.equal(cxt[b], sxt),
+                f"channel worlds kernel world {b} is not the stacked kernel")
+    del cx, cxt
+    # identities: an idle row of a baseline world untouched, padding 0, the
+    # channel kernel at corrupt 0 / mscale 1 / no clip the clean kernel
+    idle = partner == torch.arange(N_WORKERS, device=x.device)
+    base = (pw[0] == 0)[:, None] & idle
+    require(bool(base.any()) and torch.equal(kx[base], x[base])
+            and torch.equal(kxt[base], xt[base]),
+            "an idle row of an eta = 0 world was changed")
+    require(bool((kx[:, :, d_real:] == 0).all()
+                 and (kxt[:, :, d_real:] == 0).all()),
+            "worlds padding columns did not stay 0")
+    hx, hxt = k.channel_gossip_worlds(x, xt.clone(), xp,
+                                      torch.zeros_like(corrupt),
+                                      torch.ones_like(mscale), dt, *pw)
+    require(torch.equal(hx, kx) and torch.equal(hxt, kxt),
+            "corrupt 0 / mscale 1 / no clip is not the clean worlds kernel")
+    del hx, hxt, kx, kxt
+    print(f"[{card}] worlds kernels vs plain {dtype} ({N_WORLDS}, "
+          f"{N_WORKERS}, {d}), baseline and A2CiD2 worlds in one launch: "
+          f"max abs err clean {err:.3e}, channel {cerr:.3e} (clip none/2.5,"
+          f" with the mask; tolerance {tol:g}); per world bit for bit the "
+          f"stacked kernels; idle rows of eta=0 worlds untouched, "
+          f"{d - d_real} padding columns 0, mask == (mscale == 0), channel "
+          f"at corrupt 0 / mscale 1 / no clip == clean, all exactly")
+    return err, cerr, (x, xt, xp, partner, dt, corrupt, mscale)
+
+
+def phase_worlds_kernels(card, d, d_real, dyn):
+    from repro_torch.kernels.a2cid2_mixing import kernel as k
+    from repro_torch.kernels.a2cid2_mixing.ops import (channel_event_worlds,
+                                                       gossip_event_worlds)
+    dev = torch.device("cuda")
+    pw = worlds_dyn(dyn, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    check_worlds(card, pw, 4096, 4096 - 54, torch.bfloat16, BF16_TOL, gen)
+    err, cerr, (x, xt, xp, partner, dt, corrupt, mscale) = check_worlds(
+        card, pw, d, d_real, torch.float32, F32_TOL, gen)
+    bw = N_WORLDS * N_WORKERS
+    rows = {}
+    xt_run = xt.clone()
+    runs = {
+        "mixing_gossip_worlds": (
+            lambda: k.mixing_gossip_worlds(x, xt_run, partner, dt, *pw),
+            lambda: gossip_event_worlds(x, xt, partner, dt, *pw,
+                                        backend="ref"),
+            # x and x~ read once, two outputs written once; partner and dt
+            # (B, W), the three (B,) scalars
+            4 * bw * d * x.element_size() + 2 * bw * 4 + 3 * N_WORLDS * 4,
+            FLOPS_PER_ELEM, err),
+        "channel_gossip_worlds": (
+            lambda: k.channel_gossip_worlds(x, xt_run, xp, corrupt, mscale,
+                                            dt, *pw),
+            lambda: channel_event_worlds(x, xt, xp, corrupt, mscale, dt,
+                                         *pw, backend="ref"),
+            # x, xp, x~ read once, two outputs written once; corrupt,
+            # mscale, dt (B, W), the three (B,) scalars
+            5 * bw * d * x.element_size() + 3 * bw * 4 + 3 * N_WORLDS * 4,
+            CHANNEL_FLOPS_PER_ELEM, cerr),
+    }
+    for name, (kern, plain, nbytes, fpe, e) in runs.items():
+        ms = cuda_ms(kern, reps=20)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        b = bound(nbytes, fpe * bw * d)
+        print(f"[{card}] {name} ({N_WORLDS}, {N_WORKERS}, {d}) f32: "
+              f"{ms:.4f} ms over 20 launches, bound {b['bound_ms']:.4f} ms "
+              f"({nbytes / 1e9:.3f} GB at {PEAK_BYTES_PER_S / 1e12:.2f} "
+              f"TB/s; ops bound {b['ops_ms']:.4f} ms), "
+              f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved, plain "
+              f"version {plain_ms:.4f} ms; no single PyTorch call computes "
+              f"this function (library_ms null)")
+        rows[name] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                      "library_ms": None}
+    return rows
+
+
+# --------------------------------------------------------- worlds slices
+def worlds_states(sim, params0, seed):
+    """B world states at consensus, each with its own generator."""
+    dev = torch.device("cuda")
+    return sim.batch_states(
+        sim.init(params0, N_WORKERS,
+                 torch.Generator(device=dev).manual_seed(seed + b))
+        for b in range(N_WORLDS))
+
+
+def worlds_comm_steps(scheds) -> int:
+    from repro_torch.core import coalesce_schedule, stack_streams
+    bs = stack_streams([coalesce_schedule(s) for s in scheds],
+                       np.zeros((len(scheds), N_WORKERS), np.float32))
+    return int((~bs.is_grad).sum())
+
+
+def print_worlds_breakdown(card, label, timer, wall, rounds, comm_steps,
+                           kinds):
+    """Per-step means of the CUDA-event spans recorded in one replay."""
+    parts = {kd: timer.ms(label, kd) for kd in kinds}
+    want = {"grad": N_WORLDS * rounds, "mix": rounds + 1}
+    for kd, v in parts.items():
+        n = want.get(kd, comm_steps)
+        require(len(v) == n, f"{label}: timed {len(v)} {kd} calls, "
+                             f"expected {n}")
+    rest = (wall - sum(sum(v) for v in parts.values())) / rounds
+    grads = np.reshape(parts["grad"], (rounds, N_WORLDS)).mean(axis=0)
+    desc = ", ".join(f"{kd} {np.mean(v):.4f} ms x {len(v)}"
+                     for kd, v in parts.items() if kd != "grad")
+    print(f"[{card}] {label} step breakdown (CUDA events in the replay): "
+          f"gradient tick per world (16 workers x {BATCH}) "
+          f"{[round(float(g), 2) for g in grads]} ms, {desc}; rest per "
+          f"round (pack, update, metrics, ring, defense, host) {rest:.2f} "
+          f"ms; replay {wall:.1f} ms over {rounds} rounds")
+
+
+def phase_worlds_slice(card, params0, cfg, stream_cls, grad_fn_for):
+    from repro_torch.core import (Algorithm, FlatGossipEngine, Simulator,
+                                  World, WorldSweep, params_from_graph,
+                                  ring_graph)
+    dev = torch.device("cuda")
+    graph = ring_graph(N_WORKERS)
+    sweep = WorldSweep.over(World(topology=graph),
+                            algorithm=(Algorithm("adpsgd"),
+                                       Algorithm("a2cid2")),
+                            comms_per_grad=(1.0, 2.0))
+    scheds = sweep.compile(ROUNDS)
+    worlds = [w for w, _ in sweep.points()]
+    comm_steps = worlds_comm_steps(scheds)
+    timer = ReplayTimer()
+    timer.arm = "clean worlds"
+    sim = Simulator(timer.wrap("grad", grad_fn_for(
+        cfg, stream_cls(batch_size=BATCH))), params_from_graph(graph, True),
+        GAMMA)
+    orig = {k: FlatGossipEngine.__dict__[k] for k in ("batch_worlds",
+                                                      "mix_batch")}
+    states = worlds_states(sim, params0, SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FlatGossipEngine.batch_worlds = staticmethod(
+        timer.wrap("comm", FlatGossipEngine.batch_worlds))
+    FlatGossipEngine.mix_batch = timer.wrap("mix", orig["mix_batch"])
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        final, trace = sim.run_worlds(states, scheds, worlds=worlds)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k, v in orig.items():
+            setattr(FlatGossipEngine, k, v)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del states, final
+    require(launches["mixing_gossip_worlds"] == comm_steps,
+            f"clean worlds kernel launched "
+            f"{launches['mixing_gossip_worlds']} times, the batched stream "
+            f"has {comm_steps} comm steps")
+    require(only_launched(launches, "mixing_gossip_worlds"),
+            f"another kernel launched on the clean worlds path: {launches}")
+    require(trace.loss.shape == (N_WORLDS, ROUNDS)
+            and bool(torch.isfinite(trace.loss).all())
+            and bool(torch.isfinite(trace.consensus).all()),
+            "clean worlds: non-finite or misshapen trace")
+    for b, w in enumerate(worlds):
+        print(f"[{card}] world {b} ({w.algorithm.kind}, comms/grad "
+              f"{w.comms_per_grad:g}): loss {trace.loss[b].tolist()} "
+              f"consensus {trace.consensus[b].tolist()}")
+    print(f"[{card}] clean worlds slice: B={N_WORLDS} worlds, "
+          f"{comm_steps} shared comm steps + {ROUNDS} gradient ticks; "
+          f"mixing_gossip_worlds launches {launches['mixing_gossip_worlds']}"
+          f" == {comm_steps}, other kernels 0; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print_worlds_breakdown(card, "clean worlds", timer, wall, ROUNDS,
+                           comm_steps, ("grad", "comm", "mix"))
+    return launches["mixing_gossip_worlds"]
+
+
+def phase_channel_worlds_slice(card, params0, cfg, stream_cls, grad_fn_for):
+    from repro_torch.core import (AdaptiveDefense, Algorithm,
+                                  FlatGossipEngine, Simulator, World,
+                                  params_from_graph, ring_graph)
+    from repro_torch.core import engine as engine_mod
+    graph = ring_graph(N_WORKERS)
+    base = World(topology=graph, channel=hostile_channel(graph))
+    # arms: {static trim, self-healing defense} x {adpsgd, a2cid2}
+    worlds = [dataclasses.replace(base, algorithm=Algorithm(kind))
+              for _ in range(2) for kind in ("adpsgd", "a2cid2")]
+    defenses = [None, None, AdaptiveDefense(), AdaptiveDefense()]
+    scheds = [w.compile(CHANNEL_ROUNDS, seed=CHANNEL_SEED) for w in worlds]
+    comm_steps = worlds_comm_steps(scheds)
+    timer = ReplayTimer()
+    timer.arm = "channel worlds"
+    sim = Simulator(timer.wrap("grad", grad_fn_for(
+        cfg, stream_cls(batch_size=BATCH))), params_from_graph(graph, True),
+        GAMMA)
+    orig_kernel = engine_mod.channel_event_worlds
+    orig = {k: FlatGossipEngine.__dict__[k] for k in (
+        "partner_values_worlds", "delta_norms", "mix_batch")}
+    states = worlds_states(sim, params0, SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine_mod.channel_event_worlds = timer.wrap("kernel", orig_kernel)
+    FlatGossipEngine.partner_values_worlds = staticmethod(timer.wrap(
+        "gather", FlatGossipEngine.partner_values_worlds))
+    FlatGossipEngine.delta_norms = staticmethod(timer.wrap(
+        "norms", FlatGossipEngine.delta_norms))
+    FlatGossipEngine.mix_batch = timer.wrap("mix", orig["mix_batch"])
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        final, trace = sim.run_worlds(states, scheds, worlds=worlds,
+                                      robust_clips=[ROBUST_CLIP] * N_WORLDS,
+                                      defenses=defenses)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        engine_mod.channel_event_worlds = orig_kernel
+        for k, v in orig.items():
+            setattr(FlatGossipEngine, k, v)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del states, final
+    require(launches["channel_gossip_worlds"] == comm_steps,
+            f"channel worlds kernel launched "
+            f"{launches['channel_gossip_worlds']} times, the batched stream "
+            f"has {comm_steps} comm steps")
+    require(only_launched(launches, "channel_gossip_worlds"),
+            f"another kernel launched on the channel worlds path: "
+            f"{launches}")
+    require(trace.loss.shape == (N_WORLDS, CHANNEL_ROUNDS)
+            and bool(torch.isfinite(trace.loss).all())
+            and bool(torch.isfinite(trace.consensus).all()),
+            "channel worlds: non-finite or misshapen trace")
+    dtr = trace.defense
+    for b, w in enumerate(worlds):
+        arm = "defense" if defenses[b] else "static trim"
+        acted = float(dtr.rejections[b].sum() + dtr.quarantined[b].sum())
+        if defenses[b]:
+            require(acted >= 1, f"world {b} ({arm}): the defense rejected "
+                                f"and quarantined nothing")
+        print(f"[{card}] world {b} ({arm}, {w.algorithm.kind}): loss "
+              f"{trace.loss[b].tolist()} consensus "
+              f"{trace.consensus[b].tolist()} tau {dtr.tau[b].tolist()} "
+              f"rejections {dtr.rejections[b].tolist()} quarantined "
+              f"{dtr.quarantined[b].tolist()}")
+    print(f"[{card}] channel worlds slice: B={N_WORLDS} worlds in one "
+          f"defense-flavour call, {comm_steps} shared comm steps + "
+          f"{CHANNEL_ROUNDS} gradient ticks; channel_gossip_worlds "
+          f"launches {launches['channel_gossip_worlds']} == {comm_steps}, "
+          f"other kernels 0; peak memory {peak / 2**30:.2f} GiB")
+    print_worlds_breakdown(card, "channel worlds", timer, wall,
+                           CHANNEL_ROUNDS, comm_steps,
+                           ("grad", "kernel", "gather", "norms", "mix"))
+    return launches["channel_gossip_worlds"]
+
+
+def phase_worlds_vs_serial(card):
+    from repro_torch.core import (AdaptiveDefense, Algorithm, Simulator,
+                                  World, params_from_graph, ring_graph)
+    dev = torch.device("cuda")
+    graph = ring_graph(N_WORKERS)
+    hostile = hostile_channel(graph)
+    flavours = {
+        "plain": ([None] * 4, None, None),
+        "channel": ([hostile, None, hostile, hostile],
+                    [ROBUST_CLIP, None, ROBUST_CLIP, 2 * ROBUST_CLIP], None),
+        "defense": ([hostile] * 4, [ROBUST_CLIP] * 4,
+                    [None, AdaptiveDefense(), None, AdaptiveDefense()]),
+    }
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    # optima at scale 0.1 keep honest delta norms under tau (phase 6)
+    target = 0.1 * torch.randn(N_WORKERS, 256, generator=gen, device=dev)
+
+    def quad(x, generator, ids):
+        return 0.5 * ((x - target[ids]) ** 2).sum(dim=1), x - target[ids]
+
+    sim = Simulator(quad, params_from_graph(graph, True), GAMMA)
+    gammas = [GAMMA, 0.5 * GAMMA, GAMMA, 2 * GAMMA]
+    for flavour, (chans, clips, defenses) in flavours.items():
+        worlds = [World(topology=graph, channel=c,
+                        algorithm=Algorithm(("adpsgd", "a2cid2")[b % 2]),
+                        comms_per_grad=(1.0, 2.0, 1.5, 1.0)[b])
+                  for b, c in enumerate(chans)]
+        scheds = [w.compile(20, seed=SEED + 6 + b)
+                  for b, w in enumerate(worlds)]
+
+        def states():
+            return [sim.init(torch.zeros(256, device=dev), N_WORKERS,
+                             torch.Generator(device=dev).manual_seed(b))
+                    for b in range(N_WORLDS)]
+
+        final, trace = sim.run_worlds(states(), scheds, worlds=worlds,
+                                      gammas=gammas, robust_clips=clips,
+                                      defenses=defenses)
+        err, counts = 0.0, 0
+        for b in range(N_WORLDS):
+            tau = None if clips is None else clips[b]
+            serial = dataclasses.replace(
+                sim, params=worlds[b].algorithm_params(), gamma=gammas[b],
+                robust_clip=tau)
+            d = None if defenses is None else defenses[b]
+            sf, st = serial.run_schedule(states()[b], scheds[b], defense=d)
+            for a, c in ((trace.loss[b], st.loss),
+                         (trace.consensus[b], st.consensus),
+                         (final.x[b], sf.x), (final.x_tilde[b], sf.x_tilde)):
+                torch.testing.assert_close(a, c, rtol=ENGINE_TOL, atol=1e-6)
+            err = max(err, (final.x[b] - sf.x).abs().max().item())
+            if d is not None:
+                require(torch.equal(trace.defense.rejections[b],
+                                    st.defense.rejections)
+                        and torch.equal(trace.defense.quarantined[b],
+                                        st.defense.quarantined),
+                        f"{flavour} world {b}: defense counts differ")
+                counts += int(st.defense.rejections.sum()
+                              + st.defense.quarantined.sum())
+        extra = f"; defense counts equal exactly ({counts} acts)" \
+            if defenses else ""
+        print(f"[{card}] worlds vs serial, {flavour}: B={N_WORLDS} worlds "
+              f"(quadratic n=16 d=256, 20 rounds, mixed adpsgd/a2cid2, "
+              f"ragged comms/grad) max abs err {err:.3e} (tolerance "
+              f"{ENGINE_TOL:g}){extra}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -678,6 +1131,15 @@ def main() -> int:
     launches["channel_gossip_stacked"] = phase_channel_slice(
         card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)
     phase_channel_engine_vs_reference(card)
+    torch.cuda.empty_cache()
+    rows.update(phase_worlds_kernels(card, layout.d, layout.d_real, dyn))
+    torch.cuda.empty_cache()
+    launches["mixing_gossip_worlds"] = phase_worlds_slice(
+        card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)
+    torch.cuda.empty_cache()
+    launches["channel_gossip_worlds"] = phase_channel_worlds_slice(
+        card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)
+    phase_worlds_vs_serial(card)
 
     print(card)
     print(json.dumps({"kernels": [

@@ -22,15 +22,19 @@ Prop 3.6 hyper-parameters:
 
 Update functions work on dict/list/tuple pytrees of tensors (see ``tree``)
 and follow the JAX package's order of operations, so the two agree to
-rounding of ``exp``.
+rounding of ``exp``.  A Python scalar (alpha, alpha~, gamma) is rounded to
+the leaf's dtype before it multiplies the leaf, as JAX binds a weak scalar.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 
+import numpy as np
 import torch
 
+from ..kernels.a2cid2_mixing.ref import dtype_scalar
 from .tree import PyTree, tree_flatten, tree_leaves, tree_map
 
 
@@ -73,6 +77,122 @@ def params_from_graph(graph, accelerated: bool = True) -> A2CiD2Params:
     return acid_params(chi1, graph.chi2())
 
 
+# ------------------------------------------------------------- algorithm zoo
+
+#: Known algorithm kinds and whether their canonical form runs the
+#: accelerated (eta > 0) dynamics.  Every kind lowers onto the same replay:
+#: per-world dynamics data plus clock structure, never a new engine.
+#:   a2cid2  — the paper's dynamic (Prop 3.6), coupled unit-rate clocks
+#:   adpsgd  — the asynchronous baseline (eta = 0, alpha = 1/2): bitwise
+#:             ``baseline_params(chi1)``
+#:   dadao   — decoupled gradient/gossip Poisson clocks, as schedule data
+ALGORITHM_KINDS = ("a2cid2", "adpsgd", "dadao")
+_KIND_ACCELERATED = {"a2cid2": True, "adpsgd": False, "dadao": True}
+
+# rng-stream tag of the decoupled gradient clock: its own SeedSequence child,
+# so a coupled algorithm leaves the schedule stream bit for bit untouched
+_ALGO_TAG = 0xDADA0
+
+
+@dataclasses.dataclass(frozen=True)
+class Algorithm:
+    """Declarative algorithm spec: a World axis, lowered at compile time.
+
+    * dynamics column — ``params_for(graph)`` resolves the kind and the
+      ``accelerated`` override (None = the kind's canonical form) to the
+      ``A2CiD2Params`` that ride the per-world arrays of the batched replay;
+    * clock structure — only ``kind="dadao"`` has one: ``grad_rate``
+      (Bernoulli thinning of the unit gradient ticks) and ``gossip_rate``
+      (replaces ``comms_per_grad`` as the comm-event intensity).  At their
+      coupled defaults the schedule is bitwise the coupled one.
+    """
+
+    kind: str = "a2cid2"
+    accelerated: bool | None = None
+    grad_rate: float = 1.0
+    gossip_rate: float | None = None
+
+    def __post_init__(self):
+        if self.kind not in ALGORITHM_KINDS:
+            raise ValueError(f"Algorithm.kind must be one of "
+                             f"{ALGORITHM_KINDS}, got {self.kind!r}")
+        if self.accelerated is not None and \
+                not isinstance(self.accelerated, bool):
+            raise ValueError("Algorithm.accelerated must be None or bool, "
+                             f"got {self.accelerated!r}")
+        gr = self.grad_rate
+        if not (isinstance(gr, (int, float)) and 0.0 < float(gr) <= 1.0):
+            raise ValueError("Algorithm.grad_rate must be a float in "
+                             f"(0, 1], got {gr!r}")
+        if self.gossip_rate is not None:
+            g = self.gossip_rate
+            if not (isinstance(g, (int, float)) and float(g) > 0.0
+                    and math.isfinite(float(g))):
+                raise ValueError("Algorithm.gossip_rate must be None or a "
+                                 f"finite float > 0, got {g!r}")
+        if self.kind != "dadao" and (float(gr) != 1.0
+                                     or self.gossip_rate is not None):
+            raise ValueError(
+                f"decoupled clocks (grad_rate/gossip_rate) are a "
+                f"kind='dadao' axis; kind={self.kind!r} must keep "
+                f"grad_rate=1.0 and gossip_rate=None")
+
+    @property
+    def is_accelerated(self) -> bool:
+        if self.accelerated is not None:
+            return self.accelerated
+        return _KIND_ACCELERATED[self.kind]
+
+    def params_for(self, graph) -> A2CiD2Params:
+        """The scalar dynamics column for ``graph`` (the adpsgd base arm is
+        bitwise ``baseline_params(graph.chi1())``)."""
+        return params_from_graph(graph, accelerated=self.is_accelerated)
+
+    @property
+    def decoupled(self) -> bool:
+        """True iff the spec carries a non-trivial decoupled clock."""
+        return self.kind == "dadao" and (
+            float(self.grad_rate) != 1.0 or self.gossip_rate is not None)
+
+    def comm_rate(self, comms_per_grad: float) -> float:
+        """Comm-event intensity: the independent gossip clock when set, the
+        coupled ``comms_per_grad`` otherwise."""
+        if self.kind == "dadao" and self.gossip_rate is not None:
+            return float(self.gossip_rate)
+        return float(comms_per_grad)
+
+    def apply_grad_clock(self, schedule, seed: int):
+        """Bernoulli(grad_rate) tick thinning per (round, worker) from the
+        algorithm's own rng stream; a unit rate returns ``schedule``."""
+        rate = float(self.grad_rate)
+        if self.kind != "dadao" or rate == 1.0:
+            return schedule
+        rng = np.random.default_rng(
+            np.random.SeedSequence([int(seed), _ALGO_TAG]))
+        gate = rng.uniform(size=(schedule.rounds, schedule.n)) < rate
+        return schedule.with_grad_gate(gate)
+
+    def to_dict(self) -> dict:
+        return {"kind": self.kind, "accelerated": self.accelerated,
+                "grad_rate": float(self.grad_rate),
+                "gossip_rate": None if self.gossip_rate is None
+                else float(self.gossip_rate)}
+
+    @staticmethod
+    def from_dict(d: dict) -> "Algorithm":
+        return Algorithm(kind=d.get("kind", "a2cid2"),
+                         accelerated=d.get("accelerated"),
+                         grad_rate=d.get("grad_rate", 1.0),
+                         gossip_rate=d.get("gossip_rate"))
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
+
+    @staticmethod
+    def from_json(s: str) -> "Algorithm":
+        return Algorithm.from_dict(json.loads(s))
+
+
 # ----------------------------------------------------------------- mixing ODE
 
 def mixing_coeff(eta: float, dt: torch.Tensor) -> torch.Tensor:
@@ -110,11 +230,13 @@ def apply_mixing(x: PyTree, x_tilde: PyTree, eta: float, dt
 
 # -------------------------------------------------------------- event updates
 
-def gradient_event(x: PyTree, x_tilde: PyTree, grads: PyTree, gamma
+def gradient_event(x: PyTree, x_tilde: PyTree, grads: PyTree, gamma: float
                    ) -> tuple[PyTree, PyTree]:
     """Apply a gradient event: both buffers take the step (Eq 4)."""
-    return (tree_map(lambda p, g: p - gamma * g, x, grads),
-            tree_map(lambda p, g: p - gamma * g, x_tilde, grads))
+    def upd(p, g):
+        return p - dtype_scalar(gamma, g.dtype) * g
+
+    return tree_map(upd, x, grads), tree_map(upd, x_tilde, grads)
 
 
 def matched_p2p_update(x: PyTree, x_tilde: PyTree, partner: torch.Tensor,
@@ -129,7 +251,8 @@ def matched_p2p_update(x: PyTree, x_tilde: PyTree, partner: torch.Tensor,
 
     def upd(a, at):
         m = a - a.index_select(0, partner)
-        return a - params.alpha * m, at - params.alpha_tilde * m
+        return (a - dtype_scalar(params.alpha, a.dtype) * m,
+                at - dtype_scalar(params.alpha_tilde, a.dtype) * m)
 
     flat_x, treedef = tree_flatten(x)
     flat_t = treedef.flatten_up_to(x_tilde)

@@ -23,9 +23,12 @@ NamedTuples of f32 tensors on the replay's device, updated without any
 host synchronisation.  NEUTRAL knobs (adapt 0, rho 0, floor -1) reproduce
 the static trim arithmetic bitwise: ``mscale = (nrm <= tau)``.
 
-This is the port of the JAX package's module of the same name (its
-world-batched ``knobs_worlds`` is not ported yet); the host half is the
-same numpy code, the device half the same f32 arithmetic on tensors.
+This is the port of the JAX package's module of the same name; the host
+half is the same numpy code, the device half the same f32 arithmetic on
+tensors.  The device functions take an optional leading world axis: the
+world-batched replay passes knobs of (B,) columns (``knobs_worlds``), a
+(B, n, n) trust table and (B, n) rows, where the JAX package vmaps the
+serial functions; row b is then world b's serial update.
 """
 from __future__ import annotations
 
@@ -239,15 +242,33 @@ def knobs_single(defense: AdaptiveDefense | None, static_tau: float | None,
                                        device=device) for v in vals))
 
 
-def defense_init(n: int, device) -> DefenseState:
-    """Fresh control-loop state (all trust 1, estimator unseeded)."""
-    z = torch.zeros((), dtype=torch.float32, device=device)
-    return DefenseState(
-        qest=z,
-        trust=torch.ones((n, n), dtype=torch.float32, device=device),
-        lastn=torch.zeros(n, dtype=torch.float32, device=device),
-        lastv=torch.zeros(n, dtype=torch.bool, device=device),
-        rej_acc=z, quar_acc=z)
+def knobs_worlds(defenses, static_taus, device) -> DefenseKnobs:
+    """World-batched knobs: (B,) f32 columns on ``device``, one row per
+    (defense, static tau) arm."""
+    rows = [defense_knobs(d, t) for d, t in zip(defenses, static_taus)]
+    cols = np.asarray(rows, np.float32).T
+    return DefenseKnobs(*(torch.from_numpy(c.copy()).to(device)
+                          for c in cols))
+
+
+def defense_init(n: int, device, batch: int | None = None) -> DefenseState:
+    """Fresh control-loop state (all trust 1, estimator unseeded), with a
+    leading world axis of ``batch`` when given."""
+    lead = () if batch is None else (batch,)
+
+    def full(shape, v, dtype=torch.float32):
+        return torch.full(lead + shape, v, dtype=dtype, device=device)
+
+    return DefenseState(qest=full((), 0.0), trust=full((n, n), 1.0),
+                        lastn=full((n,), 0.0),
+                        lastv=full((n,), False, torch.bool),
+                        rej_acc=full((), 0.0), quar_acc=full((), 0.0))
+
+
+def _row(v: torch.Tensor) -> torch.Tensor:
+    """A per-world scalar (0-d serially, (B,) batched) broadcastable
+    against that world's (n,) rows."""
+    return v.unsqueeze(-1)
 
 
 def _tau_of(k: DefenseKnobs, ds: DefenseState) -> torch.Tensor:
@@ -264,29 +285,30 @@ def defense_comm(k: DefenseKnobs, ds: DefenseState, partner: torch.Tensor,
     """One comm step of the control loop.
 
     partner/involved/nrm are (n,) per-reader rows (nrm the delta norm of
-    the exchange, 0 on idle rows).  Returns the (n,) f32 mscale for the
-    fused channel kernel, the (n,) bool quarantine mask, and the updated
-    state.  The engine applies this once per fused batch where the
-    per-event path applies it once per event: a batch merges only disjoint
-    matchings, so each reader row and its trust entry see at most one
-    event per batch and the row updates commute.
+    the exchange, 0 on idle rows), or (B, n) with a batched state.
+    Returns the (n,) f32 mscale for the fused channel kernel, the (n,)
+    bool quarantine mask, and the updated state.  The engine applies this
+    once per fused batch where the per-event path applies it once per
+    event: a batch merges only disjoint matchings, so each reader row and
+    its trust entry see at most one event per batch and the row updates
+    commute.
     """
-    idx = torch.arange(partner.shape[0], device=partner.device)
-    partner = partner.long()
-    tau = _tau_of(k, ds)
+    col = partner.long().unsqueeze(-1)   # trust[.., w, partner[w]]
+    tau = _row(_tau_of(k, ds))
     accept = nrm <= tau
-    tr = ds.trust[idx, partner]
-    quar = (tr < k.floor) & involved
+    tr = ds.trust.gather(-1, col).squeeze(-1)
+    quar = (tr < _row(k.floor)) & involved
     mscale = (accept & ~quar).float()
     # trust EMA on involved edges; quarantined edges observe nothing and
     # heal toward re-admission.  Only GROSS violations (beyond margin *
     # tau) count against trust: borderline rejections never convict.
-    fine = nrm <= k.margin * tau
+    fine = nrm <= _row(k.margin) * tau
     obs = fine.float()
-    upd = torch.where(quar, tr + k.heal * (1.0 - tr),
-                      (1.0 - k.rho) * tr + k.rho * obs)
-    trust = ds.trust.index_put((idx, partner),
-                               torch.where(involved, upd, tr))
+    rho = _row(k.rho)
+    upd = torch.where(quar, tr + _row(k.heal) * (1.0 - tr),
+                      (1.0 - rho) * tr + rho * obs)
+    trust = ds.trust.scatter(-1, col,
+                             torch.where(involved, upd, tr).unsqueeze(-1))
     # the quantile estimator records every admitted non-gross exchange
     # (borderline rejections included, or a tight tau ratchets itself
     # shut); quarantined, gross and idle (nrm 0) reads are excluded
@@ -301,9 +323,9 @@ def defense_absorb(ds: DefenseState, rej: torch.Tensor, quar: torch.Tensor,
                    involved: torch.Tensor) -> DefenseState:
     """Fold the kernel's per-event rejection mask (mscale == 0) into the
     round counters; quarantine-induced zeros are counted separately."""
-    rejn = torch.where(involved & ~quar, rej, 0.0).sum()
+    rejn = torch.where(involved & ~quar, rej, 0.0).sum(-1)
     return ds._replace(rej_acc=ds.rej_acc + rejn,
-                       quar_acc=ds.quar_acc + quar.float().sum())
+                       quar_acc=ds.quar_acc + quar.float().sum(-1))
 
 
 def defense_grad(k: DefenseKnobs, ds: DefenseState
@@ -316,12 +338,12 @@ def defense_grad(k: DefenseKnobs, ds: DefenseState
     Learns only from strictly positive norms, so an all-idle round leaves
     the estimate untouched.
     """
-    n = ds.lastn.shape[0]
+    n = ds.lastn.shape[-1]
     tau = _tau_of(k, ds)
-    s = torch.sort(torch.where(ds.lastv, ds.lastn, math.inf)).values
-    m = ds.lastv.int().sum()
+    s = torch.sort(torch.where(ds.lastv, ds.lastn, math.inf), dim=-1).values
+    m = ds.lastv.int().sum(-1)
     iq = torch.clamp(torch.ceil(k.p * m.float()).int() - 1, 0, n - 1)
-    quant = s.gather(0, iq.long().reshape(1)).reshape(())
+    quant = s.gather(-1, iq.long().unsqueeze(-1)).squeeze(-1)
     upd = (m > 0) & (k.adapt > 0) & torch.isfinite(quant)
     seeded = torch.where(ds.qest > 0,
                          (1.0 - k.beta) * ds.qest + k.beta * quant, quant)

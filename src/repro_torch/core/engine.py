@@ -20,6 +20,12 @@ take the partner values pre-gathered (``partner_values``: fresh rows or
 snapshot-ring rows) and apply the robust m-term; around the fused kernel
 they run plain PyTorch, as the JAX package runs XLA there: the ring
 gathers and the ``delta_norms`` reduce.
+
+The world-batched passes (``mix_batch``, ``batch_worlds``,
+``channel_batch_worlds[_scaled]``, ``partner_values_worlds``) run B
+worlds' (B, W, D) buffers at once with the per-world dynamics ``pw =
+(eta, alpha, alpha_t)`` as (B,) f32 tensors on the buffers' device, so
+baseline and A2CiD2 worlds share one launch.
 """
 from __future__ import annotations
 
@@ -28,19 +34,40 @@ import dataclasses
 import torch
 
 from ..kernels.a2cid2_mixing.ops import (channel_event_stacked,
-                                         gossip_event_stacked)
+                                         channel_event_worlds,
+                                         gossip_event_stacked,
+                                         gossip_event_worlds)
 from .a2cid2 import A2CiD2Params, apply_mixing
-from .flatbuf import FlatLayout, ring_read
+from .flatbuf import FlatLayout, ring_read, ring_read_worlds
 from .tree import PyTree
 
 
-def norm_scale(nrm: torch.Tensor, tau: float, rule: str) -> torch.Tensor:
+def norm_scale(nrm: torch.Tensor, tau, rule: str) -> torch.Tensor:
     """Per-worker robust scale from the delta norms under a norm rule:
     'trim' rejects (0) a delta with ||m|| > tau, 'clip' rescales it to norm
-    tau.  Accepted deltas get exactly 1.0 (a bitwise no-op)."""
+    tau.  Accepted deltas get exactly 1.0 (a bitwise no-op).  ``tau`` is a
+    float or an f32 tensor broadcastable against ``nrm`` (per-world (B, 1)
+    thresholds); either way it acts as an f32 value, and the clip divides
+    by the norm as JAX does (a Python scalar over a tensor would multiply
+    by a reciprocal)."""
     if rule == "trim":
         return (nrm <= tau).float()
+    if not torch.is_tensor(tau):
+        tau = torch.full_like(nrm, tau)
     return torch.clamp(tau / torch.clamp(nrm, min=1e-30), max=1.0).float()
+
+
+def mix_worlds(bx: torch.Tensor, bxt: torch.Tensor, eta: torch.Tensor,
+               dt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """World-batched mixing pass: (B, W, D) buffers, (B,) per-world eta,
+    (B, W) dt.  There is no eta == 0 shortcut: a baseline world computes
+    ``a + 0 * d``, exact for finite ``d`` (up to the sign of zero), as in
+    the fused kernels' mixing tail."""
+    eta32 = eta.float()[:, None]
+    c = (0.5 * (1.0 - torch.exp(-2.0 * eta32 * dt.float()))
+         ).to(bx.dtype)[:, :, None]
+    d = bxt - bx
+    return bx + c * d, bxt - c * d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,16 +99,24 @@ class FlatGossipEngine:
 
     @classmethod
     def for_pytree(cls, tree: PyTree, params: A2CiD2Params, *,
-                   stacked: bool = True, robust_clip: float | None = None,
+                   stacked: bool = True, worlds: bool = False,
+                   robust_clip: float | None = None,
                    robust_rule: str = "trim") -> "FlatGossipEngine":
-        return cls(FlatLayout.from_pytree(tree, stacked=stacked), params,
-                   robust_clip, robust_rule)
+        return cls(FlatLayout.from_pytree(tree, stacked=stacked,
+                                          worlds=worlds),
+                   params, robust_clip, robust_rule)
 
     def pack(self, tree: PyTree) -> torch.Tensor:
         return self.layout.pack(tree)
 
     def unpack(self, buf: torch.Tensor) -> PyTree:
         return self.layout.unpack(buf)
+
+    def pack_worlds(self, tree: PyTree) -> torch.Tensor:
+        return self.layout.pack_worlds(tree)
+
+    def unpack_worlds(self, buf: torch.Tensor) -> PyTree:
+        return self.layout.unpack_worlds(buf)
 
     def mix(self, bx: torch.Tensor, bxt: torch.Tensor, dt
             ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -104,21 +139,28 @@ class FlatGossipEngine:
 
     @staticmethod
     def delta_norms(bx: torch.Tensor, xp: torch.Tensor,
-                    corrupt: torch.Tensor) -> torch.Tensor:
-        """(W,) f32 L2 norms of the corrupted channel deltas: the
-        subtraction at the buffer dtype, the squares and sum in f32."""
-        cadv = (1.0 + corrupt.float()).to(bx.dtype)[:, None]
+                    corrupt: torch.Tensor, axes: int = 1) -> torch.Tensor:
+        """f32 L2 norms of the corrupted channel deltas over the row axis
+        ``axes`` ((W,) for (W, D) buffers with axes=1, (B, W) for worlds
+        with axes=2): the subtraction at the buffer dtype, the squares and
+        sum in f32."""
+        cadv = (1.0 + corrupt.float()).to(bx.dtype).unsqueeze(-1)
         m32 = (bx - cadv * xp).float()
-        return torch.sqrt((m32 * m32).sum(dim=1))
+        return torch.sqrt((m32 * m32).sum(dim=axes))
 
     def _mscale(self, bx: torch.Tensor, xp: torch.Tensor,
-                corrupt: torch.Tensor) -> torch.Tensor:
-        """Per-worker robust scale (ones when no norm rule is on)."""
-        if self.robust_clip is None or self.robust_rule == "coord":
+                corrupt: torch.Tensor, axes: int = 1,
+                taus: torch.Tensor | None = None) -> torch.Tensor:
+        """Per-worker robust scale (ones when no norm rule is on).  The
+        per-world (B,) ``taus`` replace the static ``robust_clip``; tau =
+        inf accepts every finite delta."""
+        if taus is None and (self.robust_clip is None
+                             or self.robust_rule == "coord"):
             return torch.ones(corrupt.shape, dtype=torch.float32,
                               device=corrupt.device)
-        return norm_scale(self.delta_norms(bx, xp, corrupt),
-                          self.robust_clip, self.robust_rule)
+        tau = self.robust_clip if taus is None else taus[:, None]
+        return norm_scale(self.delta_norms(bx, xp, corrupt, axes), tau,
+                          self.robust_rule)
 
     def channel_batch(self, bx: torch.Tensor, bxt: torch.Tensor,
                       xp: torch.Tensor, corrupt: torch.Tensor,
@@ -156,3 +198,55 @@ class FlatGossipEngine:
         """Per-worker partner reads: fresh rows of ``bx`` where
         ``src_slot == H``, ring slots otherwise."""
         return ring_read(ring, bx, partner, src_slot)
+
+    # ----------------------------------------------- world-batched passes
+    def mix_batch(self, bx: torch.Tensor, bxt: torch.Tensor,
+                  dt: torch.Tensor, eta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """World-batched standalone mixing sweep (prologue and gradient
+        ticks), plain PyTorch."""
+        return mix_worlds(bx, bxt, eta, dt)
+
+    @staticmethod
+    def batch_worlds(bx: torch.Tensor, bxt: torch.Tensor,
+                     partner: torch.Tensor, dt_next: torch.Tensor, pw
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One fused group [p2p, mix] on (B, W, D) buffers; ``pw`` the
+        per-world (eta, alpha, alpha_t).  ``bxt`` is consumed."""
+        return gossip_event_worlds(bx, bxt, partner, dt_next, *pw)
+
+    def channel_batch_worlds(self, bx: torch.Tensor, bxt: torch.Tensor,
+                             xp: torch.Tensor, corrupt: torch.Tensor,
+                             dt_next: torch.Tensor, pw,
+                             taus: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """World-batched channel group: pre-gathered (B, W, D) partner
+        values, (B, W) corrupt offsets, per-world dynamics; the engine's
+        robust rule derives the (B, W) mscale, with the (B,) ``taus``
+        replacing the static threshold per world when given."""
+        mscale = self._mscale(bx, xp, corrupt, axes=2, taus=taus)
+        return channel_event_worlds(bx, bxt, xp, corrupt, mscale, dt_next,
+                                    *pw, clip=self._coord_clip())
+
+    @staticmethod
+    def channel_batch_worlds_scaled(bx: torch.Tensor, bxt: torch.Tensor,
+                                    xp: torch.Tensor, corrupt: torch.Tensor,
+                                    mscale: torch.Tensor,
+                                    dt_next: torch.Tensor, pw
+                                    ) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+        """World-batched channel group with an EXTERNAL (B, W) mscale (the
+        defense's decision); also returns the kernel's (B, W) rejection
+        mask."""
+        return channel_event_worlds(bx, bxt, xp, corrupt, mscale, dt_next,
+                                    *pw, clip=None, want_rej=True)
+
+    @staticmethod
+    def partner_values_worlds(ring: torch.Tensor | None, bx: torch.Tensor,
+                              partner: torch.Tensor,
+                              src_slot: torch.Tensor) -> torch.Tensor:
+        """Per-world partner reads: fresh rows of ``bx`` where ``src_slot
+        == H`` (or with no ring), ring slots otherwise."""
+        if ring is None:
+            b_idx = torch.arange(bx.shape[0], device=bx.device)[:, None]
+            return bx[b_idx, partner.long()]
+        return ring_read_worlds(ring, bx, partner, src_slot)

@@ -13,9 +13,10 @@ App E.2).  This module reproduces exactly that emulation:
   * matchings are maximal matchings sampled from random edge orders.
 
 Schedules are host-side numpy data.  This is the subset of
-``repro.core.events`` that the flat-buffer replay needs (raw schedules,
-coalescing, the flattened event stream); every array it returns is equal,
-array for array, to the JAX package's for the same arguments and seed.
+``repro.core.events`` that the replays need (raw schedules, topology
+schedules, coalescing, the flattened event stream, and the many-worlds
+batching of schedules and streams); every array it returns is equal, array
+for array, to the JAX package's for the same arguments and seed.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import dataclasses
 
 import numpy as np
 
-from .graphs import Graph
+from .graphs import Graph, TopologySchedule
 
 
 def _alive_arr(rounds: int, n: int, alive: np.ndarray | None) -> np.ndarray:
@@ -106,6 +107,18 @@ class Schedule:
                     f"(rounds, kmax, n) or ({R}, {K}), got {a.shape}")
             out[name] = a
         return dataclasses.replace(self, extras=out)
+
+    def with_grad_gate(self, gate: np.ndarray) -> "Schedule":
+        """AND a (R, n) boolean gate into ``grad_mask``: a False entry skips
+        that worker's round-r gradient tick like straggler thinning (the
+        worker stays alive, its clock advances, mixing applies)."""
+        gate = np.asarray(gate, dtype=bool)
+        if gate.shape != (self.rounds, self.n):
+            raise ValueError(
+                f"grad gate must have shape ({self.rounds}, {self.n}) = "
+                f"(rounds, n), got {gate.shape}")
+        mask = gate if self.grad_mask is None else (self.grad_mask & gate)
+        return dataclasses.replace(self, grad_mask=mask)
 
 
 def make_schedule(
@@ -332,6 +345,28 @@ def concat_schedules(schedules: list[Schedule]) -> Schedule:
         grad_mask=gmask, alive=alive, extras=extras)
 
 
+def make_topology_schedule(
+    tsched: TopologySchedule,
+    comms_per_grad: float = 1.0,
+    seed: int = 0,
+    jitter_grad_times: bool = True,
+    grad_rates: np.ndarray | None = None,
+    per_edge: bool | None = None,
+) -> Schedule:
+    """Compile a time-varying topology into one concatenated schedule,
+    through ``World``: phase p covers its own rounds with its own graph and
+    churn mask, sampled with seed ``seed + p``, so a single-phase topology
+    schedule reproduces ``make_schedule(graph, ..., seed)`` bit for bit."""
+    from .world import LinkModel, WorkerModel, World
+
+    world = World(topology=tsched,
+                  workers=WorkerModel(grad_rates=grad_rates),
+                  links=LinkModel(per_edge=per_edge),
+                  comms_per_grad=comms_per_grad,
+                  jitter_grad_times=jitter_grad_times)
+    return world.compile(seed=seed)
+
+
 # ---------------------------------------------------------------------------
 # Event coalescing (flat-buffer event engine)
 # ---------------------------------------------------------------------------
@@ -480,12 +515,18 @@ class EventStream:
         return self.partners.shape[0]
 
 
-def coalesced_stream(cs: CoalescedSchedule, t0: np.ndarray) -> EventStream:
+def coalesced_stream(cs: CoalescedSchedule, t0: np.ndarray,
+                     round_batches: np.ndarray | None = None) -> EventStream:
     """Flatten a coalesced schedule into an EventStream given start clocks.
 
     A detached worker's clock never advances (zero dt segments), a
     straggler's masked gradient tick still advances its clock and mixing
     horizon but contributes grad_scale 0.
+
+    ``round_batches`` (R,) pads round r to that many comm steps with
+    identity groups (self-partner p2p, zero-dt mixing, zero extras), an
+    exact no-op of the replay; ``stack_streams`` uses it so that the
+    gradient ticks of B ragged worlds land on the same step.
     """
     R, B, n = cs.partners.shape
     idx = np.arange(n)
@@ -512,7 +553,9 @@ def coalesced_stream(cs: CoalescedSchedule, t0: np.ndarray) -> EventStream:
             ext_rows[k].append(ext[k])
 
     ones = np.ones(n, np.float32)
+    idt = idx.astype(np.int32)
     for r in range(R):
+        emitted = 0
         for b in range(B):
             if not cs.batch_active[r, b]:
                 continue
@@ -522,6 +565,15 @@ def coalesced_stream(cs: CoalescedSchedule, t0: np.ndarray) -> EventStream:
             tl[inv] = cs.wtimes[r, b, inv]
             emit(cs.partners[r, b].astype(np.int32), delta, False, ones,
                  {k: a[r, b] for k, a in cs_ext.items()})
+            emitted += 1
+        if round_batches is not None:
+            target = int(round_batches[r])
+            if target < emitted:
+                raise ValueError(
+                    f"round_batches[{r}] = {target} is below this "
+                    f"schedule's {emitted} active batches")
+            for _ in range(target - emitted):
+                emit(idt, np.zeros(n, np.float32), False, ones, ext_zero)
         adv = alive[r]
         delta = np.where(adv, cs.grad_times[r] - tl, 0.0).astype(np.float32)
         tl = np.where(adv, cs.grad_times[r], tl).astype(np.float32)
@@ -539,3 +591,194 @@ def coalesced_stream(cs: CoalescedSchedule, t0: np.ndarray) -> EventStream:
         extras={k: np.stack(v) for k, v in ext_rows.items()}
         if ext_rows else None,
     )
+
+
+# ---------------------------------------------------------------------------
+# Many-worlds batching (the world-batched replay)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchedSchedule:
+    """B per-event schedules padded to one (R, B, K, n) block, the world
+    axis right after the round axis.  Ragged per-round event counts cost
+    masked identity slots (``concat_schedules``' padding), never a branch;
+    ``grad_scale``/``alive``/``extras`` are materialized."""
+
+    partners: np.ndarray     # (R, B, K, n) int32
+    event_times: np.ndarray  # (R, B, K) f32
+    event_mask: np.ndarray   # (R, B, K) bool
+    grad_times: np.ndarray   # (R, B, n) f32
+    grad_scale: np.ndarray   # (R, B, n) f32
+    alive: np.ndarray        # (R, B, n) bool
+    extras: dict[str, np.ndarray] | None = None  # each (R, B, K, n)
+
+    @property
+    def rounds(self) -> int:
+        return self.partners.shape[0]
+
+    @property
+    def batch(self) -> int:
+        return self.partners.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.partners.shape[3]
+
+    def extras_dict(self) -> dict[str, np.ndarray]:
+        return dict(self.extras) if self.extras else {}
+
+
+def _pad_events_k(partners, event_times, event_mask, kmax: int):
+    """Pad the K axis with masked identity slots (times repeat the row's
+    last value); a K = 0 schedule pads with zero times (all masked)."""
+    R, K, n = partners.shape
+    if K == kmax:
+        return partners, event_times, event_mask
+    pad_p = np.tile(np.arange(n, dtype=np.int32), (R, kmax - K, 1))
+    pad_t = np.repeat(event_times[:, -1:], kmax - K, axis=1) if K else \
+        np.zeros((R, kmax), event_times.dtype)
+    return (np.concatenate([partners, pad_p], axis=1),
+            np.concatenate([event_times, pad_t], axis=1),
+            np.concatenate([event_mask, np.zeros((R, kmax - K), bool)],
+                           axis=1))
+
+
+def _union_keys(extra_dicts: list[dict]) -> list[str]:
+    keys: list[str] = []
+    for d in extra_dicts:
+        keys += [k for k in d if k not in keys]
+    return keys
+
+
+def stack_schedules(schedules: list[Schedule]) -> BatchedSchedule:
+    """Stack B worlds' schedules, which must share (rounds, n); ragged K is
+    padded to the widest world, extras are unioned (a world without a key
+    contributes zeros: fresh, honest)."""
+    if not schedules:
+        raise ValueError("need at least one schedule")
+    R, n = schedules[0].rounds, schedules[0].n
+    for i, s in enumerate(schedules):
+        if s.rounds != R or s.n != n:
+            raise ValueError(
+                f"schedules[{i}] has (rounds, n) = ({s.rounds}, {s.n}); a "
+                f"batch must share one frame, expected ({R}, {n})")
+    kmax = max(s.partners.shape[1] for s in schedules)
+    parts, times, masks = [], [], []
+    for s in schedules:
+        p, t, m = _pad_events_k(s.partners, s.event_times, s.event_mask,
+                                kmax)
+        parts.append(p)
+        times.append(t)
+        masks.append(m)
+    ex_dicts = [s.extras_dict() for s in schedules]
+    keys = _union_keys(ex_dicts)
+    extras = None
+    if keys:
+        extras = {}
+        for k in keys:
+            dtype = next(d[k].dtype for d in ex_dicts if k in d)
+            chunks = []
+            for d in ex_dicts:
+                a = d.get(k)
+                if a is None:
+                    a = np.zeros((R, kmax, n), dtype)
+                elif a.shape[1] < kmax:
+                    a = np.concatenate(
+                        [a, np.zeros((R, kmax - a.shape[1], n), a.dtype)],
+                        axis=1)
+                chunks.append(a)
+            extras[k] = np.stack(chunks, axis=1)
+    return BatchedSchedule(
+        partners=np.stack(parts, axis=1),
+        event_times=np.stack(times, axis=1).astype(np.float32),
+        event_mask=np.stack(masks, axis=1),
+        grad_times=np.stack([s.grad_times for s in schedules],
+                            axis=1).astype(np.float32),
+        grad_scale=np.stack([s.grad_scale() for s in schedules], axis=1),
+        alive=np.stack([s.alive_arr() for s in schedules], axis=1),
+        extras=extras)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedStream:
+    """B event streams aligned to one shared step skeleton: every round of
+    every world is padded to the round's largest batch count (identity
+    groups), so ``is_grad`` and ``grad_pos`` are shared and the batched
+    replay keeps the serial replay's one branch per step.
+
+    Shapes (S = shared steps, B = worlds, n = workers, R = rounds):
+      prologue (B, n) f32; partners (S, B, n) int32; dt_next (S, B, n) f32;
+      is_grad (S,) bool; grad_scale (S, B, n) f32; grad_pos (R,) int32;
+      t_final (B, n) f32; extras: named (S, B, n) arrays (union over
+      worlds, missing keys zero = fresh/honest)
+    """
+
+    prologue: np.ndarray
+    partners: np.ndarray
+    dt_next: np.ndarray
+    is_grad: np.ndarray
+    grad_scale: np.ndarray
+    grad_pos: np.ndarray
+    t_final: np.ndarray
+    extras: dict[str, np.ndarray] | None = None
+
+    @property
+    def steps(self) -> int:
+        return self.partners.shape[0]
+
+    @property
+    def batch(self) -> int:
+        return self.partners.shape[1]
+
+    def extras_dict(self) -> dict[str, np.ndarray]:
+        return dict(self.extras) if self.extras else {}
+
+
+def stack_streams(cs_list: list[CoalescedSchedule],
+                  t0: np.ndarray) -> BatchedStream:
+    """Compile B coalesced schedules + (B, n) start clocks into one
+    BatchedStream.  Round r contributes ``max_b active_batches_b(r)`` comm
+    steps for every world; worlds with fewer replay identity groups, so
+    the gradient ticks of all worlds coincide step for step."""
+    if not cs_list:
+        raise ValueError("need at least one coalesced schedule")
+    R, n = cs_list[0].rounds, cs_list[0].n
+    for i, cs in enumerate(cs_list):
+        if cs.rounds != R or cs.n != n:
+            raise ValueError(
+                f"coalesced schedules[{i}] has (rounds, n) = "
+                f"({cs.rounds}, {cs.n}); a batch must share one frame, "
+                f"expected ({R}, {n})")
+    t0 = np.asarray(t0, np.float32)
+    if t0.shape != (len(cs_list), n):
+        raise ValueError(f"t0 must be (B, n) = ({len(cs_list)}, {n}) start "
+                         f"clocks, got {t0.shape}")
+    round_batches = np.stack(
+        [cs.batch_active.sum(axis=1) for cs in cs_list]).max(axis=0)
+    streams = [coalesced_stream(cs, t0[i], round_batches=round_batches)
+               for i, cs in enumerate(cs_list)]
+    s0 = streams[0]
+    for st in streams[1:]:
+        # same rounds + same per-round batch counts => identical skeleton
+        assert st.steps == s0.steps
+        assert np.array_equal(st.is_grad, s0.is_grad)
+        assert np.array_equal(st.grad_pos, s0.grad_pos)
+    ex_dicts = [st.extras or {} for st in streams]
+    keys = _union_keys(ex_dicts)
+    extras = None
+    if keys:
+        extras = {}
+        for k in keys:
+            dtype = next(d[k].dtype for d in ex_dicts if k in d)
+            extras[k] = np.stack(
+                [d.get(k, np.zeros((s0.steps, n), dtype))
+                 for d in ex_dicts], axis=1)
+    return BatchedStream(
+        prologue=np.stack([st.prologue for st in streams]),
+        partners=np.stack([st.partners for st in streams], axis=1),
+        dt_next=np.stack([st.dt_next for st in streams], axis=1),
+        is_grad=s0.is_grad,
+        grad_scale=np.stack([st.grad_scale for st in streams], axis=1),
+        grad_pos=s0.grad_pos,
+        t_final=np.stack([st.t_final for st in streams]),
+        extras=extras)

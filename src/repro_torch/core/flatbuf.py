@@ -5,7 +5,10 @@ replica.  ``FlatLayout`` packs the replica into ONE contiguous buffer with a
 static layout spec, so an event is a single fused sweep:
 
   * stacked form — leaves (W, *shape) -> one (W, D) buffer, worker-major;
-  * local form   — leaves (*shape)    -> one (D,) vector.
+  * local form   — leaves (*shape)    -> one (D,) vector;
+  * worlds form  — leaves (B, W, *shape) -> one (B, W, D) buffer: B
+    independent worlds' replicas on a leading axis (the world-batched
+    replay), with the stacked form's layout below it.
 
 D is the sum of leaf sizes rounded up to a multiple of ``LANE`` (128), so
 every row starts 16-byte aligned for any buffer dtype and the hand kernel
@@ -76,18 +79,21 @@ class FlatLayout:
 
     @classmethod
     def from_pytree(cls, tree: PyTree, *, stacked: bool = False,
+                    worlds: bool = False,
                     buf_dtype: torch.dtype | None = None,
                     lane: int = LANE) -> "FlatLayout":
         """Build a layout from a template pytree (shapes and dtypes only).
 
-        stacked=True strips a leading worker axis from every leaf.
-        buf_dtype=None infers the narrowest exact buffer dtype; passing one
-        explicitly still validates exactness.
+        stacked=True strips a leading worker axis from every leaf;
+        worlds=True strips a leading (world, worker) pair (the per-replica
+        layout is the same either way).  buf_dtype=None infers the
+        narrowest exact buffer dtype; passing one explicitly still
+        validates exactness.
         """
         leaves, treedef = tree_flatten(tree)
         if buf_dtype is None:
             buf_dtype = _infer_buf_dtype({a.dtype for a in leaves})
-        lead = 1 if stacked else 0
+        lead = 2 if worlds else (1 if stacked else 0)
         specs = []
         off = 0
         for leaf in leaves:
@@ -137,6 +143,26 @@ class FlatLayout:
             vec[s.offset:s.offset + s.size].to(s.dtype).reshape(s.shape)
             for s in self.specs])
 
+    def pack_worlds(self, tree: PyTree) -> torch.Tensor:
+        """World-batched pytree (leaves (B, W, *shape)) -> fresh (B, W, D)
+        buffer."""
+        leaves = self.treedef.flatten_up_to(tree)
+        b, w = leaves[0].shape[:2]
+        buf = torch.empty((b, w, self.d), dtype=self.buf_dtype,
+                          device=leaves[0].device)
+        for leaf, s in zip(leaves, self.specs):
+            buf[:, :, s.offset:s.offset + s.size] = leaf.reshape(b, w, s.size)
+        buf[:, :, self.d_real:] = 0
+        return buf
+
+    def unpack_worlds(self, buf: torch.Tensor) -> PyTree:
+        """(B, W, D) buffer -> world-batched pytree.  Leaves of the buffer
+        dtype are views into ``buf``."""
+        b, w = buf.shape[:2]
+        return self.treedef.unflatten([
+            buf[:, :, s.offset:s.offset + s.size]
+            .to(s.dtype).reshape((b, w) + s.shape) for s in self.specs])
+
 
 # ---------------------------------------------------------------------------
 # snapshot ring (unreliable-channel stale reads)
@@ -183,3 +209,40 @@ def ring_read(ring: torch.Tensor, buf: torch.Tensor, partner: torch.Tensor,
     stale = ring[src_slot.clamp(max=h - 1), partner]
     sel = (src_slot < h).reshape((-1,) + (1,) * (buf.dim() - 1))
     return torch.where(sel, stale, fresh)
+
+
+# -- world-batched ring (B, H, W, D): one snapshot ring per world.  The
+# batched stream aligns the worlds' gradient ticks, so a push writes one
+# shared slot in every world.  Like ``ring_init`` it owns its storage (the
+# JAX package seeds it with an immutable broadcast).
+
+def ring_init_worlds(buf: torch.Tensor, horizon: int) -> torch.Tensor:
+    """(B, H, W, D) ring with its own storage, every slot of world b a copy
+    of ``buf[b]``."""
+    if horizon <= 0:
+        raise ValueError(f"ring_init_worlds needs horizon >= 1, "
+                         f"got {horizon}")
+    return buf.unsqueeze(1).repeat((1, horizon) + (1,) * (buf.dim() - 1))
+
+
+def ring_push_worlds(ring: torch.Tensor, buf: torch.Tensor, pos: int
+                     ) -> torch.Tensor:
+    """Copy each world's (W, D) buffer into slot ``pos`` (shared, = round
+    mod H) of its own ring, in place.  Returns the ring."""
+    ring[:, pos].copy_(buf)
+    return ring
+
+
+def ring_read_worlds(ring: torch.Tensor, buf: torch.Tensor,
+                     partner: torch.Tensor, src_slot: torch.Tensor
+                     ) -> torch.Tensor:
+    """(B, W, D) partner values under staleness, per world: ``ring_read``
+    with a leading world axis (``partner`` and ``src_slot`` (B, W), the
+    partners local to each world)."""
+    h = ring.shape[1]
+    partner = partner.long()
+    src_slot = src_slot.long()
+    b_idx = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    fresh = buf[b_idx, partner]
+    stale = ring[b_idx, src_slot.clamp(max=h - 1), partner]
+    return torch.where((src_slot < h)[:, :, None], stale, fresh)

@@ -40,6 +40,16 @@ schedule arrays are copied to the device once, and the per-round metrics
 and the defense state stay on the device until the replay ends, so the
 loop never waits for the card.  The telemetry and sharded flavors are not
 ported yet; ``run_schedule`` refuses them instead of taking another path.
+
+``run_worlds`` replays B independent worlds at once, in the engine's three
+flavors (plain, channel, defense) on (B, W, D) buffers and (B, H, W, D)
+snapshot rings: the B worlds' streams are aligned so their gradient ticks
+share steps (``events.stack_streams``), each comm step is ONE launch of a
+world-batched kernel with the per-world dynamics as (B,) device tensors,
+and each gradient tick calls ``grad_fn`` once per world with that world's
+generator, so row b draws what world b's serial replay draws.  With
+``engine=False`` it runs each world's serial per-event replay on the
+padded batched schedule arrays (the oracle).
 """
 from __future__ import annotations
 
@@ -50,14 +60,17 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.a2cid2_mixing.ref import dtype_scalar
 from .a2cid2 import (A2CiD2Params, apply_mixing, consensus_distance,
                      matched_p2p_update, worker_mean)
 from .channel import CORRUPT_KEY, STALE_KEY
 from .defense import (DefenseTrace, defense_absorb, defense_comm,
-                      defense_grad, defense_init, knobs_single)
+                      defense_grad, defense_init, knobs_single, knobs_worlds)
 from .engine import FlatGossipEngine, norm_scale
-from .events import Schedule, coalesce_schedule, coalesced_stream
-from .flatbuf import FlatLayout, ring_init, ring_push, ring_read
+from .events import (Schedule, coalesce_schedule, coalesced_stream,
+                     stack_schedules, stack_streams)
+from .flatbuf import (FlatLayout, ring_init, ring_init_worlds, ring_push,
+                      ring_push_worlds, ring_read)
 from .tree import PyTree, tree_flatten, tree_leaves, tree_map
 
 # grad_fn(x_stacked, generator, worker_ids) -> (losses (n,), grads) for ALL
@@ -71,10 +84,13 @@ GradFn = Callable[[PyTree, torch.Generator, torch.Tensor],
 
 
 class SimState(NamedTuple):
+    """One world's state, or B worlds' (``Simulator.batch_states``): leaves
+    (B, n, ...), t_last (B, n) and a tuple of B generators, one per world
+    (torch generators do not split as JAX keys do)."""
     x: PyTree                    # leaves (n, ...)
     x_tilde: PyTree              # leaves (n, ...)
     t_last: torch.Tensor         # (n,) f32 last per-worker event time
-    generator: torch.Generator   # randomness of the gradient ticks
+    generator: Any               # torch.Generator of the gradient ticks
 
 
 class SimTrace(NamedTuple):
@@ -86,9 +102,10 @@ class SimTrace(NamedTuple):
     defense: Any = None
 
 
-def _stack_rows(rows, cls):
-    """Per-round tuples of 0-d tensors -> ``cls`` of (rounds,) tensors."""
-    return cls(*(torch.stack(c) for c in zip(*rows)))
+def _stack_rows(rows, cls, dim: int = 0):
+    """Per-round tuples of 0-d tensors -> ``cls`` of (rounds,) tensors; of
+    (B,) tensors with ``dim=1`` -> (B, rounds)."""
+    return cls(*(torch.stack(c, dim=dim) for c in zip(*rows)))
 
 
 def _cadv(corrupt: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -169,7 +186,7 @@ class Simulator:
         def upd(p, g):
             sc = grad_scale.reshape(grad_scale.shape
                                     + (1,) * (g.dim() - 1)).to(g.dtype)
-            return p - self.gamma * (sc * g)
+            return p - dtype_scalar(self.gamma, g.dtype) * (sc * g)
 
         x, xt = tree_map(upd, x, grads), tree_map(upd, xt, grads)
         row = (losses.mean().float(), consensus_distance(x).float(),
@@ -220,8 +237,10 @@ class Simulator:
             if mscale is not None:
                 m = m * _per_worker(mscale, a)
             elif clip is not None:
-                m = torch.clamp(m, -clip, clip)
-            return a - p.alpha * m, at - p.alpha_tilde * m
+                c = dtype_scalar(clip, a.dtype)
+                m = torch.clamp(m, -c, c)
+            return (a - dtype_scalar(p.alpha, a.dtype) * m,
+                    at - dtype_scalar(p.alpha_tilde, a.dtype) * m)
 
         flat_x, treedef = tree_flatten(x)
         out = [upd(a, at, b) for a, at, b in
@@ -350,17 +369,20 @@ class Simulator:
                                                  device=dev)), stream
 
     def _grad_tick(self, engine: FlatGossipEngine, bx, bxt, generator,
-                   gscale, ids):
+                   gscale, ids, gamma: float | None = None):
         """The engine's gradient tick: the batched gradient on the unpacked
-        buffer, the step on both buffers and the round's metrics row (the
-        trailing mixing segment is the caller's)."""
+        buffer, the step (``gamma``, default ``self.gamma``) on both buffers
+        and the round's metrics row (the trailing mixing segment is the
+        caller's)."""
         n = ids.shape[0]
         losses, grads = self.grad_fn(engine.unpack(bx), generator, ids)
         g = engine.pack(grads)
         # grad_scale masks straggler/churned ticks (1.0 elsewhere)
         g = gscale[:, None].to(g.dtype) * g
-        bx = bx - self.gamma * g
-        bxt = bxt - self.gamma * g
+        gamma = dtype_scalar(self.gamma if gamma is None else gamma,
+                             g.dtype)
+        bx = bx - gamma * g
+        bxt = bxt - gamma * g
         mean = bx.mean(dim=0, keepdim=True)
         # padding columns are zero across workers: they add 0 to both
         return bx, bxt, (losses.mean().float(),
@@ -522,3 +544,362 @@ class Simulator:
             arrays, horizon = self.channel_reference_arrays(sched)
             return self.run_channel(state, arrays, horizon, knobs)
         return self.run(state, self.reference_arrays(sched))
+
+    # --------------------------------------------- world-batched replay
+    @staticmethod
+    def world_params(params_list, device) -> tuple[torch.Tensor, ...]:
+        """Per-world (eta, alpha, alpha_tilde) as (B,) f32 tensors on
+        ``device``: the kernels read them there.  Rounding each value to
+        f32 commutes with the kernels' power-of-two multiplies, and alpha
+        goes from f32 to the buffer dtype as a Python float does, so every
+        world lands on its serial replay's bits."""
+        return tuple(torch.tensor([getattr(p, f) for p in params_list],
+                                  dtype=torch.float32, device=device)
+                     for f in ("eta", "alpha", "alpha_tilde"))
+
+    @staticmethod
+    def batch_states(states) -> SimState:
+        """Stack per-world SimStates onto a leading world axis: leaves
+        (B, n, ...), t_last (B, n), and the B generators as a tuple (each
+        world keeps its own stream)."""
+        states = list(states)
+        if not states:
+            raise ValueError("need at least one state")
+        return SimState(
+            x=tree_map(lambda *a: torch.stack(a), *[s.x for s in states]),
+            x_tilde=tree_map(lambda *a: torch.stack(a),
+                             *[s.x_tilde for s in states]),
+            t_last=torch.stack([s.t_last for s in states]),
+            generator=tuple(s.generator for s in states))
+
+    @staticmethod
+    def _world(state: SimState, b: int) -> SimState:
+        """World b of a batched state (views, not copies)."""
+        return SimState(tree_map(lambda a: a[b], state.x),
+                        tree_map(lambda a: a[b], state.x_tilde),
+                        state.t_last[b], state.generator[b])
+
+    def _grad_worlds(self, engine: FlatGossipEngine, bx, bxt, generators,
+                     gscale, gammas, ids):
+        """The batched engine's gradient tick: per world, the serial
+        ``_grad_tick`` on its (W, D) rows, with that world's generator and
+        step size, written into the (B, W, D) buffers in place.  Returns
+        the buffers and the (B,) metrics row."""
+        rows = []
+        for b in range(bx.shape[0]):
+            wx, wxt, row = self._grad_tick(engine, bx[b], bxt[b],
+                                           generators[b], gscale[b], ids,
+                                           gamma=gammas[b])
+            bx[b] = wx
+            bxt[b] = wxt
+            rows.append(row)
+        return bx, bxt, tuple(torch.stack(c) for c in zip(*rows))
+
+    def _batched_stream(self, states: SimState, scheds):
+        bs = stack_streams([coalesce_schedule(sc) for sc in scheds],
+                           states.t_last.cpu().numpy())
+        dev = self.device
+        return (torch.as_tensor(bs.prologue, device=dev),
+                torch.as_tensor(bs.partners, device=dev),
+                torch.as_tensor(bs.dt_next, device=dev),
+                bs.is_grad, torch.as_tensor(bs.grad_scale, device=dev),
+                bs.grad_pos, torch.as_tensor(bs.t_final, device=dev)), bs
+
+    def worlds_coalesced_arrays(self, states: SimState, scheds):
+        """Engine inputs for B schedules: coalesce each world, align the
+        streams (``events.stack_streams``), copy to the device; ``is_grad``
+        and ``grad_pos`` (shared by every world) stay host numpy."""
+        return self._batched_stream(states, scheds)[0]
+
+    def worlds_channel_arrays(self, states: SimState, scheds):
+        """Channel twin of ``worlds_coalesced_arrays`` + the shared ring
+        depth H, the largest staleness any world demands (a shallower
+        world reads the same snapshots from a deeper ring; fresh reads use
+        the sentinel H).  Adds ``(corrupt, src_slot, ring_pos)``."""
+        arrays, bs = self._batched_stream(states, scheds)
+        S, B, n = bs.partners.shape
+        stale, corrupt, horizon = self._channel_extras(bs.extras_dict(),
+                                                       (S, B, n))
+        h = max(horizon, 1)
+        step_round = np.searchsorted(np.asarray(bs.grad_pos), np.arange(S),
+                                     side="left")
+        src_slot = np.where(stale > 0,
+                            (step_round[:, None, None] - stale) % h,
+                            horizon).astype(np.int32)
+        ring_pos = (step_round % h).astype(np.int32)
+        dev = self.device
+        return arrays + (torch.as_tensor(corrupt, device=dev),
+                         torch.as_tensor(src_slot, device=dev).long(),
+                         ring_pos), horizon
+
+    def worlds_reference_arrays(self, scheds):
+        """Batched per-event inputs (``events.stack_schedules``): the
+        serial ``reference_arrays`` tuple with a world axis after the
+        round axis, K padded with masked identity slots."""
+        b = stack_schedules(list(scheds))
+        dev = self.device
+        return tuple(torch.as_tensor(a, device=dev) for a in (
+            b.partners.astype(np.int64), b.event_times, b.event_mask,
+            b.grad_times, b.grad_scale, b.alive))
+
+    def worlds_channel_reference_arrays(self, scheds):
+        """Batched per-event channel inputs + the shared ring depth (slot
+        resolution as in ``worlds_channel_arrays``); ``ring_pos`` (R,)
+        stays host numpy."""
+        b = stack_schedules(list(scheds))
+        R, B, K, n = b.partners.shape
+        stale, corrupt, horizon = self._channel_extras(b.extras_dict(),
+                                                       (R, B, K, n))
+        h = max(horizon, 1)
+        rr = np.arange(R)[:, None, None, None]
+        src_slot = np.where(stale > 0, (rr - stale) % h,
+                            horizon).astype(np.int64)
+        ring_pos = (np.arange(R) % h).astype(np.int32)
+        dev = self.device
+        return tuple(torch.as_tensor(a, device=dev) for a in (
+            b.partners.astype(np.int64), b.event_times, b.event_mask,
+            src_slot, corrupt, b.grad_times, b.grad_scale, b.alive)) \
+            + (ring_pos,), horizon
+
+    def run_worlds_coalesced(self, state: SimState, pw, gammas,
+                             stream_arrays) -> tuple[SimState, SimTrace]:
+        """World-batched engine replay: one ``mixing_gossip_worlds``
+        launch per shared comm step, a per-world gradient tick and one
+        batched mixing sweep per gradient step."""
+        (prologue, partners, dt_next, is_grad, grad_scale, _grad_pos,
+         t_final) = stream_arrays
+        engine = FlatGossipEngine.for_pytree(state.x, self.params,
+                                             worlds=True)
+        bx = engine.pack_worlds(state.x)
+        bxt = engine.pack_worlds(state.x_tilde)
+        bx, bxt = engine.mix_batch(bx, bxt, prologue, pw[0])
+        ids = torch.arange(prologue.shape[1], device=bx.device)
+        rows = []
+        for s in range(len(is_grad)):
+            if not is_grad[s]:
+                bx, bxt = engine.batch_worlds(bx, bxt, partners[s],
+                                              dt_next[s], pw)
+                continue
+            bx, bxt, row = self._grad_worlds(engine, bx, bxt,
+                                             state.generator, grad_scale[s],
+                                             gammas, ids)
+            rows.append(row)
+            bx, bxt = engine.mix_batch(bx, bxt, dt_next[s], pw[0])
+        final = SimState(engine.unpack_worlds(bx), engine.unpack_worlds(bxt),
+                         t_final, state.generator)
+        return final, _stack_rows(rows, SimTrace, dim=1)
+
+    def run_worlds_channel(self, state: SimState, pw, gammas, taus,
+                           stream_arrays, horizon: int, knobs=None
+                           ) -> tuple[SimState, SimTrace]:
+        """World-batched channel replay: per shared comm step the partner
+        values of every world are gathered (fresh rows or ring snapshots)
+        and ONE ``channel_gossip_worlds`` launch applies the batch; every
+        world's ring takes a snapshot at each gradient tick.  ``taus``
+        ((B,) f32 or None) are per-world robust thresholds; with defense
+        ``knobs`` (``defense.knobs_worlds``) the self-healing loop runs on
+        a batched state, fed by the kernel's (B, W) rejection mask."""
+        (prologue, partners, dt_next, is_grad, grad_scale, _grad_pos,
+         t_final, corrupt, src_slot, ring_pos) = stream_arrays
+        engine = FlatGossipEngine.for_pytree(state.x, self.params,
+                                             worlds=True,
+                                             robust_clip=self.robust_clip,
+                                             robust_rule=self.robust_rule)
+        bx = engine.pack_worlds(state.x)
+        bxt = engine.pack_worlds(state.x_tilde)
+        bx, bxt = engine.mix_batch(bx, bxt, prologue, pw[0])
+        B, n = prologue.shape
+        ids = torch.arange(n, device=bx.device)
+        ring = ring_init_worlds(bx, horizon) if horizon else None
+        ds = None if knobs is None else defense_init(n, bx.device, batch=B)
+        rows, drows = [], []
+        for s in range(len(is_grad)):
+            if not is_grad[s]:
+                partner = partners[s]
+                xp = engine.partner_values_worlds(ring, bx, partner,
+                                                  src_slot[s])
+                if ds is None:
+                    bx, bxt = engine.channel_batch_worlds(
+                        bx, bxt, xp, corrupt[s], dt_next[s], pw, taus)
+                    continue
+                nrm = engine.delta_norms(bx, xp, corrupt[s], axes=2)
+                involved = partner != ids
+                mscale, quar, ds = defense_comm(knobs, ds, partner,
+                                                involved, nrm)
+                bx, bxt, rej = engine.channel_batch_worlds_scaled(
+                    bx, bxt, xp, corrupt[s], mscale, dt_next[s], pw)
+                ds = defense_absorb(ds, rej, quar, involved)
+                continue
+            bx, bxt, row = self._grad_worlds(engine, bx, bxt,
+                                             state.generator, grad_scale[s],
+                                             gammas, ids)
+            rows.append(row)
+            if ds is not None:
+                ds, drow = defense_grad(knobs, ds)
+                drows.append(drow)
+            if horizon:
+                ring_push_worlds(ring, bx, int(ring_pos[s]))
+            bx, bxt = engine.mix_batch(bx, bxt, dt_next[s], pw[0])
+        final = SimState(engine.unpack_worlds(bx), engine.unpack_worlds(bxt),
+                         t_final, state.generator)
+        trace = _stack_rows(rows, SimTrace, dim=1)
+        if ds is not None:
+            trace = trace._replace(
+                defense=_stack_rows(drows, DefenseTrace, dim=1))
+        return final, trace
+
+    def _run_worlds_per_event(self, state: SimState, scheds, plan
+                              ) -> tuple[SimState, SimTrace]:
+        """The per-event oracle: world b's serial per-event replay, with its
+        own params, step size, threshold and defense knobs, on row b of the
+        padded batched schedule arrays; the results stacked."""
+        if plan["channel"]:
+            arrays, horizon = self.worlds_channel_reference_arrays(scheds)
+        else:
+            arrays = self.worlds_reference_arrays(scheds)
+        outs = []
+        for b in range(len(scheds)):
+            sim = dataclasses.replace(self, params=plan["params"][b],
+                                      gamma=plan["gammas"][b],
+                                      robust_clip=plan["taus"][b])
+            st = self._world(state, b)
+            if not plan["channel"]:
+                outs.append(sim.run(st, tuple(a[:, b] for a in arrays)))
+                continue
+            knobs = knobs_single(plan["defenses"][b], plan["taus"][b],
+                                 self.device) if plan["active"] else None
+            outs.append(sim.run_channel(
+                st, tuple(a[:, b] for a in arrays[:-1]) + arrays[-1:],
+                horizon, knobs))
+        final = self.batch_states([f for f, _ in outs])
+        traces = [t for _, t in outs]
+        trace = SimTrace(*(torch.stack([getattr(t, k) for t in traces])
+                           for k in ("loss", "consensus", "mean_param_norm")))
+        if plan["active"]:
+            trace = trace._replace(defense=DefenseTrace(
+                *(torch.stack(c) for c in zip(*(t.defense for t in traces)))))
+        return final, trace
+
+    def _worlds_plan(self, states: SimState, scheds, *, params, gammas,
+                     robust_clips, defenses, worlds) -> dict:
+        """Validate a worlds call and derive each world's knobs: params
+        (explicit, else each world's ``algorithm_params()`` where it
+        declares an algorithm, else ``self.params``), step sizes,
+        thresholds (None entries fall back to ``self.robust_clip``) and
+        defense arms (explicit, else the worlds' ``defense`` fields).  Any
+        active defense routes the whole batch to the defense flavor, whose
+        inactive arms run neutral knobs (their static arithmetic)."""
+        B = len(scheds)
+        lead = tree_leaves(states.x)[0].shape[0]
+        if lead != B:
+            raise ValueError(f"states are batched for {lead} worlds but "
+                             f"{B} schedules were given")
+        if worlds is not None:
+            wlist = list(worlds)
+            if len(wlist) != B:
+                raise ValueError(f"worlds must have one entry per schedule "
+                                 f"({B}), got {len(wlist)}")
+            if params is None:
+                params = [self.params if w.algorithm is None
+                          else w.algorithm_params() for w in wlist]
+            if defenses is None and any(w.defense is not None
+                                        for w in wlist):
+                defenses = [w.defense for w in wlist]
+
+        def per_world(name, values, default):
+            out = list(values) if values is not None else [default] * B
+            if len(out) != B:
+                raise ValueError(f"{name} must have one entry per world "
+                                 f"({B}), got {len(out)}")
+            return out
+
+        plist = per_world("params", params, self.params)
+        glist = [float(g) for g in per_world("gammas", gammas, self.gamma)]
+        taus = [self.robust_clip if c is None else float(c)
+                for c in per_world("robust_clips", robust_clips, None)]
+        dlist = per_world("defenses", defenses, None)
+        active = any(d is not None and d.is_active for d in dlist)
+        any_clip = robust_clips is not None
+        if (active or any_clip) and self.robust_rule == "coord":
+            raise ValueError("per-world thresholds and the self-healing "
+                             "defense need a norm rule ('trim' or "
+                             "'clip'), not 'coord'")
+        if active and self.robust_rule != "trim":
+            raise ValueError("the self-healing defense needs "
+                             "robust_rule='trim' (its accept/reject loop "
+                             f"is binary), got {self.robust_rule!r}")
+        channel = (active or any_clip or self.robust_clip is not None
+                   or any(STALE_KEY in sc.extras_dict()
+                          or CORRUPT_KEY in sc.extras_dict()
+                          for sc in scheds))
+        return dict(params=plist, gammas=glist, taus=taus, defenses=dlist,
+                    active=active, any_clip=any_clip, channel=channel)
+
+    def run_worlds(self, states, scheds, *, params=None, gammas=None,
+                   robust_clips=None, defenses=None, worlds=None,
+                   engine: bool = True, telemetry=None, mesh=None
+                   ) -> tuple[SimState, SimTrace]:
+        """Replay B independent worlds at once.
+
+        states — a list of per-world SimStates (stacked with
+          ``batch_states``) or a world-batched SimState.
+        scheds — B compiled schedules sharing (rounds, n), e.g.
+          ``WorldSweep(...).compile(rounds)``; ragged event counts are
+          padded with identity groups (exact no-ops).
+        params / gammas / robust_clips / defenses — optional per-world
+          ``A2CiD2Params``, step sizes, robust thresholds and
+          ``AdaptiveDefense | None`` arms (see ``_worlds_plan``);
+          ``worlds`` — optional B ``World`` specs the params and defenses
+          are derived from where not given.
+
+        Returns the world-batched final state and a SimTrace of (B, rounds)
+        tensors: row b is world b's serial replay.  Dispatch mirrors
+        ``run_schedule``: channel extras, thresholds or a defense select
+        the channel flavor, an active defense its self-healing form;
+        ``engine=False`` the per-event oracle.  On the CPU a state no flat
+        buffer can hold takes the per-event path; on the card it is
+        refused.  ``mesh=`` and ``telemetry=`` are not ported yet.
+        """
+        missing = [(mesh is not None, "mesh=... (the sharded replay)"),
+                   (telemetry is not None,
+                    "telemetry=... (the telemetry slice)")]
+        for hit, what in missing:
+            if hit:
+                raise NotImplementedError(
+                    f"{what} is not ported to PyTorch yet")
+        scheds = list(scheds)
+        if not isinstance(states, SimState):
+            states = self.batch_states(states)
+        plan = self._worlds_plan(states, scheds, params=params,
+                                 gammas=gammas, robust_clips=robust_clips,
+                                 defenses=defenses, worlds=worlds)
+        if engine:
+            try:
+                FlatLayout.from_pytree(states.x, worlds=True)
+            except TypeError as err:
+                if self.device.type != "cpu":
+                    raise NotImplementedError(
+                        f"the flat-buffer engine cannot hold this state on "
+                        f"{self.device} ({err}); pass engine=False for the "
+                        f"per-event replay") from err
+                engine = False
+        if not engine:
+            return self._run_worlds_per_event(states, scheds, plan)
+        pw = self.world_params(plan["params"], self.device)
+        gammas = plan["gammas"]
+        if plan["active"]:
+            arrays, horizon = self.worlds_channel_arrays(states, scheds)
+            knobs = knobs_worlds(plan["defenses"], plan["taus"], self.device)
+            return self.run_worlds_channel(states, pw, gammas, None, arrays,
+                                           horizon, knobs)
+        if plan["channel"]:
+            arrays, horizon = self.worlds_channel_arrays(states, scheds)
+            taus = None
+            if plan["any_clip"]:
+                taus = torch.tensor([float("inf") if t is None else t
+                                     for t in plan["taus"]],
+                                    dtype=torch.float32, device=self.device)
+            return self.run_worlds_channel(states, pw, gammas, taus, arrays,
+                                           horizon)
+        return self.run_worlds_coalesced(
+            states, pw, gammas, self.worlds_coalesced_arrays(states, scheds))

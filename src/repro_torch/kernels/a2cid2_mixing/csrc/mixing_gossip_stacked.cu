@@ -32,64 +32,21 @@
 // the second read (L2 residency or a cluster exchange) and pipelining the
 // loads with cp.async or TMA are later work.
 //
-// Rounding: the arithmetic uses the _rn intrinsics, which nvcc never
-// contracts into an FMA, and for bf16 rounds every intermediate to bf16, so
-// the kernel rounds where the plain PyTorch version (ref.py) does.
+// Rounding: the per-element arithmetic lives in gossip_common.cuh, shared
+// with the other three gossip kernels (the _rn intrinsics, no FMA, a bf16
+// rounding of every intermediate), so the kernel rounds where the plain
+// PyTorch version (ref.py) does.  alpha and alpha_t arrive already rounded
+// to the buffer dtype.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libmixing_gossip_stacked.so mixing_gossip_stacked.cu
 // Entry point: mixing_gossip_stacked_launch (plain C, loaded with ctypes).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gossip_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-// grid-stride cap on blocks along a row: enough blocks in flight to cover
-// the 132 SMs many times over at W >= 1, few enough to amortise the per-block
-// partner/dt loads over several vectors per thread
-constexpr long long kMaxBlocksX = 2048;
-
-struct F32 {
-    using vec_t = float4;
-    static constexpr int kLanes = 4;
-    __device__ static __forceinline__ float round(float v) { return v; }
-    __device__ static __forceinline__ void unpack(const float4 &v, float *o) {
-        o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-    }
-    __device__ static __forceinline__ float4 pack(const float *i) {
-        return make_float4(i[0], i[1], i[2], i[3]);
-    }
-};
-
-struct BF16 {
-    using vec_t = uint4;  // 8 bf16 values, little-endian pairs per word
-    static constexpr int kLanes = 8;
-    __device__ static __forceinline__ float round(float v) {
-        return __bfloat162float(__float2bfloat16_rn(v));
-    }
-    __device__ static __forceinline__ void unpack(const uint4 &v, float *o) {
-        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            o[2 * k] = __uint_as_float(w[k] << 16);
-            o[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-        }
-    }
-    // inputs are already bf16 values (see round), so keeping the high
-    // half of each f32 pattern is exact
-    __device__ static __forceinline__ uint4 pack(const float *i) {
-        uint32_t w[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            w[k] = (__float_as_uint(i[2 * k]) >> 16)
-                 | (__float_as_uint(i[2 * k + 1]) & 0xffff0000u);
-        }
-        return make_uint4(w[0], w[1], w[2], w[3]);
-    }
-};
+using namespace gossip;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -103,8 +60,7 @@ mixing_gossip_stacked_kernel(const typename T::vec_t *__restrict__ x,
     constexpr int L = T::kLanes;
     const int w = blockIdx.y;
     const int p = partner[w];
-    const float c = T::round(__fmul_rn(
-        0.5f, __fsub_rn(1.0f, expf(__fmul_rn(neg2eta, dt_next[w])))));
+    const float c = mix_coeff<T>(neg2eta, dt_next[w]);
     const long long row = (long long)w * row_vecs;
     const long long prow = (long long)p * row_vecs;
     const long long stride = (long long)gridDim.x * blockDim.x;
@@ -121,15 +77,8 @@ mixing_gossip_stacked_kernel(const typename T::vec_t *__restrict__ x,
         T::unpack(x_tilde[row + i], xt);
 #pragma unroll
         for (int k = 0; k < L; ++k) {
-            const float m = T::round(__fsub_rn(xv[k], xp[k]));
-            const float x1 = T::round(
-                __fsub_rn(xv[k], T::round(__fmul_rn(alpha, m))));
-            const float xt1 = T::round(
-                __fsub_rn(xt[k], T::round(__fmul_rn(alpha_t, m))));
-            const float d = T::round(__fsub_rn(xt1, x1));
-            const float cd = T::round(__fmul_rn(c, d));
-            ox[k] = T::round(__fadd_rn(x1, cd));
-            oxt[k] = T::round(__fsub_rn(xt1, cd));
+            p2p_mix<T>(xv[k], xt[k], clean_m<T>(xv[k], xp[k]), alpha,
+                       alpha_t, c, ox[k], oxt[k]);
         }
         out_x[row + i] = T::pack(ox);
         x_tilde[row + i] = T::pack(oxt);
@@ -141,10 +90,7 @@ void launch(const void *x, void *x_tilde, void *out_x, const void *partner,
             const void *dt_next, long long w, long long d, float neg2eta,
             float alpha, float alpha_t, cudaStream_t stream) {
     const long long row_vecs = d / T::kLanes;
-    long long bx = (row_vecs + kThreads - 1) / kThreads;
-    if (bx > kMaxBlocksX) bx = kMaxBlocksX;
-    if (bx < 1) bx = 1;
-    const dim3 grid((unsigned)bx, (unsigned)w);
+    const dim3 grid(blocks_x(row_vecs), (unsigned)w);
     mixing_gossip_stacked_kernel<T><<<grid, kThreads, 0, stream>>>(
         static_cast<const typename T::vec_t *>(x),
         static_cast<typename T::vec_t *>(x_tilde),
@@ -156,7 +102,8 @@ void launch(const void *x, void *x_tilde, void *out_x, const void *partner,
 
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16.  The caller checks shapes, dtypes,
+// dtype_code: 0 = float32, 1 = bfloat16; alpha and alpha_t are values of
+// that dtype.  The caller checks shapes, dtypes,
 // contiguity, 16-byte alignment, d % 128 == 0 and 1 <= w <= 65535.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int mixing_gossip_stacked_launch(

@@ -10,8 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import channel_gossip_stacked, mixing_gossip_stacked
-from .ref import channel_gossip_stacked_ref, mixing_gossip_stacked_ref
+from .kernel import (channel_gossip_stacked, channel_gossip_worlds,
+                     mixing_gossip_stacked, mixing_gossip_worlds)
+from .ref import (channel_gossip_stacked_ref, channel_gossip_worlds_ref,
+                  mixing_gossip_stacked_ref, mixing_gossip_worlds_ref)
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -60,3 +62,38 @@ def channel_event_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
                                           mscale, dt_next, **kw)
     return channel_gossip_stacked(x, x_tilde, x_partner, corrupt, mscale,
                                   dt_next, **kw)
+
+
+def gossip_event_worlds(x: torch.Tensor, x_tilde: torch.Tensor,
+                        partner: torch.Tensor, dt_next: torch.Tensor,
+                        eta: torch.Tensor, alpha: torch.Tensor,
+                        alpha_t: torch.Tensor, *, backend: str = "auto"
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused coalesced gossip batch over B worlds: (B, W, D) buffers,
+    (B, W) partners and dt, (B,) per-world dynamics (baseline and A2CiD2
+    worlds in one launch).  ``x_tilde`` is consumed, as in
+    ``gossip_event_stacked``."""
+    if resolve_backend(backend, x) == "ref":
+        return mixing_gossip_worlds_ref(x, x_tilde, partner, dt_next, eta,
+                                        alpha, alpha_t)
+    return mixing_gossip_worlds(x, x_tilde, partner, dt_next, eta, alpha,
+                                alpha_t)
+
+
+def channel_event_worlds(x: torch.Tensor, x_tilde: torch.Tensor,
+                         x_partner: torch.Tensor, corrupt: torch.Tensor,
+                         mscale: torch.Tensor, dt_next: torch.Tensor,
+                         eta: torch.Tensor, alpha: torch.Tensor,
+                         alpha_t: torch.Tensor, *,
+                         clip: float | None = None, want_rej: bool = False,
+                         backend: str = "auto"):
+    """World-batched channel gossip batch: pre-gathered (B, W, D) partner
+    values, (B, W) corrupt, robust mscale and dt, (B,) per-world dynamics,
+    the coordinate ``clip``; with ``want_rej`` also the (B, W) rejection
+    mask.  ``x_tilde`` is consumed."""
+    kw = dict(clip=clip, want_rej=want_rej)
+    args = (x, x_tilde, x_partner, corrupt, mscale, dt_next, eta, alpha,
+            alpha_t)
+    if resolve_backend(backend, x) == "ref":
+        return channel_gossip_worlds_ref(*args, **kw)
+    return channel_gossip_worlds(*args, **kw)

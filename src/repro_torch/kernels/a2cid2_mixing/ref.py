@@ -3,7 +3,12 @@
 They are the oracles the hand kernels are held against on the card, and
 the path the CPU takes.  The order of operations is the JAX package's
 (``repro.kernels.a2cid2_mixing.ref``), so at f32 the two agree to the
-rounding of ``exp``.
+rounding of ``exp``, and at bf16 bit for bit.
+
+Every Python scalar that multiplies a buffer (alpha, alpha~, the clip) is
+first rounded to the buffer's dtype (``dtype_scalar``): JAX binds a weak
+Python scalar that way, where PyTorch would multiply a bf16 tensor by the
+f32 value and round once.  At f32 the two bindings are the same.
 """
 from __future__ import annotations
 
@@ -12,8 +17,25 @@ import torch
 
 def dtype_scalar(v: float, dtype: torch.dtype) -> float:
     """``v`` rounded to ``dtype`` and back: how JAX binds a weak Python
-    scalar (the coordinate clip) to an array of that dtype."""
+    scalar (alpha, alpha~, gamma, the coordinate clip) to an array of that
+    dtype."""
     return float(torch.tensor(v, dtype=torch.float64).to(dtype))
+
+
+def _per_world(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B,) per-world scalars at the buffer dtype, broadcastable against
+    the (B, W, D) buffers (the JAX worlds oracles cast them the same way)."""
+    v = v.to(x.dtype)
+    return v.reshape(v.shape + (1,) * (x.dim() - v.dim()))
+
+
+def _coeff_worlds(eta: torch.Tensor, dt_next: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Per-(world, worker) mixing coefficient: eta in the f32 pipeline with
+    no eta == 0 shortcut, (B, W, 1) at the buffer dtype."""
+    eta32 = eta.float()[:, None]
+    return (0.5 * (1.0 - torch.exp(-2.0 * eta32 * dt_next.float()))
+            ).to(dtype)[:, :, None]
 
 
 def mixing_gossip_stacked_ref(x: torch.Tensor, x_tilde: torch.Tensor,
@@ -27,10 +49,33 @@ def mixing_gossip_stacked_ref(x: torch.Tensor, x_tilde: torch.Tensor,
     """
     xp = x.index_select(0, partner.long())
     m = x - xp
-    x1 = x - alpha * m
-    xt1 = x_tilde - alpha_t * m
+    x1 = x - dtype_scalar(alpha, x.dtype) * m
+    xt1 = x_tilde - dtype_scalar(alpha_t, x.dtype) * m
     c = (0.5 * (1.0 - torch.exp(-2.0 * eta * dt_next.float()))
          ).to(x.dtype)[:, None]
+    d = xt1 - x1
+    return x1 + c * d, xt1 - c * d
+
+
+def mixing_gossip_worlds_ref(x: torch.Tensor, x_tilde: torch.Tensor,
+                             partner: torch.Tensor, dt_next: torch.Tensor,
+                             eta: torch.Tensor, alpha: torch.Tensor,
+                             alpha_t: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One coalesced gossip batch over B worlds at once: x, x~ are
+    (B, W, D), partner and dt_next (B, W) (partners local to each world),
+    eta, alpha, alpha_t (B,) f32 per-world dynamics.
+
+    Per world this is ``mixing_gossip_stacked_ref`` with that world's
+    scalars: alpha and alpha~ cast to the buffer dtype, eta through the
+    f32 coefficient pipeline (``-2 * eta`` rounds like the serial
+    ``-2.0 * eta``), and no eta == 0 shortcut.  Returns fresh tensors.
+    """
+    idx = partner.long()[:, :, None].expand(-1, -1, x.shape[2])
+    m = x - torch.gather(x, 1, idx)
+    x1 = x - _per_world(alpha, x) * m
+    xt1 = x_tilde - _per_world(alpha_t, x) * m
+    c = _coeff_worlds(eta, dt_next, x.dtype)
     d = xt1 - x1
     return x1 + c * d, xt1 - c * d
 
@@ -44,9 +89,11 @@ def _robust_m(x: torch.Tensor, x_partner: torch.Tensor, corrupt: torch.Tensor,
     robust scale the caller derived from the delta's norm (1 = accept, also
     bitwise exact), ``clip`` the coordinate-clip rule, rounded to the
     buffer dtype.  ``torch.clamp`` propagates NaN, as ``jnp.clip`` does.
+    The per-row vectors may carry a leading world axis ((B, W) against
+    (B, W, D) buffers).
     """
-    cadv = (1.0 + corrupt.float()).to(x.dtype)[:, None]
-    m = (x - cadv * x_partner) * mscale.float().to(x.dtype)[:, None]
+    cadv = (1.0 + corrupt.float()).to(x.dtype).unsqueeze(-1)
+    m = (x - cadv * x_partner) * mscale.float().to(x.dtype).unsqueeze(-1)
     if clip is not None:
         c = dtype_scalar(clip, x.dtype)
         m = torch.clamp(m, -c, c)
@@ -69,10 +116,36 @@ def channel_gossip_stacked_ref(x: torch.Tensor, x_tilde: torch.Tensor,
     were.
     """
     m = _robust_m(x, x_partner, corrupt, mscale, clip)
-    x1 = x - alpha * m
-    xt1 = x_tilde - alpha_t * m
+    x1 = x - dtype_scalar(alpha, x.dtype) * m
+    xt1 = x_tilde - dtype_scalar(alpha_t, x.dtype) * m
     c = (0.5 * (1.0 - torch.exp(-2.0 * eta * dt_next.float()))
          ).to(x.dtype)[:, None]
+    d = xt1 - x1
+    if want_rej:
+        rej = (mscale.float() == 0.0).float()
+        return x1 + c * d, xt1 - c * d, rej
+    return x1 + c * d, xt1 - c * d
+
+
+def channel_gossip_worlds_ref(x: torch.Tensor, x_tilde: torch.Tensor,
+                              x_partner: torch.Tensor, corrupt: torch.Tensor,
+                              mscale: torch.Tensor, dt_next: torch.Tensor,
+                              eta: torch.Tensor, alpha: torch.Tensor,
+                              alpha_t: torch.Tensor, *,
+                              clip: float | None = None,
+                              want_rej: bool = False):
+    """One unreliable-channel gossip batch over B worlds at once: (B, W, D)
+    buffers with the partner values pre-gathered per world, (B, W) f32
+    ``corrupt``/``mscale``/``dt_next``, (B,) f32 per-world eta, alpha,
+    alpha_t, and the coordinate ``clip`` shared by all worlds.
+    ``want_rej`` adds the (B, W) f32 rejection mask ``mscale == 0``.  Per
+    world this is ``channel_gossip_stacked_ref`` with that world's scalars
+    (the rounding of ``mixing_gossip_worlds_ref``).  Returns fresh tensors.
+    """
+    m = _robust_m(x, x_partner, corrupt, mscale, clip)
+    x1 = x - _per_world(alpha, x) * m
+    xt1 = x_tilde - _per_world(alpha_t, x) * m
+    c = _coeff_worlds(eta, dt_next, x.dtype)
     d = xt1 - x1
     if want_rej:
         rej = (mscale.float() == 0.0).float()

@@ -16,9 +16,11 @@
 
 Tolerances: replays rtol 1e-5 / atol 1e-6 (the same f32 operations, but
 reductions and ``exp`` may round differently); the kernel at f32 rtol 1e-6
-/ atol 1e-6; at bf16 rtol 5e-2 / atol 5e-2, because the port binds alpha as
-an f32 scalar where JAX first rounds it to bf16, which moves an output by a
-few bf16 ulps (2^-8 relative each).
+/ atol 1e-6; at bf16 bit for bit, since the port rounds every Python scalar
+(alpha, alpha~, gamma, the clip) to bf16 before it multiplies a bf16 tensor,
+as JAX binds a weak scalar (``ref.dtype_scalar``), so both round at the
+same places.  The per-event p2p and gradient steps are held bit for bit
+against the JAX package's at bf16 too.
 """
 import dataclasses
 
@@ -31,7 +33,10 @@ import torch
 from repro.core import ByzantineEdges as JByz
 from repro.core import ChannelModel as JChannel
 from repro.core import DelayProcess as JDelay
+from repro.core import A2CiD2Params as JParams
 from repro.core import Simulator as JSim
+from repro.core import gradient_event as j_gradient_event
+from repro.core import matched_p2p_update as j_matched_p2p
 from repro.core import degradation_profile as j_degradation
 from repro.core import make_schedule as j_make_schedule
 from repro.core import params_from_graph as j_params
@@ -41,9 +46,10 @@ from repro.kernels.a2cid2_mixing.kernel import \
     channel_gossip_stacked as j_kernel
 from repro.kernels.a2cid2_mixing.ref import \
     channel_gossip_stacked_ref as j_ref
-from repro_torch.core import (ByzantineEdges, ChannelModel, DelayProcess,
-                              Simulator, degradation_profile,
-                              has_channel_extras, make_schedule,
+from repro_torch.core import (A2CiD2Params, ByzantineEdges, ChannelModel,
+                              DelayProcess, Simulator, degradation_profile,
+                              gradient_event, has_channel_extras,
+                              make_schedule, matched_p2p_update,
                               params_from_graph, ring_graph)
 from repro_torch.core.channel import CORRUPT_KEY, DROP_KEY, STALE_KEY
 from repro_torch.core.flatbuf import ring_init, ring_push, ring_read
@@ -56,7 +62,6 @@ N, DIM, ROUNDS, GAMMA = 12, 16, 20, 0.05
 B = np.random.default_rng(7).normal(size=(N, DIM)).astype(np.float32)
 TOL = dict(rtol=1e-5, atol=1e-6)
 TOL_F32 = dict(rtol=1e-6, atol=1e-6)
-TOL_BF16 = dict(rtol=5e-2, atol=5e-2)
 ACID = dict(eta=0.37, alpha=0.5, alpha_t=1.37)
 
 
@@ -206,16 +211,55 @@ def test_ref_matches_jax_kernel_and_oracle(dtype, clip, want_rej):
         torch.from_numpy(mscale), torch.from_numpy(dt), **kw)
     jargs = (jnp.asarray(x, jdt), jnp.asarray(xt, jdt), jnp.asarray(xp, jdt),
              jnp.asarray(corrupt), jnp.asarray(mscale), jnp.asarray(dt))
-    tol = TOL_F32 if dtype == "float32" else TOL_BF16
     for jout in (j_ref(*jargs, **kw), j_kernel(*jargs, interpret=True, **kw)):
         assert len(jout) == len(tout) == (3 if want_rej else 2)
         for j, t in zip(jout, tout):
-            np.testing.assert_allclose(t.float().numpy(),
-                                       np.asarray(j, np.float32), **tol)
+            if dtype == "bfloat16":
+                np.testing.assert_array_equal(t.float().numpy(),
+                                              np.asarray(j, np.float32))
+            else:
+                np.testing.assert_allclose(t.float().numpy(),
+                                           np.asarray(j, np.float32),
+                                           **TOL_F32)
         if want_rej:   # the mask is exact
             np.testing.assert_array_equal(tout[2].numpy(),
                                           (mscale == 0).astype(np.float32))
 
+
+
+def test_bf16_per_event_steps_match_jax_bitwise():
+    """The per-event p2p update (alpha, alpha~) and the gradient step
+    (gamma) on a bf16 pytree equal the JAX package's bit for bit."""
+    rng = np.random.default_rng(8)
+    tree = {k: rng.normal(size=(8,) + shape).astype(np.float32)
+            for k, shape in (("w", (4, 32)), ("b", (32,)))}
+    tree_t = {k: rng.normal(size=a.shape).astype(np.float32)
+              for k, a in tree.items()}
+    grads = {k: rng.normal(size=a.shape).astype(np.float32)
+             for k, a in tree.items()}
+    partner = np.array([1, 0, 3, 2, 5, 4, 6, 7], np.int32)
+    dyn = dict(eta=0.37, alpha=0.5, alpha_tilde=1.37, chi=1.0)
+
+    def bf16(t, mod):
+        if mod == "t":
+            return {k: torch.from_numpy(a).to(torch.bfloat16)
+                    for k, a in t.items()}
+        return {k: jnp.asarray(a, jnp.bfloat16) for k, a in t.items()}
+
+    outs_t = matched_p2p_update(bf16(tree, "t"), bf16(tree_t, "t"),
+                                torch.from_numpy(partner),
+                                A2CiD2Params(**dyn))
+    outs_t += gradient_event(bf16(tree, "t"), bf16(tree_t, "t"),
+                             bf16(grads, "t"), 0.05)
+    outs_j = j_matched_p2p(bf16(tree, "j"), bf16(tree_t, "j"),
+                           jnp.asarray(partner), JParams(**dyn))
+    outs_j += j_gradient_event(bf16(tree, "j"), bf16(tree_t, "j"),
+                               bf16(grads, "j"), 0.05)
+    for t, j in zip(outs_t, outs_j):
+        for k in tree:
+            np.testing.assert_array_equal(t[k].float().numpy(),
+                                          np.asarray(j[k], np.float32),
+                                          err_msg=k)
 
 
 def test_ref_clip_propagates_nan_like_jax():
@@ -356,7 +400,7 @@ def _cuda_or_skip():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d,tol", [(torch.float32, 16512, 1e-5),
-                                         (torch.bfloat16, 4096, 5e-2)])
+                                         (torch.bfloat16, 4096, 0.0)])
 @pytest.mark.parametrize("clip", [None, 2.5])
 def test_cuda_channel_kernel_matches_ref(dtype, d, tol, clip):
     _cuda_or_skip()

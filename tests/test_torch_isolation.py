@@ -1,6 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` with JAX
-blocked loads nothing of the JAX package, and the entry points refuse to
-run on a machine without a card unless the caller names the CPU."""
+blocked loads nothing of the JAX package (and a ``World`` and a
+``WorldSweep`` build and compile there), the entry points refuse to run on
+a machine without a card unless the caller names the CPU, and the parts
+not ported yet (the sharded and telemetry replays) raise instead of taking
+another path."""
 import os
 import subprocess
 import sys
@@ -24,6 +27,14 @@ PROBE = textwrap.dedent("""
                     or k == "jax" and sys.modules[k] is not None
                     or k.startswith("jax.") or k.startswith("jaxlib"))
     print("LEAKED", leaked)
+    from repro_torch.core import (Algorithm, World, WorldSweep,
+                                  ring_graph)
+    sweep = WorldSweep.over(World(ring_graph(8)),
+                            algorithm=(Algorithm("adpsgd"), Algorithm()),
+                            seeds=(0, 1))
+    scheds = sweep.compile(4)
+    print("WORLDS", len(scheds), World.from_json(sweep.worlds[1].to_json())
+          == sweep.worlds[1])
     import torch
     from repro_torch.core import Simulator, baseline_params
     from repro_torch.data import SyntheticCIFAR
@@ -46,8 +57,9 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
-                 if line.startswith(("LEAKED", "CUDA")))
+                 if line.startswith(("LEAKED", "WORLDS", "CUDA")))
     assert lines["LEAKED"] == "[]"
+    assert lines["WORLDS"] == "4 True"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CPU-refusal half does not apply")
     assert lines["CUDA"] == "False REFUSED 3"
@@ -59,3 +71,44 @@ def test_explicit_cpu_is_accepted():
     assert Simulator(None, baseline_params(1.0), 0.1,
                      device="cpu").device.type == "cpu"
     assert SyntheticCIFAR(device="cpu").device.type == "cpu"
+
+
+def test_unported_world_parts_raise():
+    from repro_torch.core import Simulator, World, baseline_params, ring_graph
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        World(ring_graph(4), telemetry=object())
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        World.from_json(World(ring_graph(4)).to_json().replace(
+            '"telemetry": null', '"telemetry": {"rounds": true}'))
+    sim = Simulator(None, baseline_params(1.0), 0.1, device="cpu")
+    state = sim.init(torch.zeros(4), 4, torch.Generator())
+    sched = World(ring_graph(4)).compile(2)
+    for kw, what in (({"mesh": object()}, "sharded"),
+                     ({"telemetry": object()}, "telemetry")):
+        with pytest.raises(NotImplementedError, match=what):
+            sim.run_worlds([state], [sched], **kw)
+
+
+def test_worlds_replay_on_cpu_takes_the_plain_version():
+    """CPU tensors with the default backend run the plain versions and
+    launch no kernel."""
+    from repro_torch.core import Simulator, World, WorldSweep, ring_graph
+    from repro_torch.core import params_from_graph
+    from repro_torch.kernels.a2cid2_mixing import kernel
+
+    def quad(x, generator, ids):
+        return 0.5 * (x ** 2).sum(dim=1), x
+
+    sim = Simulator(quad, params_from_graph(ring_graph(6)), 0.1,
+                    device="cpu")
+    sweep = WorldSweep.over(World(ring_graph(6)), comms_per_grad=(1.0, 2.0))
+    states = [sim.init(torch.ones(8), 6, torch.Generator()) for _ in
+              range(2)]
+    before = (kernel.mixing_gossip_worlds.launches,
+              kernel.channel_gossip_worlds.launches)
+    for clips in (None, [1.0, None]):
+        final, _ = sim.run_worlds(states, sweep.compile(3),
+                                  robust_clips=clips)
+        assert final.x.device.type == "cpu"
+    assert (kernel.mixing_gossip_worlds.launches,
+            kernel.channel_gossip_worlds.launches) == before
