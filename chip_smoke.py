@@ -6,8 +6,8 @@ It needs one card, the CUDA toolkit (``nvcc``) and this checkout; it never
 imports JAX or the JAX package.  Phases, each fatal on failure:
 
   1. device and build: the card, the TF32 settings (both set off: f32
-     means f32 here), both hand kernels built from ``src/`` in parallel
-     with nvcc's register and spill report;
+     means f32 here), all six hand kernels built from ``src/`` in parallel
+     (``kernels/build.py``) with nvcc's register and spill report;
   2. the clean kernel ``mixing_gossip_stacked`` against its plain PyTorch
      version on the same inputs, at the slice's real shape (16 workers x
      ResNet-18-CIFAR's padded width, f32) and at a small bf16 shape, with
@@ -67,7 +67,39 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
  10. each world of ``run_worlds`` against its own serial ``run_schedule``
      on the card (quadratic, n=16, d=256, 20 rounds, B = 4) for the plain,
      channel and defense flavours, within 1e-5, the defense counts exactly
-     equal.
+     equal;
+ 11. the flash attention kernel ``flash_attention_bhsd`` against its plain
+     version at the prefill shapes of nano-lm (96, 1024, 64) and Qwen3-0.6B
+     (32, 4096, 128) causal f32, (96, 1000, 64) causal with a window of
+     256, (2, 130, 64) against 384 keys without the mask, and (96, 1024,
+     64) bf16, on live rows (atol 2e-5, rtol 1e-4 at f32, the JAX package's
+     tolerance; atol 3e-2 at bf16, the JAX package's); the kernel's 0 on
+     rows with no live column pinned exactly; each shape's time (mean of
+     20 launches) beside its bound, the plain version's time and
+     ``scaled_dot_product_attention``'s;
+ 12. the RMSNorm kernel ``rmsnorm_2d`` against its plain version at
+     (8192, 768) and (8192, 1024) f32 and bf16, (130, 768) and (1, 256)
+     (atol 1e-5 at f32, 2e-2 at bf16), with its time beside its bound,
+     the plain version's and ``torch.nn.functional.rms_norm``'s.  No model
+     calls it (nor does the JAX package's): it launches on no main path;
+ 13. (A) the nano-lm gossip replay at full width (12 layers, d_model 768,
+     128,404,224 parameters), ``launch.train.run_sim`` with the CLI's
+     defaults (8 workers on a ring, ``LMTaskStream`` batch 8 x 128
+     tokens, lr 0.05, one comm per gradient), 4 rounds, a baseline and an
+     A2CiD2 arm: ``mixing_gossip_stacked`` launches once per comm step and
+     no other kernel launches (the xla attention path); losses and
+     consensus finite; model tick, comm batch and the rest per round timed
+     by CUDA events; the engine against the per-event replay on the same
+     model (3 rounds at 1.5 comms per gradient) within 1e-5;
+ 14. (B) the prefill with the flash kernel in every attention layer
+     (``launch.steps.make_prefill_step``, ``attention_impl="pallas"``): on
+     the A2CiD2 arm's consensus model (``worker_mean``) over a held-out
+     batch of 8 x 1024 tokens of the same stream, and on Qwen3-0.6B at its
+     published width (28 layers, 596,180,992 parameters, weights from seed
+     0) over 2 x 4096 random tokens: flash launches equal the attention
+     layers of one forward (12, 28), the logits match the xla path within
+     max|d| / max|logit| < 2e-4 (the JAX package's model tolerance), the CE
+     is finite; the forward's time and the flash kernel's share of it.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -109,6 +141,16 @@ FLOPS_PER_ELEM = 9  # m, 2 scaled subtractions, d, c*d, 2 outputs: 9 f32 ops
 CHANNEL_FLOPS_PER_ELEM = 11
 # the world-batched slices: B = 4 worlds in one call
 N_WORLDS = 4
+PEAK_BF16_FLOPS = 989e12   # dense tensor-core rate (NVIDIA data sheet)
+# flash kernel vs plain: the JAX package's kernel-vs-oracle tolerances
+FLASH_F32_TOL = dict(atol=2e-5, rtol=1e-4)
+FLASH_BF16_ATOL = 3e-2
+RMSNORM_F32_ATOL = 1e-5    # the JAX package's rmsnorm kernel test
+RMSNORM_BF16_ATOL = 2e-2
+MODEL_TOL = 2e-4           # pallas vs xla logits, max|d| / max|logit|
+# (A): the CLI defaults of launch/train.py, 4 rounds, full nano-lm
+LM_ROUNDS, LM_WORKERS = 4, 8
+NANO_PARAMS, QWEN_PARAMS = 128_404_224, 596_180_992  # jax.eval_shape counts
 KERNELS = {
     "mixing_gossip_stacked": {
         "name": "mixing_gossip_stacked", "route": "cuda",
@@ -130,6 +172,15 @@ KERNELS = {
         "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
                   "channel_gossip_worlds.cu",
         "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:408"},
+    "flash_attention_bhsd": {
+        "name": "flash_attention_bhsd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bhsd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:81"},
+    "rmsnorm_2d": {
+        "name": "rmsnorm_2d", "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_2d.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:27"},
 }
 
 
@@ -171,29 +222,39 @@ def involution(w: int, idle: int, seed: int) -> np.ndarray:
     return partner
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def bound(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS
+          ) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
+    operations over the inputs' type's peak rate (f32 unless named),
+    whichever is larger."""
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    ops_ms = flops / peak_flops * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "ops_ms": ops_ms}
 
 
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper (``kernels/<package>/kernel.py``), whose
+    ``launches`` counts its launches."""
+    import importlib
+    from repro_torch.kernels.build import PACKAGES
+    return {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{PACKAGES[name]}.kernel"), name)
+        for name in KERNELS}
+
+
 def reset_launches() -> None:
-    from repro_torch.kernels.a2cid2_mixing import kernel
-    for name in KERNELS:
-        getattr(kernel, name).launches = 0
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels.a2cid2_mixing import kernel
-    return {name: getattr(kernel, name).launches for name in KERNELS}
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def only_launched(launches: dict, name: str) -> bool:
-    """True when no gossip kernel other than ``name`` launched."""
+    """True when no kernel other than ``name`` launched."""
     return all(v == 0 for k, v in launches.items() if k != name)
 
 
@@ -1082,6 +1143,369 @@ def phase_worlds_vs_serial(card):
               f"{ENGINE_TOL:g}){extra}")
 
 
+# ---------------------------------------------------- flash attention kernel
+def live_pairs(s_len, t_len, causal, window, dev) -> int:
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    return int(attention_mask(s_len, t_len, causal=causal, window=window,
+                              device=dev).sum())
+
+
+def library_attention(q, k, v, causal, window):
+    """One PyTorch call computing the same function (timed, never used by
+    the port): SDPA on the (1, BH, S, hd) view, causal or with the boolean
+    mask of a window."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    mask = None
+    if window is not None:
+        mask = attention_mask(q.shape[1], k.shape[1], causal=causal,
+                              window=window, device=q.device)
+    return F.scaled_dot_product_attention(
+        q[None], k[None], v[None], attn_mask=mask,
+        is_causal=causal and window is None)[0]
+
+
+def phase_flash_kernel(card):
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bhsd
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         attention_ref)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    shapes = [  # (label, BH, S, T, hd, dtype, causal, window)
+        ("nano-lm prefill", 96, 1024, 1024, 64, torch.float32, True, None),
+        ("Qwen3-0.6B prefill", 32, 4096, 4096, 128, torch.float32, True,
+         None),
+        ("window 256, unaligned", 96, 1000, 1000, 64, torch.float32, True,
+         256),
+        ("cross, no mask", 2, 130, 384, 64, torch.float32, False, None),
+        ("nano-lm prefill bf16", 96, 1024, 1024, 64, torch.bfloat16, True,
+         None),
+    ]
+    rows = {}
+    for label, bh, s_len, t_len, hd, dtype, causal, window in shapes:
+        q, k, v = (torch.randn(bh, n, hd, generator=gen, device=dev)
+                   .to(dtype) for n in (s_len, t_len, t_len))
+        kw = dict(causal=causal, window=window)
+        out = flash_attention_bhsd(q, k, v, **kw)
+        ref = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        live = attention_mask(s_len, t_len, device=dev, **kw).any(1)
+        require(bool(live.all()), f"{label}: every row has a live column")
+        err = (out.float() - ref.float()).abs().max().item()
+        if dtype == torch.float32:
+            ok = torch.allclose(out, ref, **FLASH_F32_TOL)
+            tol = (f"atol {FLASH_F32_TOL['atol']:g}, rtol "
+                   f"{FLASH_F32_TOL['rtol']:g}")
+        else:
+            ok = err <= FLASH_BF16_ATOL
+            tol = f"atol {FLASH_BF16_ATOL:g}"
+        require(ok, f"flash kernel disagrees with plain at {label}: {err}")
+        del out, ref
+        ms = cuda_ms(lambda: flash_attention_bhsd(q, k, v, **kw), reps=20)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), reps=5,
+                           warmup=1)
+        lib_ms = cuda_ms(lambda: library_attention(q, k, v, causal, window),
+                         reps=20)
+        pairs = bh * live_pairs(s_len, t_len, causal, window, dev)
+        flops = 4 * hd * pairs
+        nbytes = (2 * s_len + 2 * t_len) * bh * hd * q.element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        b = bound(nbytes, flops, peak)
+        print(f"[{card}] flash_attention_bhsd {label} ({bh}, {s_len}, "
+              f"{hd}) T={t_len} {str(dtype)[6:]} causal={causal} "
+              f"window={window}: max abs err {err:.3e} ({tol}); "
+              f"{ms:.4f} ms (mean of 20), bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} ({flops / 1e9:.2f} GFLOP at "
+              f"{peak / 1e12:g} TFLOP/s, {nbytes / 1e6:.1f} MB at "
+              f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s), {flops / ms / 1e9:.2f} "
+              f"TFLOP/s achieved ({b['bound_ms'] / ms:.1%} of the bound); "
+              f"plain {plain_ms:.4f} ms; scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms")
+        rows[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                       "library_ms": lib_ms}
+        del q, k, v
+    # a window without the causal mask: rows 163.. see no column; the
+    # kernel writes 0 there (the plain version the mean of v)
+    q, k, v = (torch.randn(2, n, 64, generator=gen, device=dev)
+               for n in (200, 100, 100))
+    out = flash_attention_bhsd(q, k, v, causal=False, window=64)
+    ref = attention_ref(q, k, v, causal=False, window=64)
+    live = attention_mask(200, 100, causal=False, window=64,
+                          device=dev).any(1)
+    require(int((~live).sum()) == 37 and bool((out[:, ~live] == 0).all()),
+            "rows with no live column are not exactly 0")
+    require(torch.allclose(out[:, live], ref[:, live], **FLASH_F32_TOL),
+            "flash kernel disagrees with plain on the live rows of the "
+            "windowed cross shape")
+    print(f"[{card}] flash_attention_bhsd identity: the 37 rows with no "
+          f"live column (window 64, no causal mask, S=200, T=100) are "
+          f"exactly 0; live rows within tolerance")
+    return rows
+
+
+# --------------------------------------------------------- rmsnorm kernel
+def phase_rmsnorm_kernel(card):
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_2d
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows = {}
+    for t, d, dtype in ((8192, 768, torch.float32),
+                        (8192, 768, torch.bfloat16),
+                        (8192, 1024, torch.float32),
+                        (8192, 1024, torch.bfloat16),
+                        (130, 768, torch.float32), (1, 256, torch.float32)):
+        x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+        sc = (0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+        out, ref = rmsnorm_2d(x, sc), rmsnorm_ref(x, sc)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = RMSNORM_F32_ATOL if dtype == torch.float32 \
+            else RMSNORM_BF16_ATOL
+        require(err <= tol, f"rmsnorm_2d disagrees with plain at ({t}, {d})"
+                            f" {dtype}: {err}")
+        ms = cuda_ms(lambda: rmsnorm_2d(x, sc), reps=20)
+        plain_ms = cuda_ms(lambda: rmsnorm_ref(x, sc), reps=20)
+        weight = 1 + sc
+        lib_ms = cuda_ms(lambda: F.rms_norm(x, (d,), weight, 1e-6), reps=20)
+        nbytes = (2 * t * d + d) * x.element_size()
+        b = bound(nbytes, 4 * t * d,
+                  PEAK_F32_FLOPS if dtype == torch.float32
+                  else PEAK_BF16_FLOPS)
+        print(f"[{card}] rmsnorm_2d ({t}, {d}) {str(dtype)[6:]}: max abs err "
+              f"{err:.3e} (atol {tol:g}); {ms:.4f} ms (mean of 20), bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({nbytes / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} "
+              f"TB/s), {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved "
+              f"({b['bound_ms'] / ms:.1%} of the bound); plain "
+              f"{plain_ms:.4f} ms; F.rms_norm {lib_ms:.4f} ms")
+        rows[(t, d, dtype)] = {"max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms,
+                               "bound_ms": b["bound_ms"],
+                               "bound_by": b["bound_by"],
+                               "library_ms": lib_ms}
+    return rows[(8192, 768, torch.float32)]
+
+
+# ------------------------------------------------ (A) the LM gossip replay
+def phase_lm_replay(card):
+    """(A): nano-lm full through ``run_sim``, baseline and A2CiD2 arms.
+    Returns (launches of the clean kernel, the model config, the stream,
+    the A2CiD2 arm's consensus model)."""
+    from repro_torch.core import (FlatGossipEngine, coalesce_schedule,
+                                  coalesced_stream, make_schedule,
+                                  ring_graph, worker_mean)
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import LMTaskStream
+    from repro_torch.launch import train
+    dev = torch.device("cuda")
+    argv = ["--full", "--arch", "nano-lm", "--workers", str(LM_WORKERS),
+            "--steps", str(LM_ROUNDS), "--no-bayes-ce"]
+    base = train.build_parser().parse_args(argv)
+    cfg, _ = train.build_model(base.arch, reduced=not base.full)
+    t0 = time.perf_counter()
+    stream = LMTaskStream(vocab_size=cfg.vocab_size, seq_len=base.seq_len,
+                          batch_size=base.batch_size, seed=base.seed)
+    stream.sample(torch.Generator(device=dev))   # draws the (V, V) chain
+    torch.cuda.synchronize()
+    print(f"[{card}] LMTaskStream V={cfg.vocab_size}: transition logits "
+          f"drawn (numpy) and moved to the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    sched = make_schedule(ring_graph(LM_WORKERS), LM_ROUNDS,
+                          comms_per_grad=base.comms_per_grad,
+                          seed=base.seed)
+    steps = coalesced_stream(coalesce_schedule(sched),
+                             np.zeros(LM_WORKERS, np.float32))
+    comm_steps = int((~steps.is_grad).sum())
+    timer = ReplayTimer()
+    orig_grad_fn, orig_batch = train.lm_grad_fn, FlatGossipEngine.batch
+    train.lm_grad_fn = lambda m, s: timer.wrap("grad", orig_grad_fn(m, s))
+    FlatGossipEngine.batch = timer.wrap("comm", orig_batch)
+    runs, peaks = {}, {}
+    reset_launches()
+    try:
+        for arm, acid in (("baseline", False), ("a2cid2", True)):
+            timer.arm = arm
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            runs[arm] = train.run_sim(
+                train.build_parser().parse_args(
+                    argv + (["--acid"] if acid else [])), stream=stream)
+            peaks[arm] = torch.cuda.max_memory_allocated()
+            if arm == "baseline":
+                runs[arm] = runs[arm]._replace(state=None)
+    finally:
+        train.lm_grad_fn, FlatGossipEngine.batch = orig_grad_fn, orig_batch
+    launches = read_launches()
+    n_params = sum(a[0].numel() for a in tree_leaves(runs["a2cid2"].state.x))
+    require(n_params == NANO_PARAMS,
+            f"nano-lm has {n_params} parameters, JAX's eval_shape "
+            f"{NANO_PARAMS}")
+    require(launches["mixing_gossip_stacked"] == 2 * comm_steps,
+            f"clean kernel launched {launches['mixing_gossip_stacked']} "
+            f"times, stream has {comm_steps} comm steps per arm")
+    require(only_launched(launches, "mixing_gossip_stacked"),
+            f"another kernel launched on the LM replay: {launches}")
+    for arm, run in runs.items():
+        tr = run.trace
+        require(tr.loss.shape == (LM_ROUNDS,)
+                and bool(torch.isfinite(tr.loss).all())
+                and bool(torch.isfinite(tr.consensus).all()),
+                f"LM {arm}: non-finite or misshapen trace")
+        comm, grad = timer.ms(arm, "comm"), timer.ms(arm, "grad")
+        require(len(comm) == comm_steps and len(grad) == LM_ROUNDS,
+                f"LM {arm}: timed {len(comm)} comm batches and {len(grad)} "
+                f"gradient ticks")
+        wall = run.seconds * 1e3
+        rest = (wall - sum(comm) - sum(grad)) / LM_ROUNDS
+        print(f"[{card}] LM {arm}: loss {tr.loss.tolist()} consensus "
+              f"{tr.consensus.tolist()}; replay {wall:.1f} ms: model tick "
+              f"({LM_WORKERS} workers x {base.batch_size} x {base.seq_len} "
+              f"tokens) {np.mean(grad):.2f} ms x {LM_ROUNDS} "
+              f"{[round(t, 2) for t in grad]} ({sum(grad) / wall:.1%}), "
+              f"comm batch {np.mean(comm):.4f} ms x {comm_steps} "
+              f"{[round(t, 4) for t in comm]}, rest per round (pack, "
+              f"update, metrics, mix, host) {rest:.2f} ms; peak memory "
+              f"{peaks[arm] / 2**30:.2f} GiB")
+    print(f"[{card}] LM replay: nano-lm full, {n_params} parameters, "
+          f"{comm_steps} comm steps + {LM_ROUNDS} gradient ticks per arm; "
+          f"mixing_gossip_stacked launches "
+          f"{launches['mixing_gossip_stacked']} == 2 x {comm_steps}, every "
+          f"other kernel 0")
+    acid = runs["a2cid2"]
+    return (launches["mixing_gossip_stacked"], acid.model.cfg, acid.stream,
+            worker_mean(acid.state.x))
+
+
+def phase_lm_engine_vs_reference(card, cfg, stream):
+    """The engine against the per-event replay on the LM of (A), 3 rounds at
+    1.5 comms per gradient (seed 1 puts two comm batches between every two
+    gradient ticks)."""
+    from repro_torch.core import (Simulator, make_schedule,
+                                  params_from_graph, ring_graph)
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.transformer import Model, lm_grad_fn
+    dev = torch.device("cuda")
+    model = Model(cfg)
+    graph = ring_graph(LM_WORKERS)
+    sim = Simulator(lm_grad_fn(model, stream),
+                    params_from_graph(graph, True), 0.05, device=dev)
+    params0 = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    sched = make_schedule(graph, 3, comms_per_grad=1.5, seed=SEED + 1)
+
+    def state():
+        return sim.init(params0, LM_WORKERS,
+                        torch.Generator(device=dev).manual_seed(SEED + 1))
+
+    ef, et = sim.run_schedule(state(), sched)
+    rf, rt = sim.run_schedule(state(), sched, engine=False)
+    err = 0.0
+    for a, c in ((et.loss, rt.loss), (et.consensus, rt.consensus),
+                 *zip(tree_leaves(ef.x), tree_leaves(rf.x)),
+                 *zip(tree_leaves(ef.x_tilde), tree_leaves(rf.x_tilde))):
+        torch.testing.assert_close(a, c, rtol=ENGINE_TOL, atol=1e-6)
+        err = max(err, (a - c).abs().max().item())
+    print(f"[{card}] LM engine vs per-event replay ({cfg.name}, "
+          f"{cfg.num_layers} layers, {LM_WORKERS} workers, 3 rounds at 1.5 "
+          f"comms/grad): losses {et.loss.tolist()}, max abs err {err:.3e} "
+          f"(rtol {ENGINE_TOL:g}, atol 1e-6)")
+
+
+# ------------------------------------------ (B) prefill with flash attention
+def check_prefill(card, label, cfg, params, tokens, n_attn):
+    """Pallas vs xla prefill of one model on ``tokens`` (B, S+1): the flash
+    launches of one forward, the logits' agreement, the CE; returns the
+    flash launches."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import Model
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    batch = {"inputs": inputs}
+    pallas = make_prefill_step(Model(cfg.with_updates(
+        attention_impl="pallas")))
+    xla = make_prefill_step(Model(cfg.with_updates(attention_impl="xla")))
+    pallas(params, batch)                      # warm-up, not counted
+    timer = ReplayTimer()
+    timer.arm = label
+    orig = flash_ops.flash_attention_bhsd
+    flash_ops.flash_attention_bhsd = timer.wrap("flash", orig)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    try:
+        start.record()
+        logits = pallas(params, batch)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        flash_ops.flash_attention_bhsd = orig
+    launches = read_launches()
+    fwd_ms = start.elapsed_time(end)
+    flash = timer.ms(label, "flash")
+    require(launches["flash_attention_bhsd"] == n_attn,
+            f"{label}: flash launched {launches['flash_attention_bhsd']} "
+            f"times, the model has {n_attn} attention layers")
+    require(only_launched(launches, "flash_attention_bhsd"),
+            f"{label}: another kernel launched in the prefill: {launches}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = xla(params, batch)
+    torch.cuda.synchronize()
+    xla_ms = (time.perf_counter() - t0) * 1e3
+    scale = ref.abs().max().item()
+    rel = (logits - ref).abs().max().item() / scale
+    require(rel < MODEL_TOL, f"{label}: pallas vs xla logits "
+                             f"max|d|/max|logit| = {rel:.3e}")
+    v = cfg.padded_vocab
+    ce = F.cross_entropy(logits.reshape(-1, v).float(),
+                         labels.reshape(-1)).item()
+    require(np.isfinite(ce), f"{label}: CE is not finite")
+    b, s = inputs.shape
+    print(f"[{card}] prefill {label} (B={b}, S={s}): flash launches "
+          f"{launches['flash_attention_bhsd']} == {n_attn} attention layers,"
+          f" other kernels 0; logits vs the xla path max|d|/max|logit| "
+          f"{rel:.3e} (< {MODEL_TOL:g}); CE {ce:.4f}; forward "
+          f"{fwd_ms:.2f} ms (CUDA events), flash kernel {sum(flash):.2f} ms"
+          f" over {len(flash)} launches ({sum(flash) / fwd_ms:.1%} of the "
+          f"forward); the xla forward {xla_ms:.2f} ms (host clock)")
+    return launches["flash_attention_bhsd"]
+
+
+def phase_prefill(card, nano, consensus, stream):
+    """(B) on the consensus model of (A) and on Qwen3-0.6B; returns the
+    flash launches of the two forwards."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    dev = torch.device("cuda")
+    held_out = stream.reshaped(seq_len=1024, batch_size=8)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    toks = held_out.sample(gen)
+    tokens = torch.cat([toks["inputs"], toks["labels"][:, -1:]], dim=1)
+    launches = check_prefill(card, "nano-lm consensus model", nano,
+                             consensus, tokens, nano.num_layers)
+    del consensus, held_out
+    torch.cuda.empty_cache()
+    qwen = get_config("qwen3-0.6b")
+    model = Model(qwen)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = model.param_count(params)
+    require(n_params == QWEN_PARAMS, f"Qwen3-0.6B has {n_params} "
+                                     f"parameters, JAX's {QWEN_PARAMS}")
+    tokens = torch.randint(0, qwen.vocab_size, (2, 4096 + 1),
+                           generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    launches += check_prefill(card, "Qwen3-0.6B", qwen, params, tokens,
+                              qwen.num_layers)
+    print(f"[{card}] Qwen3-0.6B: {n_params} parameters (random, seed 0), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1090,7 +1514,7 @@ def main() -> int:
     from repro_torch.core.a2cid2 import params_from_graph
     from repro_torch.core.graphs import ring_graph
     from repro_torch.data import SyntheticCIFAR
-    from repro_torch.kernels.a2cid2_mixing.kernel import build_all
+    from repro_torch.kernels.build import build_all
     from repro_torch.models.resnet import (init_resnet, resnet18_cifar,
                                            resnet_grad_fn)
 
@@ -1140,6 +1564,20 @@ def main() -> int:
     launches["channel_gossip_worlds"] = phase_channel_worlds_slice(
         card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)
     phase_worlds_vs_serial(card)
+    torch.cuda.empty_cache()
+    flash_rows = phase_flash_kernel(card)
+    rows["flash_attention_bhsd"] = flash_rows["nano-lm prefill"]
+    rows["rmsnorm_2d"] = phase_rmsnorm_kernel(card)
+    launches["rmsnorm_2d"] = 0     # no model calls it
+    torch.cuda.empty_cache()
+    lm_launches, nano, stream, consensus = phase_lm_replay(card)
+    launches["mixing_gossip_stacked"] += lm_launches   # phases 3 and 13
+    torch.cuda.empty_cache()
+    phase_lm_engine_vs_reference(card, nano, stream)
+    torch.cuda.empty_cache()
+    launches["flash_attention_bhsd"] = phase_prefill(card, nano, consensus,
+                                                     stream)
+    del consensus, stream
 
     print(card)
     print(json.dumps({"kernels": [

@@ -1,4 +1,4 @@
 """Synthetic data streams."""
-from .pipeline import SyntheticCIFAR
+from .pipeline import LMTaskStream, SyntheticCIFAR, make_lm_stream
 
-__all__ = ["SyntheticCIFAR"]
+__all__ = ["LMTaskStream", "SyntheticCIFAR", "make_lm_stream"]

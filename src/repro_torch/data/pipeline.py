@@ -1,9 +1,11 @@
-"""Synthetic CIFAR-like data, ported from ``repro.data.pipeline``.
+"""Synthetic data streams, ported from ``repro.data.pipeline``.
 
 Every worker sees the whole task with its own draws (paper Sec 4.1).  The
-class prototypes come from numpy's ``default_rng(seed)``, so they are
-bitwise the JAX package's; labels and noise come from a ``torch.Generator``
-on the stream's device (the values differ from ``jax.random``'s).
+fixed structure of each task comes from numpy's ``default_rng(seed)``, so
+it is bitwise the JAX package's: the LM stream's Markov transition logits
+and the image stream's class prototypes.  The draws (tokens, labels,
+noise) come from a ``torch.Generator`` on the stream's device; their values
+differ from ``jax.random``'s.
 """
 from __future__ import annotations
 
@@ -16,6 +18,91 @@ import torch
 
 from ..device import resolve_device
 
+
+# --------------------------------------------------------------- LM streams
+
+@dataclasses.dataclass(frozen=True)
+class LMTaskStream:
+    """Order-1 Markov-chain token stream (fixed random transition matrix).
+
+    The (V, V) f32 transition logits live on the stream's device once
+    drawn (4.1 GB at V = 32000, and tens of seconds of numpy on the host):
+    ``reshaped`` gives another batch shape over the same chain without
+    drawing them again."""
+
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    concentration: float = 0.3  # lower = more predictable
+    seed: int = 1234
+    device: Any = "cuda"   # the card unless the caller names the CPU
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def transition_logits(self) -> np.ndarray:
+        """(V, V) f32, bitwise the JAX package's."""
+        rng = np.random.default_rng(self.seed)
+        logits = rng.gumbel(size=(self.vocab_size, self.vocab_size))
+        logits /= self.concentration
+        return logits.astype(np.float32)
+
+    @functools.cached_property
+    def _logits(self) -> torch.Tensor:
+        return torch.as_tensor(self.transition_logits(), device=self.device)
+
+    def reshaped(self, **shape) -> "LMTaskStream":
+        """This chain with another ``seq_len`` / ``batch_size``, sharing the
+        transition logits already on the device."""
+        out = dataclasses.replace(self, **shape)
+        if "_logits" in self.__dict__:
+            out.__dict__["_logits"] = self._logits
+        return out
+
+    def sample_workers(self, generator: torch.Generator, n: int) -> dict:
+        """One batch per worker: {"inputs": (n, B, S), "labels": (n, B, S)}
+        int64.  Each next token is a Gumbel-max draw from its row of the
+        transition logits (what ``jax.random.categorical`` computes)."""
+        rows = n * self.batch_size
+        tok = torch.randint(0, self.vocab_size, (rows,), generator=generator,
+                            device=self.device)
+        seq = [tok]
+        tiny = torch.finfo(torch.float32).tiny
+        for _ in range(self.seq_len):
+            u = torch.rand((rows, self.vocab_size), generator=generator,
+                           device=self.device).clamp_min_(tiny)
+            tok = (self._logits[tok] - torch.log(-torch.log(u))).argmax(-1)
+            seq.append(tok)
+        seq = torch.stack(seq, dim=1).reshape(n, self.batch_size,
+                                              self.seq_len + 1)
+        return {"inputs": seq[..., :-1], "labels": seq[..., 1:]}
+
+    def sample(self, generator: torch.Generator) -> dict:
+        """Returns {"inputs": (B,S), "labels": (B,S)} int64."""
+        batch = self.sample_workers(generator, 1)
+        return {k: v[0] for k, v in batch.items()}
+
+    def bayes_ce(self) -> float:
+        """Entropy rate of the chain = minimum achievable CE (numpy, the
+        JAX package's arithmetic step for step)."""
+        logits = self.transition_logits()
+        p = np.exp(logits - logits.max(-1, keepdims=True))
+        p /= p.sum(-1, keepdims=True)
+        # stationary distribution via power iteration
+        pi = np.full(self.vocab_size, 1.0 / self.vocab_size)
+        for _ in range(200):
+            pi = pi @ p
+        h = -np.sum(pi[:, None] * p * np.log(np.maximum(p, 1e-12)))
+        return float(h)
+
+
+def make_lm_stream(cfg, seq_len: int, batch_size: int, seed: int = 1234,
+                   device="cuda") -> LMTaskStream:
+    return LMTaskStream(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                        batch_size=batch_size, seed=seed, device=device)
+
+
+# ------------------------------------------------------------ image streams
 
 @dataclasses.dataclass(frozen=True)
 class SyntheticCIFAR:

@@ -2,11 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with one plain C entry point, ``<name>_launch``, at first
-use, into the repository's ``build/`` directory, keyed by a hash of the
-source, the shared headers (``csrc/*.cuh``) and the flags; it is loaded
-with ``ctypes``.  ``build_all`` starts
-one ``nvcc`` per missing library, all at once.  Nothing is built or loaded
-when this module is imported, so the CPU tests import it freely.
+use, and loaded with ``ctypes`` (``kernels/build.py``, shared by every
+kernel of the port).  Nothing is built or loaded when this module is
+imported, so the CPU tests import it freely.
 
 The kernels replace the JAX package's Pallas TPU kernels of the same names
 in ``repro/kernels/a2cid2_mixing/kernel.py``; each source file states what
@@ -15,105 +13,37 @@ it computes, what bounds it and how it is laid out.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from ..build import DTYPE_CODE, entry
 from .ref import dtype_scalar
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("mixing_gossip_stacked", "channel_gossip_stacked",
-           "mixing_gossip_worlds", "channel_gossip_worlds")
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LANE = 128
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _LL, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                    ctypes.c_int)
 _ARGTYPES = {
     # dtype, x, x_tilde, out_x, partner, dt_next, w, d, neg2eta, alpha,
     # alpha_t, stream
-    "mixing_gossip_stacked": [_I, _P, _P, _P, _P, _P, _LL, _LL, _F, _F, _F,
-                              _P],
+    "mixing_gossip_stacked": (_I, _P, _P, _P, _P, _P, _LL, _LL, _F, _F, _F,
+                              _P),
     # dtype, x, xp, x_tilde, out_x, corrupt, mscale, dt_next, rej, w, d,
     # neg2eta, alpha, alpha_t, has_clip, clip, stream
-    "channel_gossip_stacked": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
-                               _F, _F, _F, _I, _F, _P],
+    "channel_gossip_stacked": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                               _F, _F, _F, _I, _F, _P),
     # dtype, x, x_tilde, out_x, partner, dt_next, eta, alpha, alpha_t, b, w,
     # d, stream
-    "mixing_gossip_worlds": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
-                             _LL, _P],
+    "mixing_gossip_worlds": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                             _LL, _P),
     # dtype, x, xp, x_tilde, out_x, corrupt, mscale, dt_next, eta, alpha,
     # alpha_t, rej, b, w, d, has_clip, clip, stream
-    "channel_gossip_worlds": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _LL, _LL, _LL, _I, _F, _P],
+    "channel_gossip_worlds": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _LL, _LL, _LL, _I, _F, _P),
 }
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels can only be built "
-                       "where the CUDA toolkit is installed")
-
-
-def _lib_path(name: str) -> Path:
-    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
-    key = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{key}.so"
-
-
-def build_all(names=KERNELS) -> dict[str, tuple[Path, str]]:
-    """Compile every named kernel library that this source and these flags
-    have not built yet, one ``nvcc`` each, all started together.  Returns
-    ``{name: (library path, the compiler's -Xptxas -v report)}``."""
-    jobs = {}
-    for name in names:
-        lib = _lib_path(name)
-        if not lib.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-            jobs[name] = (lib, tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC / f"{name}.cu")], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (lib, tmp, proc) in jobs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name} ({proc.returncode}):\n"
-                          f"{out}")
-            continue
-        lib.with_suffix(".log").write_text(out)
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    out = {}
-    for name in names:
-        lib = _lib_path(name)
-        log = lib.with_suffix(".log")
-        out[name] = (lib, log.read_text() if log.exists() else "")
-    return out
-
-
-@functools.cache
 def _entry(name: str):
-    path, _ = build_all((name,))[name]
-    fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return entry(name, _ARGTYPES[name])
 
 
 def _check_rows(name: str, x: torch.Tensor, rows: dict,
@@ -127,7 +57,7 @@ def _check_rows(name: str, x: torch.Tensor, rows: dict,
     if not x.is_cuda:
         raise ValueError(f"{name} runs on CUDA tensors only; CPU tensors "
                          f"take the plain version (ops.py)")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in DTYPE_CODE:
         raise TypeError(f"buffer dtype {x.dtype} is not supported by the "
                         f"CUDA kernel (float32, bfloat16)")
     worlds = name.endswith("_worlds")
@@ -188,7 +118,7 @@ def mixing_gossip_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
     out_x = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _entry("mixing_gossip_stacked")(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), x_tilde.data_ptr(),
+            DTYPE_CODE[x.dtype], x.data_ptr(), x_tilde.data_ptr(),
             out_x.data_ptr(), partner.data_ptr(), dt_next.data_ptr(), w, d,
             float(-2.0 * eta), dtype_scalar(alpha, x.dtype),
             dtype_scalar(alpha_t, x.dtype), _stream(x))
@@ -233,7 +163,7 @@ def channel_gossip_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
         if want_rej else None
     with torch.cuda.device(x.device):
         err = _entry("channel_gossip_stacked")(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), x_partner.data_ptr(),
+            DTYPE_CODE[x.dtype], x.data_ptr(), x_partner.data_ptr(),
             x_tilde.data_ptr(), out_x.data_ptr(), corrupt.data_ptr(),
             mscale.data_ptr(), dt_next.data_ptr(),
             None if rej is None else rej.data_ptr(), w, d,
@@ -283,7 +213,7 @@ def mixing_gossip_worlds(x: torch.Tensor, x_tilde: torch.Tensor,
     out_x = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _entry("mixing_gossip_worlds")(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), x_tilde.data_ptr(),
+            DTYPE_CODE[x.dtype], x.data_ptr(), x_tilde.data_ptr(),
             out_x.data_ptr(), partner.data_ptr(), dt_next.data_ptr(),
             eta.data_ptr(), alpha.data_ptr(), alpha_t.data_ptr(), b, w, d,
             _stream(x))
@@ -333,7 +263,7 @@ def channel_gossip_worlds(x: torch.Tensor, x_tilde: torch.Tensor,
         if want_rej else None
     with torch.cuda.device(x.device):
         err = _entry("channel_gossip_worlds")(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), x_partner.data_ptr(),
+            DTYPE_CODE[x.dtype], x.data_ptr(), x_partner.data_ptr(),
             x_tilde.data_ptr(), out_x.data_ptr(), corrupt.data_ptr(),
             mscale.data_ptr(), dt_next.data_ptr(), eta.data_ptr(),
             alpha.data_ptr(), alpha_t.data_ptr(),

@@ -10,20 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from .. import resolve_backend
 from .kernel import (channel_gossip_stacked, channel_gossip_worlds,
                      mixing_gossip_stacked, mixing_gossip_worlds)
 from .ref import (channel_gossip_stacked_ref, channel_gossip_worlds_ref,
                   mixing_gossip_stacked_ref, mixing_gossip_worlds_ref)
-
-
-def resolve_backend(backend: str, x: torch.Tensor) -> str:
-    """'auto' -> 'cuda' for a CUDA tensor, 'ref' for a CPU tensor; 'ref'
-    passes through."""
-    if backend == "auto":
-        return "cuda" if x.is_cuda else "ref"
-    if backend != "ref":
-        raise ValueError(f"unknown backend {backend!r}, have 'auto', 'ref'")
-    return backend
 
 
 def gossip_event_stacked(x: torch.Tensor, x_tilde: torch.Tensor,

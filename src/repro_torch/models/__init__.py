@@ -1,1 +1,2 @@
-"""Models: the paper's ResNet for CIFAR."""
+"""Models: the paper's ResNet for CIFAR, and the dense GQA transformer
+family (``config``, ``layers``, ``attention``, ``transformer``)."""

@@ -1,0 +1,141 @@
+"""GQA attention (RoPE, qk-norm, sliding window), ported from
+``repro.models.attention``: the full-sequence forward used by training and
+prefill.  Decode, the KV caches and MLA are not ported yet.
+
+``attention_impl == "pallas"`` routes the scores through the hand-written
+flash kernel on the card (its plain version on the CPU); "xla" is the plain
+einsum path, ``_sdpa``.  The sharding hints are dropped: one card has no
+mesh.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..kernels.flash_attention.ops import flash_attention
+from .config import ModelConfig
+from .layers import dense_init, init_rmsnorm, rmsnorm
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------- RoPE
+
+def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0
+               ) -> tuple[int, np.ndarray]:
+    """(rotated dims, inverse frequencies) computed in numpy as the JAX
+    package computes them, so the two are bitwise equal."""
+    rot = int(head_dim * fraction) // 2 * 2
+    inv = 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float32) / rot))
+    return rot, inv
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim) or (..., S, head_dim); positions
+    (..., S).  Angles and their cos/sin in f32, the rotation in x's
+    dtype."""
+    hd = x.shape[-1]
+    rot, inv = rope_freqs(hd, theta, fraction)
+    if rot == 0:
+        return x
+    inv = torch.as_tensor(inv, device=x.device)
+    ang = positions[..., None].float() * inv          # (..., S, rot/2)
+    cos = torch.cos(ang).to(x.dtype)
+    sin = torch.sin(ang).to(x.dtype)
+    if x.dim() == cos.dim() + 1:                      # head axis present
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    xr = x[..., :rot]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    out = out.reshape(xr.shape)
+    return torch.cat([out, x[..., rot:]], dim=-1)
+
+
+# ---------------------------------------------------------------------- GQA
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig, dtype
+                   ) -> dict:
+    hd = cfg.resolved_head_dim
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    p = {
+        "wq": dense_init(generator, d, (d, h * hd), dtype),
+        "wk": dense_init(generator, d, (d, kv * hd), dtype),
+        "wv": dense_init(generator, d, (d, kv * hd), dtype),
+        "wo": dense_init(generator, h * hd, (h * hd, d), dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dtype, generator.device)
+        p["k_norm"] = init_rmsnorm(hd, dtype, generator.device)
+    return p
+
+
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
+         positions: torch.Tensor):
+    b, s, _ = x.shape
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, kv, hd)
+    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,T,KV,hd), boolean mask (S,T) or (B,S,T) ->
+    (B, S, H*hd).  Scores in the activation dtype, softmax in f32."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if mask.dim() == 2:
+        mask = mask[None]
+    if kv != h and s == 1:
+        # decode: grouped-query einsum, no G-fold copy of the KV cache
+        g = h // kv
+        qg = q.reshape(b, 1, kv, g, hd)
+        logits = torch.einsum("bskgh,btkh->bkgst", qg, k)
+        logits = logits.float() / math.sqrt(hd)
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+        return out.reshape(b, 1, h * v.shape[-1])
+    if kv != h:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    logits = torch.einsum("bshd,bthd->bhst", q, k)
+    logits = logits.float() / math.sqrt(hd)
+    logits = torch.where(mask[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs, v)
+    return out.reshape(b, s, h * v.shape[-1])
+
+
+def causal_mask(s: int, window: int | None = None, device=None
+                ) -> torch.Tensor:
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    m = j <= i
+    if window is not None:
+        m &= j > i - window
+    return m
+
+
+def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, window: int | None = None
+                    ) -> torch.Tensor:
+    q, k, v = _qkv(p, cfg, x, positions)
+    if cfg.attention_impl == "pallas":
+        b, s, h, hd = q.shape
+        out = flash_attention(q, k, v, causal=True, window=window)
+        out = out.reshape(b, s, h * hd)
+    elif cfg.attention_impl == "xla":
+        out = _sdpa(q, k, v, causal_mask(x.shape[1], window, x.device), cfg)
+    else:
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    return out @ p["wo"]

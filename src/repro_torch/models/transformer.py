@@ -1,0 +1,166 @@
+"""The dense decoder stack, ported from ``repro.models.transformer``: the
+training / prefill forward, the loss, and the batched ``grad_fn`` that
+``Simulator`` replays.
+
+Parameters are nested dicts in the JAX package's layout: every layer
+group's params are stacked along a leading ``repeat`` axis, ``"head"`` is
+``{}`` when the embeddings are tied, and the leaves flatten in JAX's sorted
+order (``core.tree``).  The forward pass is a Python loop over each group's
+``repeat`` axis where the JAX package runs ``lax.scan``.
+
+Ported: the ``attn`` mixer (GQA, RoPE, qk-norm, windows, both
+``attention_impl`` values) with the ``dense`` or ``none`` mlp, token and
+embedding inputs, tied or separate heads, codebooks.  Not yet: the MLA,
+SSD and RG-LRU mixers, the MoE mlps, multi-token prediction, decode and the
+caches; ``Model`` raises ``NotImplementedError`` for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch.func import grad_and_value, vmap
+
+from ..core.tree import PyTree, tree_leaves, tree_map
+from . import attention
+from .config import Block, ModelConfig
+from .layers import (apply_lm_head, apply_mlp, dtype_of, embed_inputs,
+                     init_embedding, init_lm_head, init_mlp, init_rmsnorm,
+                     rmsnorm)
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a part of ``cfg`` the port does not
+    have yet."""
+    for b in cfg.all_blocks():
+        if b.mixer != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: the {b.mixer!r} mixer is not ported to PyTorch "
+                f"yet (only 'attn')")
+        if b.mlp not in ("dense", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: the {b.mlp!r} mlp is not ported to PyTorch yet "
+                f"(only 'dense' and 'none')")
+    if cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-token prediction is not ported to PyTorch "
+            f"yet")
+
+
+# ----------------------------------------------------------------- per block
+
+def init_block(generator: torch.Generator, cfg: ModelConfig, block: Block
+               ) -> dict:
+    dtype = dtype_of(cfg.param_dtype)
+    dev = generator.device
+    p: dict = {"norm1": init_rmsnorm(cfg.d_model, dtype, dev),
+               "mixer": attention.init_attention(generator, cfg, dtype)}
+    if block.mlp != "none":
+        p["norm2"] = init_rmsnorm(cfg.d_model, dtype, dev)
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
+                            cfg.mlp_act)
+    return p
+
+
+def apply_block(p: dict, cfg: ModelConfig, block: Block, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Residual block (attention, then the mlp if any)."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + attention.apply_attention(p["mixer"], cfg, h, positions,
+                                      block.window)
+    if block.mlp != "none":
+        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        x = x + apply_mlp(p["mlp"], h, cfg.mlp_act)
+    return x
+
+
+# --------------------------------------------------------------------- model
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        check_ported(self.cfg)
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random weights on the generator's device.  Structure, shapes and
+        dtypes equal the JAX ``Model.init``'s; the values come from the
+        generator."""
+        cfg = self.cfg
+        cfg.validate()
+        dtype = dtype_of(cfg.param_dtype)
+        params: dict = {
+            "embed": init_embedding(generator, cfg, dtype),
+            "final_norm": init_rmsnorm(cfg.d_model, dtype, generator.device),
+            "head": init_lm_head(generator, cfg, dtype),
+            "groups": [],
+        }
+        for unit, repeat in cfg.blocks:
+            layers = [{f"b{i}": init_block(generator, cfg, b)
+                       for i, b in enumerate(unit)} for _ in range(repeat)]
+            params["groups"].append(
+                tree_map(lambda *xs: torch.stack(xs), *layers))
+        return params
+
+    def forward(self, params: dict, inputs: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """inputs: tokens (B,S) int or embeddings (B,S,D).
+
+        Returns (logits, aux_loss, final_hidden); aux is 0 without MoE."""
+        cfg = self.cfg
+        x = embed_inputs(params["embed"], cfg, inputs)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        for (unit, repeat), group_p in zip(cfg.blocks, params["groups"]):
+            for r in range(repeat):
+                layer_p = tree_map(lambda a, r=r: a[r], group_p)
+                for i, blk in enumerate(unit):
+                    x = apply_block(layer_p[f"b{i}"], cfg, blk, x, positions)
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = apply_lm_head(params["head"], params["embed"], cfg, x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux, x
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: {"inputs": tokens/embeddings, "labels": (B,S) or
+        (B,S,C)}; CE in f32 over the ``padded_vocab`` logits."""
+        cfg = self.cfg
+        logits, aux, _ = self.forward(params, batch["inputs"])
+        labels = batch["labels"]
+        b, s = labels.shape[:2]
+        logits = logits.reshape(b, s, cfg.num_codebooks, cfg.padded_vocab)
+        if labels.dim() == 2:
+            labels = labels[..., None]
+        lp = F.log_softmax(logits.float(), dim=-1)
+        ce = -torch.gather(lp, -1, labels[..., None].long())[..., 0]
+        loss = ce.mean()
+        return loss + aux, {"ce": loss, "aux": aux}
+
+    @staticmethod
+    def param_count(params: dict) -> int:
+        return sum(a.numel() for a in tree_leaves(params))
+
+
+def lm_grad_fn(model: Model, stream):
+    """Batched ``grad_fn`` for ``Simulator`` (see ``simulator.GradFn``).
+
+    ``stream.sample_workers(generator, n)`` draws one batch per worker,
+    ``{"inputs": (n, B, S), "labels": (n, B, S)}``, outside the vmap; the
+    per-worker loss and gradient are then one ``torch.func.vmap`` of
+    ``grad_and_value`` over the worker-stacked parameters.
+    """
+    def loss_one(p: PyTree, inputs, labels):
+        return model.loss(p, {"inputs": inputs, "labels": labels})[0]
+
+    per_worker = vmap(grad_and_value(loss_one))
+
+    def grad_fn(x_stacked, generator, worker_ids):
+        batch = stream.sample_workers(generator, worker_ids.shape[0])
+        grads, losses = per_worker(x_stacked, batch["inputs"],
+                                   batch["labels"])
+        return losses, grads
+
+    return grad_fn

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` with JAX
 blocked loads nothing of the JAX package (and a ``World`` and a
-``WorldSweep`` build and compile there), the entry points refuse to run on
+``WorldSweep`` build and compile there, and a reduced transformer builds
+and runs its forward on both attention paths), the entry points refuse to run on
 a machine without a card unless the caller names the CPU, and the parts
 not ported yet (the sharded and telemetry replays) raise instead of taking
 another path."""
@@ -36,6 +37,15 @@ PROBE = textwrap.dedent("""
     print("WORLDS", len(scheds), World.from_json(sweep.worlds[1].to_json())
           == sweep.worlds[1])
     import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    for impl in ("xla", "pallas"):
+        model = Model(cfg.with_updates(attention_impl=impl))
+        params = model.init(torch.Generator().manual_seed(0))
+        logits, _, _ = model.forward(params, torch.zeros((1, 8),
+                                                         dtype=torch.long))
+        print("MODEL", impl, tuple(logits.shape))
     from repro_torch.core import Simulator, baseline_params
     from repro_torch.data import SyntheticCIFAR
     from repro_torch.convert import params_from_jax
@@ -58,6 +68,9 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
                  if line.startswith(("LEAKED", "WORLDS", "CUDA")))
+    models = [line for line in out.stdout.splitlines()
+              if line.startswith("MODEL")]
+    assert models == ["MODEL xla (1, 8, 512)", "MODEL pallas (1, 8, 512)"]
     assert lines["LEAKED"] == "[]"
     assert lines["WORLDS"] == "4 True"
     if torch.cuda.is_available():

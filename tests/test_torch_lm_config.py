@@ -1,0 +1,120 @@
+"""Port parity for the transformer family's configuration and init: every
+``get_config(name, reduced)`` equals the JAX package's field for field, and
+``Model.init`` builds the JAX tree (structure, shapes, dtypes, leaf order:
+a list of groups, stacked leaves, an empty ``"head"`` when tied), which
+``convert`` and ``FlatLayout`` carry as the JAX package does.  The parts
+not ported yet raise ``NotImplementedError``."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHITECTURES as J_ARCHITECTURES
+from repro.configs import get_config as j_get_config
+from repro.core.flatbuf import FlatLayout as JFlatLayout
+from repro.models import Model as JModel
+from repro_torch.configs import ARCHITECTURES, get_config
+from repro_torch.convert import params_from_jax, params_to_numpy
+from repro_torch.core.flatbuf import FlatLayout
+from repro_torch.core.tree import tree_flatten, tree_leaves
+from repro_torch.models.config import Block, uniform_blocks
+from repro_torch.models.transformer import Model
+
+
+def test_architecture_list_matches_jax():
+    assert ARCHITECTURES == J_ARCHITECTURES
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", J_ARCHITECTURES + ("nano-lm",))
+def test_config_equals_jax(name, reduced):
+    tc, jc = get_config(name, reduced), j_get_config(name, reduced)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert (tc.num_layers, tc.resolved_head_dim, tc.padded_vocab) == \
+        (jc.num_layers, jc.resolved_head_dim, jc.padded_vocab)
+    assert dataclasses.asdict(tc.windowed(32)) == \
+        dataclasses.asdict(jc.windowed(32))
+
+
+def test_train_bench_config_equals_jax():
+    from repro.configs.nano_lm import train_bench as j_bench
+    from repro_torch.configs.nano_lm import train_bench
+    assert dataclasses.asdict(train_bench()) == dataclasses.asdict(j_bench())
+
+
+@pytest.mark.parametrize("name", ["nano-lm", "qwen3-0.6b"])
+def test_init_tree_matches_jax(name):
+    jm = JModel(j_get_config(name, reduced=True))
+    tm = Model(get_config(name, reduced=True))
+    jp = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))
+    tp = tm.init(torch.Generator().manual_seed(0))
+    jl, jdef = jax.tree_util.tree_flatten(jp)
+    tl, tdef = tree_flatten(tp)
+    assert [(a.shape, np.dtype(a.dtype)) for a in jl] == \
+        [(tuple(b.shape), b.numpy().dtype) for b in tl]
+    assert isinstance(tp["groups"], list) and tp["head"] == {}
+    assert tm.param_count(tp) == sum(int(np.prod(a.shape)) for a in jl)
+    # the same weights through convert: the port's tree, value for value
+    jw = jax.device_get(jm.init(jax.random.PRNGKey(1)))
+    carried = params_from_jax(jw, device="cpu")
+    assert tree_flatten(carried)[1] == tdef
+    for a, b in zip(jax.tree.leaves(jw), tree_leaves(carried)):
+        np.testing.assert_array_equal(b.numpy(), a)
+    for a, b in zip(jax.tree.leaves(jw),
+                    jax.tree.leaves(params_to_numpy(carried))):
+        np.testing.assert_array_equal(a, b)
+    # the flat buffer of a worker-stacked tree, column for column
+    stack = jax.tree.map(lambda a: jnp.stack([a, 2 * a]), jw)
+    jlay = JFlatLayout.from_pytree(stack, stacked=True)
+    tlay = FlatLayout.from_pytree(params_from_jax(
+        jax.device_get(stack), device="cpu"), stacked=True)
+    assert (tlay.d, tlay.d_real) == (jlay.d, jlay.d_real)
+    np.testing.assert_array_equal(
+        tlay.pack(params_from_jax(jax.device_get(stack), device="cpu"))
+        .numpy(), np.asarray(jlay.pack(stack)))
+
+
+def test_init_draws_from_the_generator():
+    cfg = get_config("nano-lm", reduced=True)
+    a = Model(cfg).init(torch.Generator().manual_seed(0))
+    b = Model(cfg).init(torch.Generator().manual_seed(0))
+    c = Model(cfg).init(torch.Generator().manual_seed(1))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+    wq = a["groups"][0]["b0"]["mixer"]["wq"]
+    assert not torch.equal(wq, c["groups"][0]["b0"]["mixer"]["wq"])
+    # truncated normal on [-2, 2] / sqrt(fan_in); the embeddings 0.02 N(0,1)
+    assert wq.abs().max() <= 2.0 / np.sqrt(cfg.d_model)
+    assert abs(a["embed"]["tok"].std().item() - 0.02) < 2e-3
+    assert all(torch.equal(x, torch.zeros_like(x))
+               for x in (a["final_norm"], a["groups"][0]["b0"]["norm1"]))
+
+
+@pytest.mark.parametrize("name,what", [
+    ("deepseek-v3-671b", "mla"), ("mamba2-780m", "ssd"),
+    ("recurrentgemma-9b", "rglru"), ("arctic-480b", r"moe\+dense"),
+])
+def test_unported_parts_raise(name, what):
+    with pytest.raises(NotImplementedError, match=what):
+        Model(get_config(name, reduced=True))
+
+
+def test_unported_moe_and_mtp_raise():
+    cfg = get_config("nano-lm", reduced=True)
+    with pytest.raises(NotImplementedError, match="'moe'"):
+        Model(cfg.with_updates(blocks=uniform_blocks(Block("attn", "moe"),
+                                                     2)))
+    with pytest.raises(NotImplementedError, match="multi-token"):
+        Model(cfg.with_updates(mtp=True))
+
+
+def test_validate_raises():
+    cfg = get_config("nano-lm", reduced=True)
+    with pytest.raises(ValueError, match="KV groups"):
+        cfg.with_updates(num_kv_heads=3).validate()
+    with pytest.raises(ValueError, match="sub-config"):
+        cfg.with_updates(blocks=uniform_blocks(Block("ssd", "none"),
+                                               1)).validate()
