@@ -6,7 +6,7 @@ It needs one card, the CUDA toolkit (``nvcc``) and this checkout; it never
 imports JAX or the JAX package.  Phases, each fatal on failure:
 
   1. device and build: the card, the TF32 settings (both set off: f32
-     means f32 here), all six hand kernels built from ``src/`` in parallel
+     means f32 here), all eight hand kernels built from ``src/`` in parallel
      (``kernels/build.py``) with nvcc's register and spill report;
   2. the clean kernel ``mixing_gossip_stacked`` against its plain PyTorch
      version on the same inputs, at the slice's real shape (16 workers x
@@ -99,7 +99,33 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      0) over 2 x 4096 random tokens: flash launches equal the attention
      layers of one forward (12, 28), the logits match the xla path within
      max|d| / max|logit| < 2e-4 (the JAX package's model tolerance), the CE
-     is finite; the forward's time and the flash kernel's share of it.
+     is finite; the forward's time and the flash kernel's share of it;
+ 15. the per-worker event kernel ``p2p_mixing`` against its plain version at
+     ResNet-18-CIFAR's padded width (11,171,328) f32 and bf16, bit for
+     bit, with x~ written in place beside a fresh out_x, the exact
+     identities (xp = x with eta = 0 a no-op, alpha = alpha~ = 0 the mixing
+     step, padding 0), each row bit for bit what ``mixing_gossip_stacked``
+     computes for it; its time beside its 0.0667 ms bound;
+ 16. ``mixing_p2p`` through ``ops.gossip_event_pytree`` on the 56 leaves of
+     the ResNet-18-CIFAR tree, f32 and bf16, bit for bit its plain version,
+     plus odd lengths and views at odd element offsets; one tree launches
+     it exactly 56 times and nothing else; the time per tree beside the
+     summed bound;
+ 17. the SPMD slice: ``GossipTrainer.from_world`` on ResNet-18-CIFAR, 16
+     workers on a ring in lockstep over the single-card worker axis,
+     ``SyntheticCIFAR`` batch 32 per worker, ``sgd()`` (0.9, 5e-4), lr 0.1,
+     2 comms per step, 4 steps of a baseline, an A2CiD2 and a channel arm
+     (always-on 1e3 scale on 2 edges, 10% drops, stale reads from a ring of
+     2, trim at tau 5): ``p2p_mixing`` launches == steps x comms x 16 in
+     the clean arms, the (1, D) ``channel_gossip_stacked`` the same in the
+     channel arm, no other kernel; the per-worker gradients, the kernel per
+     event and the rest of the step timed by CUDA events;
+ 18. the stacked slice: ``StackedGossipTrainer`` on the same model and arms,
+     ``mixing_gossip_stacked`` launches == steps x comms (the channel kernel
+     once per event not dropped), the same spans timed; the SPMD and the
+     stacked event loops per row bit for bit on shared gaps; one
+     ``make_pair_ring_step`` and one ``make_ar_step``: finite, no gossip
+     kernel.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -172,6 +198,14 @@ KERNELS = {
         "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
                   "channel_gossip_worlds.cu",
         "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:408"},
+    "p2p_mixing": {
+        "name": "p2p_mixing", "route": "cuda",
+        "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/p2p_mixing.cu",
+        "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:155"},
+    "mixing_p2p": {
+        "name": "mixing_p2p", "route": "cuda",
+        "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/mixing_p2p.cu",
+        "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:90"},
     "flash_attention_bhsd": {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -209,6 +243,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int, reps: int = 10):
+    """Device time of one call of ``fn`` with the host taken out: ``calls``
+    calls captured in one CUDA graph (after a warm-up on a side stream),
+    the graph replayed ``reps`` times.  Returns (ms a call, the output of
+    the last captured call, as the replays left it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    return cuda_ms(graph.replay, reps=reps, warmup=1) / calls, out
 
 
 def involution(w: int, idle: int, seed: int) -> np.ndarray:
@@ -1506,6 +1557,613 @@ def phase_prefill(card, nano, consensus, stream):
     return launches
 
 
+# ----------------------------------------- 15: the per-worker event kernel
+def check_p2p(card, dyn, d, d_real, dtype, gen):
+    """``p2p_mixing`` against its plain version at (d,) bit for bit, x~ in
+    place beside a fresh out_x, and the identities; returns the inputs."""
+    from repro_torch.kernels.a2cid2_mixing.kernel import p2p_mixing
+    from repro_torch.kernels.a2cid2_mixing.ops import p2p_mix_event
+    dev = torch.device("cuda")
+    x, xt, xp = (torch.randn(d, generator=gen, device=dev).to(dtype)
+                 for _ in range(3))
+    for v in (x, xt, xp):
+        v[d_real:] = 0
+    # the event gaps of a step on the card; the kernel reads dts[1]
+    dts = torch.rand(3, generator=gen, device=dev) * 1.5
+    rx, rxt = p2p_mix_event(x, xt, xp, dts[1], backend="ref", **dyn)
+    kxt_in = xt.clone()
+    kx, kxt = p2p_mixing(x, kxt_in, xp, dts[1], **dyn)
+    torch.cuda.synchronize()
+    err = max((kx.float() - rx.float()).abs().max().item(),
+              (kxt.float() - rxt.float()).abs().max().item())
+    require(err == 0.0 and torch.equal(kx, rx) and torch.equal(kxt, rxt),
+            f"p2p_mixing {dtype} differs from its plain version: {err}")
+    require(kxt.data_ptr() == kxt_in.data_ptr()
+            and kx.data_ptr() not in (x.data_ptr(), xt.data_ptr()),
+            "p2p_mixing must write x~ in place and a fresh out_x")
+    require(bool((kx[d_real:] == 0).all() and (kxt[d_real:] == 0).all()),
+            "p2p_mixing: padding columns did not stay 0")
+    # xp = x with eta = 0: a no-op; alpha = alpha~ = 0: a pure mixing step
+    nx, nxt = p2p_mixing(x, xt.clone(), x, dts[0], eta=0.0, alpha=0.5,
+                         alpha_t=0.5)
+    mx, mxt = p2p_mixing(x, xt.clone(), xp, dts[0], eta=dyn["eta"],
+                         alpha=0.0, alpha_t=0.0)
+    from repro_torch.core.a2cid2 import apply_mixing
+    px, pxt = apply_mixing(x, xt, dyn["eta"], dts[0])
+    torch.cuda.synchronize()
+    require(torch.equal(nx, x) and torch.equal(nxt, xt),
+            "p2p_mixing: xp = x with eta = 0 changed the state")
+    require(torch.equal(mx, px) and torch.equal(mxt, pxt),
+            "p2p_mixing: alpha = alpha~ = 0 is not the pure mixing step")
+    print(f"[{card}] p2p_mixing vs plain {dtype} ({d},): max abs err "
+          f"{err:.1e} (bit for bit); x~ in place, out_x fresh; exact: xp = "
+          f"x with eta 0 a no-op, alpha = alpha~ = 0 the mixing step, "
+          f"{d - d_real} padding columns 0")
+    return err, (x, xt, xp, dts)
+
+
+def phase_p2p_kernel(card, d, d_real, dyn):
+    """15: ``p2p_mixing`` at ResNet-18-CIFAR's padded width, f32 and bf16,
+    each row bit for bit what ``mixing_gossip_stacked`` computes for it."""
+    from repro_torch.kernels.a2cid2_mixing.kernel import (
+        mixing_gossip_stacked, p2p_mixing)
+    from repro_torch.kernels.a2cid2_mixing.ops import p2p_mix_event
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    err_bf16, (bx, bxt, bxp, bdts) = check_p2p(card, dyn, d, d_real,
+                                               torch.bfloat16, gen)
+    bf16_ms = cuda_ms(lambda: p2p_mixing(bx, bxt, bxp, bdts[1], **dyn),
+                      reps=20)
+    bf16_graph_ms, _ = graph_ms(lambda: p2p_mixing(bx, bxt, bxp, bdts[1],
+                                                   **dyn), 20)
+    del bx, bxt, bxp
+    err, (x, xt, xp, dts) = check_p2p(card, dyn, d, d_real, torch.float32,
+                                      gen)
+    # per row, the stacked kernel of 4 workers (two pairs) bit for bit
+    w = 4
+    sx = torch.randn(w, d, generator=gen, device="cuda")
+    sxt = torch.randn(w, d, generator=gen, device="cuda")
+    partner = torch.tensor([1, 0, 3, 2], dtype=torch.int32, device="cuda")
+    dt_w = dts[1].expand(w).contiguous()
+    ox, oxt = mixing_gossip_stacked(sx, sxt.clone(), partner, dt_w, **dyn)
+    rows = [p2p_mixing(sx[i], sxt[i].clone(), sx[int(partner[i])], dts[1],
+                       **dyn) for i in range(w)]
+    torch.cuda.synchronize()
+    require(all(torch.equal(ox[i], r[0]) and torch.equal(oxt[i], r[1])
+                for i, r in enumerate(rows)),
+            "p2p_mixing rows differ from mixing_gossip_stacked's")
+    del sx, sxt, ox, oxt, rows
+    xt_run = xt.clone()
+    ms = cuda_ms(lambda: p2p_mixing(x, xt_run, xp, dts[1], **dyn), reps=20)
+    plain_ms = cuda_ms(lambda: p2p_mix_event(x, xt, xp, dts[1],
+                                             backend="ref", **dyn),
+                       reps=5, warmup=1)
+    # x, x~ and xp read once, two outputs written once, dt read once
+    nbytes = 5 * d * x.element_size() + 4
+    b = bound(nbytes, FLOPS_PER_ELEM * d)
+    b16 = bound(5 * d * 2 + 4, FLOPS_PER_ELEM * d)
+    print(f"[{card}] p2p_mixing rows equal mixing_gossip_stacked's bit for "
+          f"bit (4 workers, two pairs)")
+    print(f"[{card}] p2p_mixing ({d},) f32: {ms:.4f} ms over 20 launches, "
+          f"bound {b['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; ops bound "
+          f"{b['ops_ms']:.4f} ms), {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s "
+          f"achieved ({b['bound_ms'] / ms:.1%} of the bound); bf16 "
+          f"{bf16_ms:.4f} ms ({bf16_graph_ms:.4f} ms a launch of 20 in a "
+          f"CUDA graph) against {b16['bound_ms']:.4f} ms; plain version "
+          f"{plain_ms:.4f} ms; no single PyTorch call computes this "
+          f"two-output update (library_ms null)")
+    return {"max_abs_err": max(err, err_bf16), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None}
+
+
+def phase_channel_local(card, d, d_real, dyn):
+    """15, continued: ``channel_event_local`` (``channel_gossip_stacked`` on
+    a (1, D) view, the SPMD channel path's shape) against its plain version
+    at (d,), f32 and bf16, bit for bit, over corrupt offsets, robust scales
+    in [0, 1] and the coordinate clip, with 0-dim card scalars as
+    ``engine.channel_batch_local`` passes them.  Returns the largest
+    error."""
+    from repro_torch.kernels.a2cid2_mixing.ops import channel_event_local
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    cases = [(c, s, clip) for c, s in ((0.0, 1.0), (999.0, 1.0),
+                                       (-2.0, 0.25), (999.0, 0.0))
+             for clip in (None, 0.3)]
+    err, ms = 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        x, xt, xp = (torch.randn(d, generator=gen, device=dev).to(dtype)
+                     for _ in range(3))
+        for v in (x, xt, xp):
+            v[d_real:] = 0
+        dt = torch.rand((), generator=gen, device=dev) * 1.5
+        for corrupt, mscale, clip in cases:
+            c, s = (torch.tensor(v, device=dev) for v in (corrupt, mscale))
+            rx, rxt = channel_event_local(x, xt, xp, c, s, dt, clip=clip,
+                                          backend="ref", **dyn)
+            kxt_in = xt.clone()
+            kx, kxt = channel_event_local(x, kxt_in, xp, c, s, dt,
+                                          clip=clip, **dyn)
+            torch.cuda.synchronize()
+            e = max((kx.float() - rx.float()).abs().max().item(),
+                    (kxt.float() - rxt.float()).abs().max().item())
+            err = max(err, e)
+            require(torch.equal(kx, rx) and torch.equal(kxt, rxt)
+                    and kx.shape == x.shape
+                    and kxt.data_ptr() == kxt_in.data_ptr(),
+                    f"channel_event_local {dtype} corrupt {corrupt} mscale "
+                    f"{mscale} clip {clip} differs from its plain version "
+                    f"({e}) or did not update x~ in place")
+        if dtype == torch.float32:
+            c, s = torch.tensor(999.0, device=dev), torch.tensor(0.25,
+                                                                 device=dev)
+            ms = cuda_ms(lambda: channel_event_local(x, xt, xp, c, s, dt,
+                                                     **dyn), reps=20)
+    nbytes = 5 * d * 4 + 12
+    print(f"[{card}] channel_event_local ((1, D) channel_gossip_stacked) vs "
+          f"plain at ({d},) f32 and bf16, corrupt 0 / 999 / -2, mscale 1 / "
+          f"0.25 / 0, clip none / 0.3 ({len(cases)} cases each): max abs err "
+          f"{err:.1e} (bit for bit), x~ in place; f32 {ms:.4f} ms a launch "
+          f"over 20, bound {bound(nbytes, 0)['bound_ms']:.4f} ms")
+    return err
+
+
+# -------------------------------------------- 16: the per-leaf event API
+def phase_mixing_p2p(card, params0, dyn):
+    """16: ``mixing_p2p`` through ``gossip_event_pytree`` on every leaf of
+    the ResNet-18-CIFAR tree, f32 and bf16, bit for bit its plain version,
+    plus odd lengths and misaligned views.  Returns (the row, the launches
+    of the main-path call)."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.a2cid2_mixing.kernel import mixing_p2p
+    from repro_torch.kernels.a2cid2_mixing.ops import gossip_event_pytree
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+
+    def perturbed(tree):
+        return tree_map(lambda a: a + 0.1 * torch.randn(
+            a.shape, generator=gen, device=a.device), tree)
+
+    x, xt, xp = params0, perturbed(params0), perturbed(params0)
+    leaves = tree_leaves(x)
+    n = sum(a.numel() for a in leaves)
+    dt = torch.tensor(0.37, device="cuda")
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        trees = [tree_map(lambda a: a.to(dtype), t) for t in (x, xt, xp)]
+        ref = gossip_event_pytree(*trees, dt, backend="ref", **dyn)
+        got = gossip_event_pytree(*trees, dt, **dyn)
+        torch.cuda.synchronize()
+        for r, g in zip(ref, got):
+            for a, b in zip(tree_leaves(r), tree_leaves(g)):
+                err = max(err, (a.float() - b.float()).abs().max().item())
+                require(torch.equal(a, b), f"mixing_p2p {dtype} differs "
+                                           f"from its plain version")
+    # odd lengths, and views 1 and 3 elements past an aligned start
+    for length, off in ODD_LEAVES:
+        for dtype in (torch.float32, torch.bfloat16):
+            base = [torch.randn(length + 8, generator=gen,
+                                device="cuda").to(dtype) for _ in range(3)]
+            args = [v[off:off + length] for v in base]
+            r = gossip_event_pytree(*args, dt, backend="ref", **dyn)
+            g = mixing_p2p(*args, dt, **dyn)
+            torch.cuda.synchronize()
+            require(torch.equal(r[0], g[0]) and torch.equal(r[1], g[1]),
+                    f"mixing_p2p ({length},) at offset {off} {dtype} "
+                    f"differs from its plain version")
+    print(f"[{card}] mixing_p2p vs plain on the {len(leaves)} leaves of "
+          f"the ResNet tree ({n} parameters, "
+          f"{min(a.numel() for a in leaves)} to "
+          f"{max(a.numel() for a in leaves)} a leaf) f32 and bf16: max abs "
+          f"err {err:.1e} (bit for bit); odd lengths and views at element "
+          f"offsets 1 and 3 ({ODD_LEAVES}), f32 and bf16: bit for bit")
+    reset_launches()
+    gossip_event_pytree(x, xt, xp, dt, **dyn)     # the main-path call
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(launches["mixing_p2p"] == len(leaves)
+            and only_launched(launches, "mixing_p2p"),
+            f"gossip_event_pytree launched {launches}, want "
+            f"{len(leaves)} mixing_p2p and nothing else")
+    ms = cuda_ms(lambda: gossip_event_pytree(x, xt, xp, dt, **dyn), reps=20)
+    plain_ms = cuda_ms(lambda: gossip_event_pytree(x, xt, xp, dt,
+                                                   backend="ref", **dyn),
+                       reps=5, warmup=1)
+    # per leaf: x, x~, xp read once, two outputs written once, dt once
+    nbytes = 5 * n * 4 + 4 * len(leaves)
+    b = bound(nbytes, FLOPS_PER_ELEM * n)
+    # the host taken out (CUDA graphs): the kernel alone, 20 launches on
+    # the largest leaf against its own bound, and the tree's 56 launches
+    big = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+    lx, lxt, lxp = (tree_leaves(t)[big] for t in (x, xt, xp))
+    eager_leaf_ms = cuda_ms(lambda: mixing_p2p(lx, lxt, lxp, dt, **dyn),
+                            reps=20)
+    leaf_ms, _ = graph_ms(lambda: mixing_p2p(lx, lxt, lxp, dt, **dyn), 20)
+    lb = bound(5 * lx.numel() * 4 + 4, FLOPS_PER_ELEM * lx.numel())
+    want = gossip_event_pytree(x, xt, xp, dt, **dyn)
+    tree_ms, got = graph_ms(lambda: gossip_event_pytree(x, xt, xp, dt,
+                                                        **dyn), 1)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, g) for r, o in zip(want, got)
+                for a, g in zip(tree_leaves(r), tree_leaves(o))),
+            "mixing_p2p: the graph-captured tree differs from the eager one")
+    del got, want
+    print(f"[{card}] gossip_event_pytree on the ResNet tree f32: "
+          f"{launches['mixing_p2p']} mixing_p2p launches and nothing else; "
+          f"{ms:.4f} ms a tree (20 trees, {ms / len(leaves) * 1e3:.2f} us a "
+          f"launch), summed bound {b['bound_ms']:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB), plain version {plain_ms:.4f} ms; "
+          f"library_ms null")
+    print(f"[{card}] mixing_p2p alone on the largest leaf ({lx.numel()},) "
+          f"f32, 20 launches in a CUDA graph: {leaf_ms:.4f} ms a launch, "
+          f"bound {lb['bound_ms']:.4f} ms ({lb['bound_ms'] / leaf_ms:.1%}); "
+          f"issued eagerly {eager_leaf_ms:.4f} ms a launch; the tree's "
+          f"{len(leaves)} launches as one CUDA graph (bit for bit the eager "
+          f"tree): {tree_ms:.4f} ms a tree over 10 "
+          f"({tree_ms / len(leaves) * 1e3:.2f} us a launch, "
+          f"{b['bound_ms'] / tree_ms:.1%} of the summed bound); the host "
+          f"is {1 - tree_ms / ms:.1%} of the eager tree")
+    return ({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "library_ms": None}, launches["mixing_p2p"])
+
+
+# ------------------------------------------------ 17, 18: the trainers
+TRAIN_STEPS, TRAIN_COMMS, TRAIN_LR = 4, 2, 0.1
+# (length, element offset) of the odd leaves of phase 16
+ODD_LEAVES = ((10, 0), (127, 0), (1_000_003, 0), (4099, 1), (4099, 3))
+
+
+def trainer_arms(graph):
+    """The arms of phases 17-18: baseline, A2CiD2, and A2CiD2 over a
+    channel the mesh trainers model (always-on 1e3 scale on 2 edges, 10%
+    drops, stale reads from a ring of 2, trim at tau 5)."""
+    from repro_torch.core import ByzantineEdges, ChannelModel, DelayProcess
+    picks = np.linspace(0, len(graph.edges), 2, endpoint=False).astype(int)
+    chan = ChannelModel(
+        delay=DelayProcess(horizon=2, prob=1.0),
+        adversary=ByzantineEdges(tuple(graph.edges[i] for i in picks),
+                                 "scale", scale=1e3, prob=1.0),
+        drop_prob=0.1)
+    return {"baseline": dict(accelerated=False),
+            "a2cid2": dict(accelerated=True),
+            "channel": dict(accelerated=True, channel=chan,
+                            robust_clip=ROBUST_CLIP, robust_rule="trim")}
+
+
+def run_trainer_arm(label, trainer, state, step, batches):
+    """One step per batch of one arm, each on its own draws; returns (the
+    state, the host-clock ms of each step, the draws, the losses)."""
+    walls, draws_all, losses = [], [], []
+    for batch in batches:
+        draws = trainer.sample_draws(state.generator)
+        draws_all.append(draws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, draws)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    require(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    return state, walls, draws_all, losses
+
+
+def phase_spmd_slice(card, params0, cfg):
+    """17: ``GossipTrainer`` on ResNet-18-CIFAR, 16 workers on a ring in
+    lockstep over the single-card worker axis; returns the launches of
+    p2p_mixing and channel_gossip_stacked."""
+    from repro_torch.core import FlatGossipEngine, World, ring_graph
+    from repro_torch.core import consensus_distance_spmd
+    from repro_torch.data import SyntheticCIFAR
+    from repro_torch.launch import gossip_train as gt
+    from repro_torch.models.resnet import resnet_loss
+    from repro_torch.optim import sgd
+    dev = torch.device("cuda")
+    graph = ring_graph(N_WORKERS)
+    world = World(topology=graph, comms_per_grad=TRAIN_COMMS)
+    stream = SyntheticCIFAR(batch_size=BATCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    batches = [stream.sample_workers(gen, N_WORKERS)
+               for _ in range(TRAIN_STEPS)]
+
+    def loss_fn(p, batch):
+        return resnet_loss(p, cfg, batch)
+
+    timer = ReplayTimer()
+    orig_grad = gt.grad_and_value
+    saved = {k: FlatGossipEngine.__dict__[k] for k in
+             ("batch_local", "channel_batch_local")}
+    gt.grad_and_value = lambda f, **kw: timer.wrap("grad", orig_grad(f,
+                                                                     **kw))
+    FlatGossipEngine.batch_local = timer.wrap(
+        "kernel", saved["batch_local"])
+    FlatGossipEngine.channel_batch_local = timer.wrap(
+        "kernel", saved["channel_batch_local"])
+    out = {"p2p_mixing": 0, "channel_gossip_stacked": 0}
+    try:
+        for arm, kw in trainer_arms(graph).items():
+            trainer = gt.GossipTrainer.from_world(world, loss_fn, sgd(),
+                                                  lr=TRAIN_LR, **kw)
+            state = trainer.init(params0, torch.Generator().manual_seed(
+                SEED + 17))
+            step = trainer.make_step()
+            if arm == "baseline":   # warm-up, outside the counts (cuDNN)
+                timer.arm = "warm-up"
+                step(state, batches[0])
+            timer.arm = arm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            state, walls, draws, losses = run_trainer_arm(
+                f"SPMD {arm}", trainer, state, step, batches)
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            events = TRAIN_STEPS * trainer.comms_per_step
+            name = "channel_gossip_stacked" if arm == "channel" \
+                else "p2p_mixing"
+            require(launches[name] == events * N_WORKERS
+                    and only_launched(launches, name),
+                    f"SPMD {arm}: launches {launches}, want {name} == "
+                    f"{TRAIN_STEPS} x {trainer.comms_per_step} x "
+                    f"{N_WORKERS} and nothing else")
+            out[name] += launches[name]
+            dropped = sum(int((d.idxs < 0).sum()) for d in draws)
+            cons = float(consensus_distance_spmd(state.params))
+            require(np.isfinite(cons), f"SPMD {arm}: consensus not finite")
+            grad, kern = timer.ms(arm, "grad"), timer.ms(arm, "kernel")
+            require(len(grad) == TRAIN_STEPS * N_WORKERS
+                    and len(kern) == events * N_WORKERS,
+                    f"SPMD {arm}: timed {len(grad)} gradients and "
+                    f"{len(kern)} kernel calls")
+            per_event = [sum(kern[i:i + N_WORKERS])
+                         for i in range(0, len(kern), N_WORKERS)]
+            rest = (sum(walls) - sum(grad) - sum(kern)) / TRAIN_STEPS
+            print(f"[{card}] SPMD {arm}: loss {losses}, consensus {cons:.6g}"
+                  f", {dropped} dropped events; {name} launches "
+                  f"{launches[name]} == {TRAIN_STEPS} x "
+                  f"{trainer.comms_per_step} x {N_WORKERS}, every other "
+                  f"kernel 0; peak memory {peak / 2**30:.2f} GiB")
+            print(f"[{card}] SPMD {arm} step breakdown (CUDA events in the "
+                  f"step): per-worker gradient {np.mean(grad):.2f} ms x "
+                  f"{N_WORKERS} a step ({min(grad):.2f}..{max(grad):.2f}), "
+                  f"kernel {np.mean(kern):.4f} ms a launch, "
+                  f"{np.mean(per_event):.4f} ms an event of {N_WORKERS} "
+                  f"launches {[round(t, 4) for t in per_event]}, rest "
+                  f"(mix, update, pack, unpack, draws, host) {rest:.2f} ms a "
+                  f"step; step {np.mean(walls):.1f} ms "
+                  f"{[round(t, 1) for t in walls]}")
+            del state
+    finally:
+        gt.grad_and_value = orig_grad
+        for k, v in saved.items():
+            setattr(FlatGossipEngine, k, v)
+    check_spmd_channel_events(card, graph, params0)
+    return out
+
+
+def check_spmd_channel_events(card, graph, params0):
+    """17, continued: whole SPMD channel events of the channel arm's
+    channel (Byzantine edges, a dropped event, stale reads from each
+    worker's ring), each worker's robust scale computed on the card by
+    ``engine.channel_batch_local``, against the same events through the
+    plain version, bit for bit, under the trim and the clip rule."""
+    import functools
+    from repro_torch.core import GossipMixer, params_from_graph
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.tree import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    # replicas 3e-4 apart: honest deltas (norm ~1.4) stay under tau = 5,
+    # the 1e3-scaled reads do not
+    xs, xts = ([tree_map(lambda a: a + 3e-4 * torch.randn(
+        a.shape, generator=gen, device=dev), params0)
+        for _ in range(N_WORKERS)] for _ in range(2))
+    chan = trainer_arms(graph)["channel"]["channel"]
+    kernel_local = engine_mod.channel_event_local
+    for rule in ("trim", "clip"):
+        mixer = GossipMixer(graph, params_from_graph(graph, True),
+                            channel=chan, robust_clip=ROBUST_CLIP,
+                            robust_rule=rule)
+        # two pushed rounds, so a stale read comes from the ring
+        rings = mixer.push_ring(mixer.push_ring(mixer.init_ring(xs), xs),
+                                xts)
+        m = mixer.bank.shape[0]
+        idxs = np.array(list(range(m)) + [-1], np.int32)
+        gaps = torch.linspace(0.2, 0.6, m + 1)
+        stale = np.array([1, 0] * m + [0], np.int32)[:m + 1]
+        scales = []
+
+        def recording(*args, **kw):
+            scales.append(args[4])
+            return kernel_local(*args, **kw)
+
+        reset_launches()
+        engine_mod.channel_event_local = recording
+        try:
+            kx, kxt = mixer.gossip_events(xs, xts, idxs, gaps, rings=rings,
+                                          stale=stale)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            engine_mod.channel_event_local = functools.partial(
+                kernel_local, backend="ref")
+            rx, rxt = mixer.gossip_events(xs, xts, idxs, gaps, rings=rings,
+                                          stale=stale)
+            torch.cuda.synchronize()
+        finally:
+            engine_mod.channel_event_local = kernel_local
+        require(launches["channel_gossip_stacked"] == (m + 1) * N_WORKERS
+                and only_launched(launches, "channel_gossip_stacked"),
+                f"SPMD channel events ({rule}) launched {launches}")
+        require(all(torch.equal(a, b) for k, r in ((kx, rx), (kxt, rxt))
+                    for kw, rw in zip(k, r)
+                    for a, b in zip(tree_leaves(kw), tree_leaves(rw))),
+                f"SPMD channel events ({rule}) differ from the plain version")
+        s = torch.stack(scales).float()
+        require(bool((s < 1).any() and (s == 1).any()),
+                f"SPMD channel events ({rule}): the robust rule never "
+                f"engaged, or rejected every read")
+        print(f"[{card}] SPMD channel events vs plain ({rule} at tau "
+              f"{ROBUST_CLIP:g}, {m} matchings and one dropped event, stale "
+              f"reads {stale.tolist()} from rings of 2 rounds, "
+              f"{N_WORKERS} workers at full width): bit for bit; "
+              f"{launches['channel_gossip_stacked']} (1, D) launches; "
+              f"{int((s < 1).sum())} of {s.numel()} reads scaled below 1 "
+              f"on the card (min {s.min().item():.3g})")
+        del kx, kxt, rx, rxt, rings
+
+
+def phase_stacked_slice(card, params0, cfg):
+    """18: ``StackedGossipTrainer`` on the same model and arms; the SPMD and
+    the stacked event loops per row bit for bit; one pair-ring and one AR
+    step.  Returns the launches of mixing_gossip_stacked and
+    channel_gossip_stacked."""
+    from repro_torch.core import (FlatGossipEngine, GossipMixer, World,
+                                  params_from_graph, ring_graph)
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import SyntheticCIFAR
+    from repro_torch.launch import gossip_train as gt
+    from repro_torch.models.resnet import resnet_loss
+    from repro_torch.optim import sgd
+    dev = torch.device("cuda")
+    graph = ring_graph(N_WORKERS)
+    world = World(topology=graph, comms_per_grad=TRAIN_COMMS)
+    stream = SyntheticCIFAR(batch_size=BATCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    batches = [stream.sample_workers(gen, N_WORKERS)
+               for _ in range(TRAIN_STEPS)]
+
+    def grad_fn(p, batch):
+        g, (loss, m) = torch.func.grad_and_value(
+            lambda q: resnet_loss(q, cfg, batch), has_aux=True)(p)
+        return (loss, m), g
+
+    timer = ReplayTimer()
+    orig_grads = gt.StackedGossipTrainer._vmapped_grads
+    saved = {k: FlatGossipEngine.__dict__[k] for k in
+             ("batch", "channel_batch")}
+    gt.StackedGossipTrainer._vmapped_grads = timer.wrap("grad", orig_grads)
+    FlatGossipEngine.batch = timer.wrap("kernel", saved["batch"])
+    FlatGossipEngine.channel_batch = timer.wrap("kernel",
+                                                saved["channel_batch"])
+    out = {"mixing_gossip_stacked": 0, "channel_gossip_stacked": 0}
+    try:
+        for arm, kw in trainer_arms(graph).items():
+            trainer = gt.StackedGossipTrainer.from_world(
+                world, grad_fn, sgd(), lr=TRAIN_LR, **kw)
+            state = trainer.init(params0, torch.Generator().manual_seed(
+                SEED + 18))
+            step = trainer.make_step()
+            if arm == "baseline":
+                timer.arm = "warm-up"
+                step(state, batches[0])
+            timer.arm = arm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            state, walls, draws, losses = run_trainer_arm(
+                f"stacked {arm}", trainer, state, step, batches)
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            applied = sum(int((d.idxs >= 0).sum()) for d in draws)
+            events = TRAIN_STEPS * trainer.comms_per_step
+            name = "channel_gossip_stacked" if arm == "channel" \
+                else "mixing_gossip_stacked"
+            want = applied if arm == "channel" else events
+            require(launches[name] == want and only_launched(launches, name),
+                    f"stacked {arm}: launches {launches}, want {name} == "
+                    f"{want} and nothing else")
+            out[name] += launches[name]
+            grad, kern = timer.ms(arm, "grad"), timer.ms(arm, "kernel")
+            require(len(grad) == TRAIN_STEPS and len(kern) == want,
+                    f"stacked {arm}: timed {len(grad)} gradients and "
+                    f"{len(kern)} kernel calls")
+            rest = (sum(walls) - sum(grad) - sum(kern)) / TRAIN_STEPS
+            print(f"[{card}] stacked {arm}: loss {losses}, "
+                  f"{events - applied} dropped events; {name} launches "
+                  f"{launches[name]} == {want}, every other kernel 0; peak "
+                  f"memory {peak / 2**30:.2f} GiB")
+            print(f"[{card}] stacked {arm} step breakdown (CUDA events in "
+                  f"the step): vmapped gradient ({N_WORKERS} workers x "
+                  f"{BATCH}) {np.mean(grad):.2f} ms "
+                  f"{[round(t, 2) for t in grad]}, event kernel"
+                  f"{' with gather and norms' if arm == 'channel' else ''} "
+                  f"{np.mean(kern):.4f} ms x {len(kern)}, rest (mix, update,"
+                  f" pack, unpack, draws, host) {rest:.2f} ms a step; step "
+                  f"{np.mean(walls):.1f} ms {[round(t, 1) for t in walls]}")
+            del state
+    finally:
+        gt.StackedGossipTrainer._vmapped_grads = orig_grads
+        for k, v in saved.items():
+            setattr(FlatGossipEngine, k, v)
+
+    # the SPMD event loop against the stacked one on shared gaps, per row
+    acid = params_from_graph(graph, True)
+    mixer = GossipMixer(graph, acid)
+    idxs, gaps = mixer.sample_event_batch(torch.Generator().manual_seed(
+        SEED + 19), 4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    xs = [tree_map(lambda a: a + 0.01 * torch.randn(
+        a.shape, generator=gen, device=dev), params0)
+        for _ in range(N_WORKERS)]
+    xts = [tree_map(lambda a: a + 0.01 * torch.randn(
+        a.shape, generator=gen, device=dev), params0)
+        for _ in range(N_WORKERS)]
+    reset_launches()
+    sx, sxt = mixer.gossip_events(xs, xts, idxs, gaps)
+    engine = FlatGossipEngine.for_pytree(params0, acid, stacked=False)
+    sbx = torch.stack([engine.pack_local(t) for t in sx])
+    sbxt = torch.stack([engine.pack_local(t) for t in sxt])
+    del sx, sxt
+    bx = torch.stack([engine.pack_local(t) for t in xs])
+    bxt = torch.stack([engine.pack_local(t) for t in xts])
+    del xs, xts
+    stacked = FlatGossipEngine(engine.layout, acid)
+    shared = gaps.to(dev)[:, None].expand(-1, N_WORKERS).contiguous()
+    bx, bxt = stacked.mix(bx, bxt, shared[0])
+    nxt = torch.cat([shared[1:], shared.new_zeros((1, N_WORKERS))])
+    bank = torch.as_tensor(mixer.bank, device=dev)
+    for e, idx in enumerate(idxs.tolist()):
+        bx, bxt = stacked.batch(bx, bxt, bank[idx], nxt[e])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(launches["p2p_mixing"] == 4 * N_WORKERS
+            and launches["mixing_gossip_stacked"] == 4,
+            f"SPMD vs stacked loops launched {launches}")
+    require(torch.equal(sbx, bx) and torch.equal(sbxt, bxt),
+            "the SPMD and the stacked event loops differ")
+    print(f"[{card}] SPMD vs stacked event loop, 4 events on shared gaps, "
+          f"{N_WORKERS} x {engine.layout.d}: every row equal bit for bit "
+          f"({launches['p2p_mixing']} p2p_mixing against "
+          f"{launches['mixing_gossip_stacked']} mixing_gossip_stacked "
+          f"launches)")
+    del sbx, sbxt, bx, bxt
+
+    # one pair-ring step and one AR step: finite, no gossip kernel
+    trainer = gt.StackedGossipTrainer.from_world(world, grad_fn, sgd(),
+                                                 lr=TRAIN_LR)
+    for label, make in (("pair-ring", trainer.make_pair_ring_step),
+                        ("AR", trainer.make_ar_step)):
+        state = trainer.init(params0, torch.Generator().manual_seed(SEED))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = make()(state, batches[0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        require(np.isfinite(float(metrics["loss"]))
+                and all(v == 0 for v in launches.values()),
+                f"{label} step: loss {float(metrics['loss'])}, launches "
+                f"{launches}")
+        require(all(bool(torch.isfinite(a).all())
+                    for a in tree_leaves(state.x)),
+                f"{label}: non-finite state")
+        print(f"[{card}] stacked {label} step: loss "
+              f"{float(metrics['loss']):.4f}, finite, no gossip kernel "
+              f"launched; {wall:.1f} ms (host clock)")
+        del state
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1524,7 +2182,7 @@ def main() -> int:
     print(f"[{card}] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = build_all()
     print(f"[{card}] built {', '.join(p.name for p, _ in built.values())} "
           f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in "
@@ -1578,6 +2236,26 @@ def main() -> int:
     launches["flash_attention_bhsd"] = phase_prefill(card, nano, consensus,
                                                      stream)
     del consensus, stream
+    print(f"[{card}] phases 1-14 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    torch.cuda.empty_cache()
+    rows["p2p_mixing"] = phase_p2p_kernel(card, layout.d, layout.d_real, dyn)
+    rows["channel_gossip_stacked"]["max_abs_err"] = max(
+        rows["channel_gossip_stacked"]["max_abs_err"],
+        phase_channel_local(card, layout.d, layout.d_real, dyn))
+    torch.cuda.empty_cache()
+    rows["mixing_p2p"], launches["mixing_p2p"] = phase_mixing_p2p(
+        card, params0, dyn)
+    torch.cuda.empty_cache()
+    spmd = phase_spmd_slice(card, params0, cfg)
+    launches["p2p_mixing"] = spmd["p2p_mixing"]
+    torch.cuda.empty_cache()
+    stacked = phase_stacked_slice(card, params0, cfg)
+    launches["mixing_gossip_stacked"] += stacked["mixing_gossip_stacked"]
+    launches["channel_gossip_stacked"] += (spmd["channel_gossip_stacked"]
+                                           + stacked["channel_gossip_stacked"])
+    print(f"[{card}] phases 1-18 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
 
     print(card)
     print(json.dumps({"kernels": [

@@ -12,6 +12,10 @@ from .events import (BatchedSchedule, BatchedStream, CoalescedSchedule,
                      coalesced_stream, concat_schedules, make_schedule,
                      make_topology_schedule, stack_schedules, stack_streams)
 from .flatbuf import FlatLayout, LeafSpec
+from .gossip import (DelayRing, GossipMixer, WorkerAxis, bank_corruption,
+                     bank_edge_rates, check_mesh_channel,
+                     consensus_distance_spmd, matching_bank, phase_banks,
+                     world_banks)
 from .graphs import (Graph, TopologyPhase, TopologySchedule, build_graph,
                      complete_graph, exponential_graph, hypercube_graph,
                      ring_graph, star_graph, torus_graph)
@@ -33,6 +37,9 @@ __all__ = [
     "make_schedule", "make_topology_schedule", "stack_schedules",
     "stack_streams",
     "FlatLayout", "LeafSpec",
+    "DelayRing", "GossipMixer", "WorkerAxis", "bank_corruption",
+    "bank_edge_rates", "check_mesh_channel", "consensus_distance_spmd",
+    "matching_bank", "phase_banks", "world_banks",
     "Graph", "TopologyPhase", "TopologySchedule", "build_graph",
     "complete_graph", "exponential_graph", "hypercube_graph", "ring_graph",
     "star_graph", "torus_graph",

@@ -21,6 +21,10 @@ snapshot-ring rows) and apply the robust m-term; around the fused kernel
 they run plain PyTorch, as the JAX package runs XLA there: the ring
 gathers and the ``delta_norms`` reduce.
 
+The local passes (``batch_local``, ``channel_batch_local``, with
+``pack_local`` / ``unpack_local``) run one worker's (D,) vectors: the
+per-worker event of the SPMD trainer (``core/gossip.py``).
+
 The world-batched passes (``mix_batch``, ``batch_worlds``,
 ``channel_batch_worlds[_scaled]``, ``partner_values_worlds``) run B
 worlds' (B, W, D) buffers at once with the per-world dynamics ``pw =
@@ -33,10 +37,11 @@ import dataclasses
 
 import torch
 
-from ..kernels.a2cid2_mixing.ops import (channel_event_stacked,
+from ..kernels.a2cid2_mixing.ops import (channel_event_local,
+                                         channel_event_stacked,
                                          channel_event_worlds,
                                          gossip_event_stacked,
-                                         gossip_event_worlds)
+                                         gossip_event_worlds, p2p_mix_event)
 from .a2cid2 import A2CiD2Params, apply_mixing
 from .flatbuf import FlatLayout, ring_read, ring_read_worlds
 from .tree import PyTree
@@ -112,6 +117,12 @@ class FlatGossipEngine:
     def unpack(self, buf: torch.Tensor) -> PyTree:
         return self.layout.unpack(buf)
 
+    def pack_local(self, tree: PyTree) -> torch.Tensor:
+        return self.layout.pack_local(tree)
+
+    def unpack_local(self, vec: torch.Tensor) -> PyTree:
+        return self.layout.unpack_local(vec)
+
     def pack_worlds(self, tree: PyTree) -> torch.Tensor:
         return self.layout.pack_worlds(tree)
 
@@ -133,23 +144,35 @@ class FlatGossipEngine:
         return gossip_event_stacked(bx, bxt, partner, dt_next, eta=p.eta,
                                     alpha=p.alpha, alpha_t=p.alpha_tilde)
 
+    def batch_local(self, bx: torch.Tensor, bxt: torch.Tensor,
+                    xp: torch.Tensor, dt_next
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One fused group on one worker's (D,) vectors (the SPMD path):
+        ``xp`` the partner's current flat x (what the worker axis's permute
+        delivered), ``dt_next`` one f32.  ``bxt`` is consumed."""
+        p = self.params
+        return p2p_mix_event(bx, bxt, xp, dt_next, eta=p.eta, alpha=p.alpha,
+                             alpha_t=p.alpha_tilde)
+
     # ------------------------------------------- unreliable-channel passes
     def _coord_clip(self) -> float | None:
         return self.robust_clip if self.robust_rule == "coord" else None
 
     @staticmethod
     def delta_norms(bx: torch.Tensor, xp: torch.Tensor,
-                    corrupt: torch.Tensor, axes: int = 1) -> torch.Tensor:
+                    corrupt: torch.Tensor, axes: int | None = 1
+                    ) -> torch.Tensor:
         """f32 L2 norms of the corrupted channel deltas over the row axis
         ``axes`` ((W,) for (W, D) buffers with axes=1, (B, W) for worlds
-        with axes=2): the subtraction at the buffer dtype, the squares and
+        with axes=2, one 0-dim norm for a worker's (D,) vector with
+        axes=None): the subtraction at the buffer dtype, the squares and
         sum in f32."""
         cadv = (1.0 + corrupt.float()).to(bx.dtype).unsqueeze(-1)
         m32 = (bx - cadv * xp).float()
         return torch.sqrt((m32 * m32).sum(dim=axes))
 
     def _mscale(self, bx: torch.Tensor, xp: torch.Tensor,
-                corrupt: torch.Tensor, axes: int = 1,
+                corrupt: torch.Tensor, axes: int | None = 1,
                 taus: torch.Tensor | None = None) -> torch.Tensor:
         """Per-worker robust scale (ones when no norm rule is on).  The
         per-world (B,) ``taus`` replace the static ``robust_clip``; tau =
@@ -190,6 +213,20 @@ class FlatGossipEngine:
                                      eta=p.eta, alpha=p.alpha,
                                      alpha_t=p.alpha_tilde, clip=None,
                                      want_rej=True)
+
+    def channel_batch_local(self, bx: torch.Tensor, bxt: torch.Tensor,
+                            xp: torch.Tensor, corrupt: torch.Tensor,
+                            dt_next) -> tuple[torch.Tensor, torch.Tensor]:
+        """Channel group on one worker's (D,) vectors (the SPMD path):
+        ``corrupt`` the 0-dim f32 offset on this worker's received value;
+        the robust rule's scale comes from the norm of this one delta.
+        ``bxt`` is consumed."""
+        p = self.params
+        mscale = self._mscale(bx, xp, corrupt, axes=None)
+        return channel_event_local(bx, bxt, xp, corrupt, mscale, dt_next,
+                                   eta=p.eta, alpha=p.alpha,
+                                   alpha_t=p.alpha_tilde,
+                                   clip=self._coord_clip())
 
     @staticmethod
     def partner_values(ring: torch.Tensor, bx: torch.Tensor,

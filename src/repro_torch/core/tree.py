@@ -90,6 +90,42 @@ def _flatten(tree, leaves: list) -> TreeDef:
     return _LEAF
 
 
+@dataclasses.dataclass(frozen=True)
+class DictKey:
+    """A dict entry on a leaf's path (``jax.tree_util.DictKey``)."""
+
+    key: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceKey:
+    """A list or tuple position on a leaf's path
+    (``jax.tree_util.SequenceKey``)."""
+
+    idx: int
+
+
+def tree_flatten_with_path(tree: PyTree) -> tuple[list, TreeDef]:
+    """([(path, leaf), ...], treedef) in ``tree_flatten``'s leaf order, each
+    path a tuple of ``DictKey`` / ``SequenceKey`` from the root, as
+    ``jax.tree_util.tree_flatten_with_path`` gives it."""
+    leaves, treedef = tree_flatten(tree)
+    paths: list = []
+    _paths(tree, (), paths)
+    return list(zip(paths, leaves)), treedef
+
+
+def _paths(tree, prefix: tuple, out: list) -> None:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _paths(tree[k], prefix + (DictKey(k),), out)
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            _paths(t, prefix + (SequenceKey(i),), out)
+    else:
+        out.append(prefix)
+
+
 def tree_leaves(tree: PyTree) -> list:
     return tree_flatten(tree)[0]
 

@@ -1,16 +1,17 @@
-// Per-element arithmetic shared by the four fused A2CiD2 gossip kernels
+// Per-element arithmetic shared by the six fused A2CiD2 gossip kernels
 // (mixing_gossip_stacked, channel_gossip_stacked, mixing_gossip_worlds,
-// channel_gossip_worlds), so that the serial and the world-batched kernels
-// cannot drift apart: per world, a worlds kernel computes exactly what its
-// stacked twin computes with that world's scalars.
+// channel_gossip_worlds, p2p_mixing, mixing_p2p), so that they cannot drift
+// apart: per world, a worlds kernel computes exactly what its stacked twin
+// computes with that world's scalars, and per worker row p2p_mixing
+// computes exactly what mixing_gossip_stacked computes for that row.
 //
 // Rounding: every product, sum and difference uses the _rn intrinsics, which
 // nvcc never contracts into an FMA, and for bf16 every intermediate is
 // rounded to bf16 (T::round), so the kernels round where the plain PyTorch
 // versions (ref.py) do.  alpha and alpha~ must arrive as values of the
-// buffer dtype (the stacked wrappers round them on the host, the worlds
-// kernels with T::round on the card); the mixing coefficient is computed in
-// f32 from -2 * eta and rounded once to the buffer dtype.
+// buffer dtype (the stacked and flat wrappers round them on the host, the
+// worlds kernels with T::round on the card); the mixing coefficient is
+// computed in f32 from -2 * eta and rounded once to the buffer dtype.
 
 #pragma once
 
@@ -28,8 +29,11 @@ constexpr long long kMaxBlocksX = 2048;
 
 struct F32 {
     using vec_t = float4;
+    using elem_t = float;
     static constexpr int kLanes = 4;
     __device__ static __forceinline__ float round(float v) { return v; }
+    __device__ static __forceinline__ float load(float v) { return v; }
+    __device__ static __forceinline__ float store(float v) { return v; }
     __device__ static __forceinline__ void unpack(const float4 &v, float *o) {
         o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
     }
@@ -40,9 +44,17 @@ struct F32 {
 
 struct BF16 {
     using vec_t = uint4;  // 8 bf16 values, little-endian pairs per word
+    using elem_t = uint16_t;  // one bf16 value's bits
     static constexpr int kLanes = 8;
     __device__ static __forceinline__ float round(float v) {
         return __bfloat162float(__float2bfloat16_rn(v));
+    }
+    __device__ static __forceinline__ float load(uint16_t v) {
+        return __uint_as_float((uint32_t)v << 16);
+    }
+    // v is already a bf16 value (see round), so its high half is exact
+    __device__ static __forceinline__ uint16_t store(float v) {
+        return (uint16_t)(__float_as_uint(v) >> 16);
     }
     __device__ static __forceinline__ void unpack(const uint4 &v, float *o) {
         const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -116,6 +128,21 @@ __device__ __forceinline__ void p2p_mix(float x, float xt, float m,
     const float cd = T::round(__fmul_rn(c, d));
     out_x = T::round(__fadd_rn(x1, cd));
     out_xt = T::round(__fsub_rn(xt1, cd));
+}
+
+// the mixing step with coefficient c, then the p2p update against the
+// partner's (already mixed) x: the mix-then-p2p order of mixing_p2p
+template <typename T>
+__device__ __forceinline__ void mix_p2p(float x, float xt, float xp,
+                                        float alpha, float alpha_t, float c,
+                                        float &out_x, float &out_xt) {
+    const float d = T::round(__fsub_rn(xt, x));
+    const float cd = T::round(__fmul_rn(c, d));
+    const float xm = T::round(__fadd_rn(x, cd));
+    const float xtm = T::round(__fsub_rn(xt, cd));
+    const float m = T::round(__fsub_rn(xm, xp));
+    out_x = T::round(__fsub_rn(xm, T::round(__fmul_rn(alpha, m))));
+    out_xt = T::round(__fsub_rn(xtm, T::round(__fmul_rn(alpha_t, m))));
 }
 
 }  // namespace gossip

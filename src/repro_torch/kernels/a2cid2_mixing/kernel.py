@@ -39,6 +39,12 @@ _ARGTYPES = {
     # alpha_t, rej, b, w, d, has_clip, clip, stream
     "channel_gossip_worlds": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _LL, _LL, _LL, _I, _F, _P),
+    # dtype, x, x_tilde, xp, out_x, dt_next, d, neg2eta, alpha, alpha_t,
+    # stream
+    "p2p_mixing": (_I, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _P),
+    # dtype, x, x_tilde, xp, out_x, out_xt, dt, n, neg2eta, alpha, alpha_t,
+    # stream
+    "mixing_p2p": (_I, _P, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _P),
 }
 
 
@@ -281,3 +287,110 @@ def channel_gossip_worlds(x: torch.Tensor, x_tilde: torch.Tensor,
 
 
 channel_gossip_worlds.launches = 0
+
+
+def _check_flat(name: str, x: torch.Tensor, others: dict,
+                dt: torch.Tensor) -> None:
+    """The checks of the two flat-vector kernels: ``x`` and ``others`` are
+    contiguous tensors of one supported dtype and shape on one card, and
+    ``dt`` is one float32 on the same card."""
+    if not x.is_cuda:
+        raise ValueError(f"{name} runs on CUDA tensors only; CPU tensors "
+                         f"take the plain version (ops.py)")
+    if x.dtype not in DTYPE_CODE:
+        raise TypeError(f"buffer dtype {x.dtype} is not supported by the "
+                        f"CUDA kernel (float32, bfloat16)")
+    for key, t in {"x": x, **others}.items():
+        if t.device != x.device:
+            raise ValueError(f"{key} is on {t.device}, x on {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{key} is {t.dtype}, x is {x.dtype}")
+        if t.shape != x.shape:
+            raise ValueError(f"{key} must share x's shape, got "
+                             f"{tuple(t.shape)} and {tuple(x.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{key} must be contiguous")
+    if (dt.device != x.device or dt.dtype != torch.float32
+            or dt.numel() != 1):
+        raise ValueError(f"dt must be one float32 on {x.device}, got "
+                         f"{tuple(dt.shape)} {dt.dtype} on {dt.device}")
+
+
+def p2p_mixing(x: torch.Tensor, x_tilde: torch.Tensor,
+               x_partner: torch.Tensor, dt_next: torch.Tensor, *,
+               eta: float, alpha: float, alpha_t: float
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One gossip event on one worker's flat vectors on the card: p2p
+    against ``x_partner``, then mix for ``dt_next``.
+
+    x, x_tilde, x_partner: (D,) float32 or bfloat16, contiguous, 16-byte
+    aligned, D % 128 == 0 (a packed ``FlatLayout`` vector, or a row of
+    one); dt_next: one float32 on the same card (0-dim or (1,), e.g. a view
+    into the event-gap tensor), read by the kernel, never by the host.
+    alpha and alpha_t are rounded here to the buffer dtype, as JAX binds a
+    weak scalar.
+
+    ``x_tilde`` is updated IN PLACE, as in the stacked kernel; the returned
+    pair is ``(out_x, x_tilde)`` with ``out_x`` fresh.  The launch is queued
+    on the current stream and not waited for.  Each launch adds one to
+    ``p2p_mixing.launches``.
+    """
+    _check_flat("p2p_mixing", x, {"x_tilde": x_tilde,
+                                  "x_partner": x_partner}, dt_next)
+    if x.dim() != 1 or x.shape[0] % LANE or x.shape[0] == 0:
+        raise ValueError(f"x must be (D,) with D a positive multiple of "
+                         f"{LANE}, got {tuple(x.shape)}")
+    for key, t in (("x", x), ("x_tilde", x_tilde), ("x_partner", x_partner)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{key} must be 16-byte aligned")
+    out_x = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _entry("p2p_mixing")(
+            DTYPE_CODE[x.dtype], x.data_ptr(), x_tilde.data_ptr(),
+            x_partner.data_ptr(), out_x.data_ptr(), dt_next.data_ptr(),
+            x.shape[0], float(-2.0 * eta), dtype_scalar(alpha, x.dtype),
+            dtype_scalar(alpha_t, x.dtype), _stream(x))
+    if err != 0:
+        raise RuntimeError(f"p2p_mixing launch failed: CUDA error {err}")
+    p2p_mixing.launches += 1
+    return out_x, x_tilde
+
+
+p2p_mixing.launches = 0
+
+
+def mixing_p2p(x: torch.Tensor, x_tilde: torch.Tensor,
+               x_partner: torch.Tensor, dt: torch.Tensor, *, eta: float,
+               alpha: float, alpha_t: float
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One gossip event on one tensor of any shape and length on the card:
+    mix for ``dt``, then p2p against ``x_partner`` (the partner's already
+    mixed x).
+
+    x, x_tilde, x_partner: one shape, float32 or bfloat16, contiguous, at
+    any element alignment; dt: one float32 on the same card, read by the
+    kernel.  alpha and alpha_t are rounded here to the buffer dtype.
+    Returns two fresh tensors of x's shape; the inputs are left as they
+    were.  The launch is queued on the current stream and not waited for.
+    Each launch adds one to ``mixing_p2p.launches``; an empty tensor
+    launches nothing.
+    """
+    _check_flat("mixing_p2p", x, {"x_tilde": x_tilde,
+                                  "x_partner": x_partner}, dt)
+    out_x, out_xt = torch.empty_like(x), torch.empty_like(x)
+    if x.numel() == 0:
+        return out_x, out_xt
+    with torch.cuda.device(x.device):
+        err = _entry("mixing_p2p")(
+            DTYPE_CODE[x.dtype], x.data_ptr(), x_tilde.data_ptr(),
+            x_partner.data_ptr(), out_x.data_ptr(), out_xt.data_ptr(),
+            dt.data_ptr(), x.numel(), float(-2.0 * eta),
+            dtype_scalar(alpha, x.dtype), dtype_scalar(alpha_t, x.dtype),
+            _stream(x))
+    if err != 0:
+        raise RuntimeError(f"mixing_p2p launch failed: CUDA error {err}")
+    mixing_p2p.launches += 1
+    return out_x, out_xt
+
+
+mixing_p2p.launches = 0

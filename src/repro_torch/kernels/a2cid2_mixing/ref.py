@@ -38,6 +38,43 @@ def _coeff_worlds(eta: torch.Tensor, dt_next: torch.Tensor,
             ).to(dtype)[:, :, None]
 
 
+def _coeff(eta: float, dt, dtype: torch.dtype) -> torch.Tensor:
+    """The mixing coefficient 0.5 * (1 - exp(-2 eta dt)) in f32 for a
+    scalar ``dt`` (a float or a 0-dim / (1,) tensor), cast to ``dtype``."""
+    dt = torch.as_tensor(dt, dtype=torch.float32)
+    return (0.5 * (1.0 - torch.exp(-2.0 * eta * dt))).to(dtype).reshape(())
+
+
+def mixing_p2p_ref(x: torch.Tensor, x_tilde: torch.Tensor,
+                   x_partner: torch.Tensor, dt, *, eta: float, alpha: float,
+                   alpha_t: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One event, mix then p2p, on tensors of any shape: x, x~ mixed for
+    ``dt`` (a scalar), then the p2p step against the partner's x
+    (``x_partner``, already mixed).  Returns fresh tensors."""
+    c = _coeff(eta, dt, x.dtype)
+    d = x_tilde - x
+    xm = x + c * d
+    xtm = x_tilde - c * d
+    m = xm - x_partner
+    return (xm - dtype_scalar(alpha, x.dtype) * m,
+            xtm - dtype_scalar(alpha_t, x.dtype) * m)
+
+
+def p2p_mixing_ref(x: torch.Tensor, x_tilde: torch.Tensor,
+                   x_partner: torch.Tensor, dt_next, *, eta: float,
+                   alpha: float, alpha_t: float
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One event, p2p then mix for ``dt_next`` (a scalar), on one worker's
+    flat (D,) vectors (the event-engine group order).  Returns fresh
+    tensors."""
+    m = x - x_partner
+    x1 = x - dtype_scalar(alpha, x.dtype) * m
+    xt1 = x_tilde - dtype_scalar(alpha_t, x.dtype) * m
+    c = _coeff(eta, dt_next, x.dtype)
+    d = xt1 - x1
+    return x1 + c * d, xt1 - c * d
+
+
 def mixing_gossip_stacked_ref(x: torch.Tensor, x_tilde: torch.Tensor,
                               partner: torch.Tensor, dt_next: torch.Tensor,
                               *, eta: float, alpha: float, alpha_t: float
@@ -150,4 +187,24 @@ def channel_gossip_worlds_ref(x: torch.Tensor, x_tilde: torch.Tensor,
     if want_rej:
         rej = (mscale.float() == 0.0).float()
         return x1 + c * d, xt1 - c * d, rej
+    return x1 + c * d, xt1 - c * d
+
+
+def channel_p2p_mixing_ref(x: torch.Tensor, x_tilde: torch.Tensor,
+                           x_partner: torch.Tensor, corrupt, mscale,
+                           dt_next, *, eta: float, alpha: float,
+                           alpha_t: float, clip: float | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-worker (D,) channel variant of ``p2p_mixing_ref`` (the SPMD
+    path): 0-dim f32 ``corrupt`` offset, ``mscale`` and ``dt_next``.
+    Returns fresh tensors."""
+    def scalar(v):
+        return torch.as_tensor(v, dtype=torch.float32,
+                               device=x.device).reshape(())
+
+    m = _robust_m(x, x_partner, scalar(corrupt), scalar(mscale), clip)
+    x1 = x - dtype_scalar(alpha, x.dtype) * m
+    xt1 = x_tilde - dtype_scalar(alpha_t, x.dtype) * m
+    c = _coeff(eta, dt_next, x.dtype)
+    d = xt1 - x1
     return x1 + c * d, xt1 - c * d

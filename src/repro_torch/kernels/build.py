@@ -30,6 +30,8 @@ PACKAGES = {
     "channel_gossip_stacked": "a2cid2_mixing",
     "mixing_gossip_worlds": "a2cid2_mixing",
     "channel_gossip_worlds": "a2cid2_mixing",
+    "p2p_mixing": "a2cid2_mixing",
+    "mixing_p2p": "a2cid2_mixing",
     "flash_attention_bhsd": "flash_attention",
     "rmsnorm_2d": "rmsnorm",
 }

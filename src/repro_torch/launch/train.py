@@ -8,8 +8,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --mode sim \
       --arch nano-lm --device cpu --steps 5
 
-``--mode sync`` (it needs ``optim/``) and ``--ckpt`` (it needs
-``checkpoint/``) are not ported yet and raise ``NotImplementedError``.
+``--mode sync`` (it needs ``launch/steps.make_train_step``) and ``--ckpt``
+(it needs ``checkpoint/``) are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -109,8 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Any = None) -> None:
     args = build_parser().parse_args(argv)
     if args.mode == "sync":
-        raise NotImplementedError("--mode sync needs optim/, which is not "
-                                  "ported to PyTorch yet")
+        raise NotImplementedError("--mode sync needs launch/steps."
+                                  "make_train_step, which is not ported to "
+                                  "PyTorch yet")
     if args.ckpt:
         raise NotImplementedError("--ckpt needs checkpoint/, which is not "
                                   "ported to PyTorch yet")

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch`` with JAX
-blocked loads nothing of the JAX package (and a ``World`` and a
+and networkx blocked loads nothing of the JAX package (a matching bank
+builds and a ``GossipTrainer`` step runs there, and a ``World`` and a
 ``WorldSweep`` build and compile there, and a reduced transformer builds
 and runs its forward on both attention paths), the entry points refuse to run on
 a machine without a card unless the caller names the CPU, and the parts
@@ -20,14 +21,30 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 PROBE = textwrap.dedent("""
     import importlib, pkgutil, sys
     sys.modules["jax"] = None          # any `import jax` now raises
+    sys.modules["networkx"] = None     # and so does `import networkx`
     import repro_torch
     for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
         importlib.import_module(m.name)
     leaked = sorted(k for k in sys.modules
                     if k == "repro" or k.startswith("repro.")
-                    or k == "jax" and sys.modules[k] is not None
-                    or k.startswith("jax.") or k.startswith("jaxlib"))
+                    or k in ("jax", "networkx") and sys.modules[k] is not None
+                    or k.startswith(("jax.", "jaxlib", "networkx.")))
     print("LEAKED", leaked)
+    import repro_torch.optim, repro_torch.core.gossip
+    from repro_torch.launch.gossip_train import GossipTrainer
+    from repro_torch.core import matching_bank, params_from_graph
+    from repro_torch.core import exponential_graph as expg
+    print("BANK", matching_bank(expg(8)).shape)
+    import torch
+    g = expg(8)
+    trainer = GossipTrainer(
+        lambda p, b: (0.5 * ((p["w"] - b) ** 2).sum(), {}),
+        repro_torch.optim.sgd(), g, params_from_graph(g), comms_per_step=2)
+    state = trainer.init({"w": torch.zeros(5)},
+                         torch.Generator().manual_seed(0))
+    state, metrics = trainer.make_step()(state, torch.ones(8, 5))
+    print("STEP", len(state.params), tuple(state.params[3]["w"].shape),
+          bool(torch.isfinite(metrics["loss"])))
     from repro_torch.core import (Algorithm, World, WorldSweep,
                                   ring_graph)
     sweep = WorldSweep.over(World(ring_graph(8)),
@@ -67,11 +84,14 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
-                 if line.startswith(("LEAKED", "WORLDS", "CUDA")))
+                 if line.startswith(("LEAKED", "WORLDS", "CUDA", "BANK",
+                                     "STEP")))
     models = [line for line in out.stdout.splitlines()
               if line.startswith("MODEL")]
     assert models == ["MODEL xla (1, 8, 512)", "MODEL pallas (1, 8, 512)"]
     assert lines["LEAKED"] == "[]"
+    assert lines["BANK"] == "(6, 8)"
+    assert lines["STEP"] == "8 (5,) True"
     assert lines["WORLDS"] == "4 True"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CPU-refusal half does not apply")

@@ -13,8 +13,8 @@ import torch
 from repro_torch.kernels import build
 
 SIX = ("mixing_gossip_stacked", "channel_gossip_stacked",
-       "mixing_gossip_worlds", "channel_gossip_worlds",
-       "flash_attention_bhsd", "rmsnorm_2d")
+       "mixing_gossip_worlds", "channel_gossip_worlds", "p2p_mixing",
+       "mixing_p2p", "flash_attention_bhsd", "rmsnorm_2d")
 
 
 def test_six_kernels_each_with_one_source():
@@ -23,11 +23,12 @@ def test_six_kernels_each_with_one_source():
         src = build.source(name)
         assert src.is_file() and src.parent.name == "csrc"
         assert f'extern "C" int {name}_launch(' in src.read_text()
-    assert len({build.lib_path(n) for n in SIX}) == 6
+    assert len({build.lib_path(n) for n in SIX}) == len(SIX) == 8
 
 
 @pytest.mark.parametrize("name,headers", [
     ("mixing_gossip_stacked", ["gossip_common.cuh"]),
+    ("mixing_p2p", ["gossip_common.cuh"]),
     ("flash_attention_bhsd", []),
     ("rmsnorm_2d", []),
 ])

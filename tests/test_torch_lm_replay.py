@@ -173,7 +173,7 @@ def test_run_sim_on_cpu(capsys):
 
 
 def test_unported_launch_modes_raise():
-    with pytest.raises(NotImplementedError, match="optim"):
+    with pytest.raises(NotImplementedError, match="make_train_step"):
         train.main(["--mode", "sync", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="checkpoint"):
         train.main(["--ckpt", "/nonexistent", "--device", "cpu"])
