@@ -72,10 +72,16 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      version at the prefill shapes of nano-lm (96, 1024, 64) and Qwen3-0.6B
      (32, 4096, 128) causal f32, (96, 1000, 64) causal with a window of
      256, (2, 130, 64) against 384 keys without the mask, and (96, 1024,
-     64) bf16, on live rows (atol 2e-5, rtol 1e-4 at f32, the JAX package's
-     tolerance; atol 3e-2 at bf16, the JAX package's); the kernel's 0 on
-     rows with no live column pinned exactly; each shape's time (mean of
-     20 launches) beside its bound, the plain version's time and
+     64) and (32, 4096, 128) bf16, on live rows (atol 2e-5, rtol 1e-4 at
+     f32, the JAX package's tolerance; atol 3e-2 at bf16, the JAX
+     package's, and each element within 2^-7 |ref| + 2^-8 sum_c p_c |v_c|,
+     which the kernel with the last 64 keys of head 0 dropped must break);
+     the kernel's 0 on rows with no live column pinned exactly; the count of tensor-core instructions in the built library
+     (HGMMA for wgmma, HMMA for mma.sync, by ``cuobjdump -sass``); each
+     shape's time (mean of 20 launches) beside the bound of its route
+     (bf16 on wgmma at 989 TFLOP/s; f32 as 3xTF32, three TF32 products a
+     product at 494.7 TFLOP/s; each against bytes at 3.35 TB/s) and the
+     CUDA-core f32 bound of earlier records, the plain version's time and
      ``scaled_dot_product_attention``'s;
  12. the RMSNorm kernel ``rmsnorm_2d`` against its plain version at
      (8192, 768) and (8192, 1024) f32 and bf16, (130, 768) and (1, 256)
@@ -100,6 +106,11 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      layers of one forward (12, 28), the logits match the xla path within
      max|d| / max|logit| < 2e-4 (the JAX package's model tolerance), the CE
      is finite; the forward's time and the flash kernel's share of it;
+     then Qwen3-0.6B again with bf16 weights and compute (the same seed),
+     its 28 flash launches on bf16 and no other kernel, the logits within
+     max|d| / max|logit| < 3e-2 of the bf16 xla path and of the same
+     forward through the plain flash version, where a 64-key tile dropped
+     from every head in every layer must read above 3e-2;
  15. the per-worker event kernel ``p2p_mixing`` against its plain version at
      ResNet-18-CIFAR's padded width (11,171,328) f32 and bf16, bit for
      bit, with x~ written in place beside a fresh out_x, the exact
@@ -168,12 +179,24 @@ CHANNEL_FLOPS_PER_ELEM = 11
 # the world-batched slices: B = 4 worlds in one call
 N_WORLDS = 4
 PEAK_BF16_FLOPS = 989e12   # dense tensor-core rate (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core rate (NVIDIA data sheet)
 # flash kernel vs plain: the JAX package's kernel-vs-oracle tolerances
 FLASH_F32_TOL = dict(atol=2e-5, rtol=1e-4)
 FLASH_BF16_ATOL = 3e-2
+# and, at bf16, |out - ref| <= 2^-7 |ref| + 2^-8 sum_c p_c |v_c| on every
+# live element: the first-order bound of the three roundings between the
+# kernel and its plain version (bf16's unit roundoff 2^-8 each): P before
+# P V, the kernel's output and the plain version's output
+FLASH_BF16_REL, FLASH_BF16_P = 2.0 ** -7, 2.0 ** -8
 RMSNORM_F32_ATOL = 1e-5    # the JAX package's rmsnorm kernel test
 RMSNORM_BF16_ATOL = 2e-2
 MODEL_TOL = 2e-4           # pallas vs xla logits, max|d| / max|logit|
+# the same at bf16 weights and compute, against the xla path and against
+# the same forward through the plain flash version: 28 bf16 layers carry
+# any rounding difference in attention to ~1.8e-2 of the largest logit,
+# where a 64-key tile dropped from every head reads ~0.14 (PERF.md
+# section 2)
+MODEL_BF16_TOL = 3e-2
 # (A): the CLI defaults of launch/train.py, 4 rounds, full nano-lm
 LM_ROUNDS, LM_WORKERS = 4, 8
 NANO_PARAMS, QWEN_PARAMS = 128_404_224, 596_180_992  # jax.eval_shape counts
@@ -208,6 +231,8 @@ KERNELS = {
         "replaces": "src/repro/kernels/a2cid2_mixing/kernel.py:90"},
     "flash_attention_bhsd": {
         "name": "flash_attention_bhsd", "route": "cuda",
+        "instructions": "bf16: wgmma (HGMMA); f32 3xTF32: Q.K^T on TF32 "
+                        "wgmma (HGMMA), P.V on mma.sync (HMMA)",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bhsd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:81"},
@@ -1216,7 +1241,36 @@ def library_attention(q, k, v, causal, window):
         is_causal=causal and window is None)[0]
 
 
+def tensor_core_instructions(lib: Path) -> dict | None:
+    """The HGMMA (wgmma) and HMMA (mma.sync) instructions in a built
+    library's SASS, by ``cuobjdump -sass``; None where the toolkit has no
+    ``cuobjdump``."""
+    import re
+    from repro_torch.kernels.build import toolkit_tool
+    try:
+        tool = toolkit_tool("cuobjdump")
+    except RuntimeError:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass))
+            for op in ("HGMMA", "HMMA")}
+
+
+def bf16_reading(out, ref, q, k, v, live, **kw) -> float:
+    """The largest |out - ref| / (2^-7 |ref| + 2^-8 sum_c p_c |v_c|) over
+    the live rows: at most 1 where the kernel agrees with its plain
+    version to bf16's roundings."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    mass = attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    ref = ref.float()[:, live]
+    lim = FLASH_BF16_REL * ref.abs() + FLASH_BF16_P * mass[:, live]
+    d = (out.float()[:, live] - ref).abs()
+    return (d / lim.clamp_min(1e-30)).max().item()
+
+
 def phase_flash_kernel(card):
+    from repro_torch.kernels.build import lib_path
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_bhsd
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
@@ -1232,7 +1286,20 @@ def phase_flash_kernel(card):
         ("cross, no mask", 2, 130, 384, 64, torch.float32, False, None),
         ("nano-lm prefill bf16", 96, 1024, 1024, 64, torch.bfloat16, True,
          None),
+        ("Qwen3-0.6B prefill bf16", 32, 4096, 4096, 128, torch.bfloat16,
+         True, None),
     ]
+    lib = lib_path("flash_attention_bhsd")
+    sass = tensor_core_instructions(lib)
+    if sass is None:
+        print(f"[{card}] flash_attention_bhsd SASS: not measured (no "
+              f"cuobjdump)")
+    else:
+        require(sass["HGMMA"] > 0 and sass["HMMA"] > 0,
+                f"flash kernel without tensor-core instructions: {sass}")
+        print(f"[{card}] flash_attention_bhsd SASS ({lib.name}): "
+              f"{sass['HGMMA']} HGMMA (wgmma: bf16, and Q.K^T at f32), "
+              f"{sass['HMMA']} HMMA (mma.sync: P.V at f32)")
     rows = {}
     for label, bh, s_len, t_len, hd, dtype, causal, window in shapes:
         q, k, v = (torch.randn(bh, n, hd, generator=gen, device=dev)
@@ -1249,9 +1316,25 @@ def phase_flash_kernel(card):
             tol = (f"atol {FLASH_F32_TOL['atol']:g}, rtol "
                    f"{FLASH_F32_TOL['rtol']:g}")
         else:
-            ok = err <= FLASH_BF16_ATOL
-            tol = f"atol {FLASH_BF16_ATOL:g}"
-        require(ok, f"flash kernel disagrees with plain at {label}: {err}")
+            reading = bf16_reading(out, ref, q, k, v, live, **kw)
+            ok = err <= FLASH_BF16_ATOL and reading <= 1.0
+            # a planted fault the gate must see: P V of the last 64 keys of
+            # head 0 dropped, which only the 64 longest rows read
+            vf = v.clone()
+            vf[0, t_len - 64:] = 0
+            bad = flash_attention_bhsd(q, k, vf, **kw)
+            bad_err = (bad.float() - ref.float()).abs().max().item()
+            bad_reading = bf16_reading(bad, ref, q, k, v, live, **kw)
+            require(bad_reading > 1.0,
+                    f"{label}: the bf16 gate passes a dropped k tile "
+                    f"(reading {bad_reading:.3f})")
+            tol = (f"atol {FLASH_BF16_ATOL:g}, and {reading:.3f} of the "
+                   f"bound 2^-7 |ref| + 2^-8 sum p|v|; the last 64 keys of "
+                   f"head 0 dropped read {bad_reading:.3f} of it, max abs "
+                   f"err {bad_err:.3e}")
+            del vf, bad
+        require(ok, f"flash kernel disagrees with plain at {label}: {err} "
+                    f"({tol})")
         del out, ref
         ms = cuda_ms(lambda: flash_attention_bhsd(q, k, v, **kw), reps=20)
         plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), reps=5,
@@ -1261,16 +1344,29 @@ def phase_flash_kernel(card):
         pairs = bh * live_pairs(s_len, t_len, causal, window, dev)
         flops = 4 * hd * pairs
         nbytes = (2 * s_len + 2 * t_len) * bh * hd * q.element_size()
-        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-        b = bound(nbytes, flops, peak)
+        # the route's bound: f32 runs 3 TF32 products for each product
+        if dtype == torch.float32:
+            route, route_flops, peak = "3xTF32", 3 * flops, PEAK_TF32_FLOPS
+            core = bound(nbytes, flops, PEAK_F32_FLOPS)
+            core_note = (f"; the CUDA-core f32 bound of earlier records "
+                         f"{core['bound_ms']:.4f} ms ({flops / 1e9:.2f} "
+                         f"GFLOP at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s)")
+        else:
+            route, route_flops, peak = "bf16 wgmma", flops, PEAK_BF16_FLOPS
+            core_note = ""
+        b = bound(nbytes, route_flops, peak)
+        share = b["bound_ms"] / ms
+        require(share <= 1.0, f"{label}: {ms:.4f} ms is below the "
+                              f"{route} bound {b['bound_ms']:.4f} ms")
         print(f"[{card}] flash_attention_bhsd {label} ({bh}, {s_len}, "
               f"{hd}) T={t_len} {str(dtype)[6:]} causal={causal} "
               f"window={window}: max abs err {err:.3e} ({tol}); "
-              f"{ms:.4f} ms (mean of 20), bound {b['bound_ms']:.4f} ms by "
-              f"{b['bound_by']} ({flops / 1e9:.2f} GFLOP at "
-              f"{peak / 1e12:g} TFLOP/s, {nbytes / 1e6:.1f} MB at "
-              f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s), {flops / ms / 1e9:.2f} "
-              f"TFLOP/s achieved ({b['bound_ms'] / ms:.1%} of the bound); "
+              f"{ms:.4f} ms (mean of 20); {route} bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({route_flops / 1e9:.2f} GFLOP at {peak / 1e12:g} TFLOP/s, "
+              f"{nbytes / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} "
+              f"TB/s), {share:.1%} of it{core_note}; "
+              f"{flops / ms / 1e9:.2f} TFLOP/s of attention achieved; "
               f"plain {plain_ms:.4f} ms; scaled_dot_product_attention "
               f"{lib_ms:.4f} ms")
         rows[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1466,10 +1562,51 @@ def phase_lm_engine_vs_reference(card, cfg, stream):
 
 
 # ------------------------------------------ (B) prefill with flash attention
-def check_prefill(card, label, cfg, params, tokens, n_attn):
+def kernel_gaps(cfg, params, batch, logits, xla_logits) -> dict:
+    """max|d| / max|logit| of the pallas forward's ``logits`` against the
+    same forward through the plain flash version (f32 scores, P unrounded),
+    and of three controls against that reference: the xla path (scores
+    rounded to bf16), and the kernel with P V of 64 keys dropped in every
+    layer, the last 64 of head 0 ('last tile') or keys 2048-2111 of every
+    head ('mid tile')."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import Model
+    kernel = flash_ops.flash_attention_bhsd
+
+    def dropping(heads, keys):
+        def fn(q, k, v, **kw):
+            v = v.clone()
+            v[heads, keys] = 0
+            return kernel(q, k, v, **kw)
+        return fn
+
+    pallas = make_prefill_step(Model(cfg.with_updates(
+        attention_impl="pallas")))
+    runs = {}
+    for name, fn in (("plain", attention_ref),
+                     ("last tile", dropping(0, slice(-64, None))),
+                     ("mid tile", dropping(slice(None), slice(2048, 2112)))):
+        flash_ops.flash_attention_bhsd = fn
+        try:
+            runs[name] = pallas(params, batch).float()
+        finally:
+            flash_ops.flash_attention_bhsd = kernel
+    ref = runs.pop("plain")
+    scale = ref.abs().max().item()
+    runs = {"kernel": logits, "xla": xla_logits, **runs}
+    return {name: (x.float() - ref).abs().max().item() / scale
+            for name, x in runs.items()}
+
+
+def check_prefill(card, label, cfg, params, tokens, n_attn, tol=MODEL_TOL,
+                  controls=False):
     """Pallas vs xla prefill of one model on ``tokens`` (B, S+1): the flash
-    launches of one forward, the logits' agreement, the CE; returns the
-    flash launches."""
+    launches of one forward, the logits' agreement (max|d| / max|logit| <
+    ``tol``), the CE; with ``controls``, also the kernel's gap to the plain
+    flash version below ``tol`` and the every-head tile fault's above it
+    (``kernel_gaps``); returns the flash launches."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.steps import make_prefill_step
@@ -1508,10 +1645,21 @@ def check_prefill(card, label, cfg, params, tokens, n_attn):
     ref = xla(params, batch)
     torch.cuda.synchronize()
     xla_ms = (time.perf_counter() - t0) * 1e3
-    scale = ref.abs().max().item()
-    rel = (logits - ref).abs().max().item() / scale
-    require(rel < MODEL_TOL, f"{label}: pallas vs xla logits "
-                             f"max|d|/max|logit| = {rel:.3e}")
+    scale = ref.float().abs().max().item()
+    rel = (logits.float() - ref.float()).abs().max().item() / scale
+    require(rel < tol, f"{label}: pallas vs xla logits "
+                       f"max|d|/max|logit| = {rel:.3e}")
+    gaps = ""
+    if controls:
+        g = kernel_gaps(cfg, params, batch, logits, ref)
+        require(g["kernel"] < tol < g["mid tile"],
+                f"{label}: against the plain flash version, the kernel's "
+                f"logits read {g['kernel']:.3e} and a dropped tile of every "
+                f"head {g['mid tile']:.3e}, the limit {tol:g}")
+        gaps = ("; against the same forward through the plain flash "
+                "version, max|d|/max|logit| " + ", ".join(
+                    f"{name} {x:.3e}" for name, x in g.items())
+                + f" (the kernel's < {tol:g} < the mid tile's)")
     v = cfg.padded_vocab
     ce = F.cross_entropy(logits.reshape(-1, v).float(),
                          labels.reshape(-1)).item()
@@ -1520,7 +1668,7 @@ def check_prefill(card, label, cfg, params, tokens, n_attn):
     print(f"[{card}] prefill {label} (B={b}, S={s}): flash launches "
           f"{launches['flash_attention_bhsd']} == {n_attn} attention layers,"
           f" other kernels 0; logits vs the xla path max|d|/max|logit| "
-          f"{rel:.3e} (< {MODEL_TOL:g}); CE {ce:.4f}; forward "
+          f"{rel:.3e} (< {tol:g}){gaps}; CE {ce:.4f}; forward "
           f"{fwd_ms:.2f} ms (CUDA events), flash kernel {sum(flash):.2f} ms"
           f" over {len(flash)} launches ({sum(flash) / fwd_ms:.1%} of the "
           f"forward); the xla forward {xla_ms:.2f} ms (host clock)")
@@ -1554,6 +1702,20 @@ def phase_prefill(card, nano, consensus, stream):
                               qwen.num_layers)
     print(f"[{card}] Qwen3-0.6B: {n_params} parameters (random, seed 0), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # bf16 weights and compute: the port, like torch, does not promote a
+    # bf16 activation against f32 weights, so both are bf16 (the same draws
+    # as above, rounded)
+    del params
+    torch.cuda.empty_cache()
+    qwen16 = qwen.with_updates(param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+    params = Model(qwen16).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    launches += check_prefill(card, "Qwen3-0.6B bf16", qwen16, params,
+                              tokens, qwen.num_layers, tol=MODEL_BF16_TOL,
+                              controls=True)
+    print(f"[{card}] Qwen3-0.6B bf16: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
 
 

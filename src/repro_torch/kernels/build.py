@@ -40,15 +40,17 @@ KERNELS = tuple(PACKAGES)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def toolkit_tool(name: str = "nvcc") -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on the
+    PATH, else in the toolkit that PyTorch finds."""
+    found = shutil.which(name)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels can only be built "
-                       "where the CUDA toolkit is installed")
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / name).exists():
+        return str(Path(CUDA_HOME) / "bin" / name)
+    raise RuntimeError(f"{name} not found: the CUDA kernels can only be "
+                       f"built where the CUDA toolkit is installed")
 
 
 def source(name: str) -> Path:
@@ -69,7 +71,7 @@ def build_all(names=KERNELS) -> dict[str, tuple[Path, str]]:
     ``{name: (library path, the compiler's -Xptxas -v report)}``."""
     missing = [name for name in names if not lib_path(name).exists()]
     if missing:
-        nvcc = _nvcc()
+        nvcc = toolkit_tool()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in missing:

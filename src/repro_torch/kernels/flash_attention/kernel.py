@@ -28,10 +28,11 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (BH, S, hd), k/v: (BH, T, hd), contiguous CUDA tensors of one dtype
     (float32 or bfloat16), hd 64 or 128, BH <= 65535 (heads arrive
-    pre-broadcast for GQA).  Returns a fresh (BH, S, hd) tensor in q's
-    dtype.  A row with no live column is 0.  The launch is queued on the
-    current stream and not waited for; each launch adds one to
-    ``flash_attention_bhsd.launches``.
+    pre-broadcast for GQA), each starting 16-byte aligned.  bfloat16 runs
+    on wgmma, float32 as 3xTF32 on wgmma and mma.sync (``csrc/``).
+    Returns a fresh (BH, S, hd) tensor in q's dtype.  A row with no live
+    column is 0.  The launch is queued on the current stream and not
+    waited for; each launch adds one to ``flash_attention_bhsd.launches``.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -60,6 +61,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{q.dtype} on {q.device}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start 16-byte aligned (the kernel "
+                         "copies 16 bytes at a time)")
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -14,7 +14,16 @@ kernel-vs-oracle tolerance (``tests/test_kernels.py``); oracle vs oracle
 rtol 1e-5 (the same f32 einsums and softmax, summed in another order);
 models max|dlogits| / max|logits| < 2e-4 (``tests/test_flash_in_model.py``);
 bf16 atol 3e-2 against the f32-computed oracle, as the JAX package holds it.
+
+The card kernel's arithmetic is emulated here on the CPU and held against
+the JAX oracle at the same tolerances: at f32, 3xTF32 (each operand split
+into hi = tf32(x) and lo = tf32(x - hi), a.b taken as lo.hi + hi.lo +
+hi.hi in 8-deep steps with f32 accumulation); at bf16, P rounded to bf16
+before P V.  Both run the kernel's online softmax over 64-column tiles in
+log2 units (the scale times log2 e, one f32 constant, then 2^x).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -140,15 +149,151 @@ def test_kernel_refuses_gradients_and_cpu_tensors():
     assert qg.grad is not None
 
 
-@pytest.mark.gpu
+# ------------------------------------------- the card kernel's arithmetic
+KBK = 64  # the kernel's k tile
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32: round the f32 pattern to 10 mantissa bits, ties
+    away from zero (add half an ulp of tf32 to the magnitude, truncate)."""
+    bits = x.contiguous().view(torch.int32)
+    sign = bits & -(2 ** 31)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (mag | sign).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _mm_3xtf32(a, b):
+    """a (..., M, K) @ b (..., K, N) as the kernel's tensor-core steps take
+    it: per 8-deep block lo.hi, then hi.lo, then hi.hi, accumulated in
+    f32."""
+    (ahi, alo), (bhi, blo) = _split(a), _split(b)
+    d = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for c in range(0, a.shape[-1], 8):
+        blk = slice(c, c + 8)
+        for x, y in ((alo, bhi), (ahi, blo), (ahi, bhi)):
+            d = d + x[..., blk] @ y[..., blk, :]
+    return d
+
+
+def _emulate(q, k, v, *, causal, window, mode):
+    """The kernel's online softmax over KBK-column tiles, in f32; ``mode``
+    '3xtf32' (f32 inputs) or 'bf16' (P rounded to bf16 before P V).  Rows
+    with no live column come out 0."""
+    s_len, t_len, hd = q.shape[1], k.shape[1], q.shape[2]
+    scale2 = (torch.tensor(hd ** -0.5, dtype=torch.float32)
+              * torch.tensor(math.log2(math.e), dtype=torch.float32))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    mask = attention_mask(s_len, t_len, causal=causal, window=window)
+    m = torch.full(q.shape[:2] + (1,), -1e30)
+    l = torch.zeros(q.shape[:2] + (1,))
+    acc = torch.zeros(q.shape[:2] + (hd,))
+    for k0 in range(0, t_len, KBK):
+        cols = slice(k0, k0 + KBK)
+        kt = kf[:, cols].transpose(1, 2)
+        s = _mm_3xtf32(qf, kt) if mode == "3xtf32" else qf @ kt
+        s = torch.where(mask[:, cols], s * scale2, -1e30)
+        m_cur = torch.maximum(m, s.amax(-1, keepdim=True))
+        # a row not yet alive subtracts 0: its p and corr come out 0
+        mu = torch.where(m_cur > -5e29, m_cur, 0.0)
+        p = torch.exp2(s - mu)
+        corr = torch.exp2(m - mu)
+        l = l * corr + p.sum(-1, keepdim=True)
+        if mode == "3xtf32":
+            pv = _mm_3xtf32(p, vf[:, cols])
+        else:
+            pv = p.to(torch.bfloat16).float() @ vf[:, cols]
+        acc = acc * corr + pv
+        m = m_cur
+    return (acc / torch.where(l > 0, l, 1.0)).to(q.dtype)
+
+
+def _within_bf16_bound(out, ref, mass):
+    """|out - ref| <= 2^-7 |ref| + 2^-8 mass, mass = sum_c p_c |v_c|: the
+    first-order bound of bf16's three roundings between the kernel and the
+    oracle (P before P V, both outputs), each at most 2^-8 relative."""
+    out, ref, mass = out.float(), ref.float(), mass.float()
+    return bool(((out - ref).abs()
+                 <= 2.0 ** -7 * ref.abs() + 2.0 ** -8 * mass).all())
+
+
+def test_tf32_rounding_is_cvt_rna():
+    x = torch.tensor([1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -11 - 2 ** -20, 3.0],
+                     dtype=torch.float32)
+    want = [1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10), 1.0, 3.0]
+    assert _tf32_rna(x).tolist() == want
+    hi, lo = _split(torch.tensor([1.0 + 2 ** -15], dtype=torch.float32))
+    assert hi.item() == 1.0 and lo.item() == 2 ** -15
+
+
 @pytest.mark.parametrize("s,t,hd,causal,window", SHAPES + [DEAD_ROWS])
+def test_3xtf32_emulation_meets_the_f32_gate(s, t, hd, causal, window):
+    q, k, v = _qkv(2, s, t, hd, seed=s + t + 1)
+    kw = dict(causal=causal, window=window)
+    out = _emulate(*map(torch.from_numpy, (q, k, v)), mode="3xtf32",
+                   **kw).numpy()
+    want = np.asarray(j_ref(*map(jnp.asarray, (q, k, v)), **kw))
+    live = _live(s, t, causal, window)
+    np.testing.assert_allclose(out[:, live], want[:, live], **TOL)
+    assert np.all(out[:, ~live] == 0)
+    # plain TF32 (hi.hi alone) would not: the split is what meets the gate
+    tq, tk = (_tf32_rna(torch.from_numpy(a)) for a in (q, k))
+    one = torch.einsum("bsh,bth->bst", tq, tk)
+    full = torch.einsum("bsh,bth->bst", *map(torch.from_numpy, (q, k)))
+    assert (one - full).abs().max().item() > TOL["atol"] * 10
+
+
+@pytest.mark.parametrize("s,t,hd,causal,window", SHAPES + [DEAD_ROWS])
+def test_bf16_emulation_meets_the_bf16_gate(s, t, hd, causal, window):
+    q, k, v = _qkv(2, s, t, hd, seed=s + t + 2)
+    kw = dict(causal=causal, window=window)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = _emulate(tq, tk, tv, mode="bf16", **kw)
+    assert out.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(j_ref(jq, jk, jv, **kw), np.float32)
+    live = _live(s, t, causal, window)
+    np.testing.assert_allclose(out.float().numpy()[:, live], want[:, live],
+                               atol=3e-2, rtol=0)
+    mass = np.asarray(j_ref(*(x.astype(jnp.float32)
+                              for x in (jq, jk, jnp.abs(jv))), **kw))
+    assert _within_bf16_bound(out[:, live], torch.from_numpy(want[:, live]),
+                              torch.from_numpy(mass[:, live]))
+    assert np.all(out.float().numpy()[:, ~live] == 0)
+
+
+# shapes that cross the kernel's q tile (128 or 192 rows), k tile (32 or
+# 64 columns) and ring edges: (BH, S, T, hd, causal, window)
+EDGE_SHAPES = [
+    (3, 1, 1, 64, True, None),
+    (3, 65, 65, 128, True, None),
+    (3, 1000, 1000, 64, True, None),
+    (3, 1000, 1000, 128, True, None),
+    (3, 65, 1000, 128, False, None),     # T > S
+    (3, 1000, 65, 64, False, None),      # T < S
+    (3, 1000, 65, 128, True, None),      # T < S, causal
+    (3, 1000, 1000, 64, True, 16),       # window shorter than a tile
+    (3, 1000, 65, 128, False, 16),       # rows 80.. see no column
+    (96, 1024, 1024, 64, True, None),    # BH 96
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,s,t,hd,causal,window",
+                         [(3, *c) for c in SHAPES + [DEAD_ROWS]]
+                         + EDGE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain(s, t, hd, causal, window, dtype):
+def test_cuda_kernel_matches_plain(bh, s, t, hd, causal, window, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = (torch.from_numpy(a).cuda().to(dtype)
-               for a in _qkv(3, s, t, hd, seed=7))
+               for a in _qkv(bh, s, t, hd, seed=7))
     kw = dict(causal=causal, window=window)
     before = t_kernel.flash_attention_bhsd.launches
     out = t_kernel.flash_attention_bhsd(q, k, v, **kw)
@@ -160,4 +305,7 @@ def test_cuda_kernel_matches_plain(s, t, hd, causal, window, dtype):
     tol = TOL if dtype == torch.float32 else dict(atol=3e-2, rtol=0.0)
     torch.testing.assert_close(out[:, live].float(), ref[:, live].float(),
                                **tol)
+    if dtype == torch.bfloat16:
+        mass = attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+        assert _within_bf16_bound(out[:, live], ref[:, live], mass[:, live])
     assert torch.all(out[:, ~live] == 0)
