@@ -8,12 +8,14 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
   1. device and build: the card, the TF32 settings (both set off: f32
      means f32 here), all eight hand kernels built from ``src/`` in parallel
      (``kernels/build.py``) with nvcc's register and spill report;
-  2. the clean kernel ``mixing_gossip_stacked`` against its plain PyTorch
-     version on the same inputs, at the slice's real shape (16 workers x
-     ResNet-18-CIFAR's padded width, f32) and at a small bf16 shape, with
-     the exact identities (an idle row with eta = 0 is untouched, padding
-     columns stay 0), and its time beside its memory bound and the plain
-     version's time;
+  2. the clean kernel ``mixing_gossip_stacked`` bit for bit its plain
+     PyTorch version on the same inputs, at the slice's real shape (16
+     workers x ResNet-18-CIFAR's padded width, f32), at a small bf16 shape
+     and on eight small partner maps at D = 128 and 4224, f32 and bf16 (W
+     = 1, 2, 15; no idle row, all idle; the pair (0, W - 1); a map that is
+     not an involution), with the exact identities (an idle row with eta =
+     0 is untouched, padding columns stay 0), and its time beside the
+     earlier design's, its memory bound and the plain version's time;
   3. the clean slice: ResNet-18-CIFAR at full width, 16 workers on a ring,
      a SyntheticCIFAR batch of 32 per worker, the baseline and the A2CiD2
      arm for 4 rounds each at one comm per gradient, through
@@ -84,9 +86,13 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      CUDA-core f32 bound of earlier records, the plain version's time and
      ``scaled_dot_product_attention``'s;
  12. the RMSNorm kernel ``rmsnorm_2d`` against its plain version at
-     (8192, 768) and (8192, 1024) f32 and bf16, (130, 768) and (1, 256)
-     (atol 1e-5 at f32, 2e-2 at bf16), with its time beside its bound,
-     the plain version's and ``torch.nn.functional.rms_norm``'s.  No model
+     (8192, 768), (8192, 1024), (64, 8192) and (16, 16384) f32 and bf16,
+     (130, 768), (1, 256), (1, 7), (3, 1000), (3, 250), (4, 1001) and
+     (2, 8193), and on views that start off a 16-byte boundary (atol 1e-5
+     at f32, 2e-2 at bf16; out aligned as x), with the four large shapes
+     timed eagerly and in a CUDA graph beside its bound, the plain
+     version's time and ``torch.nn.functional.rms_norm``'s, timed the same
+     two ways, and ``x.clone()`` (the same bytes) in a graph.  No model
      calls it (nor does the JAX package's): it launches on no main path;
  13. (A) the nano-lm gossip replay at full width (12 layers, d_model 768,
      128,404,224 parameters), ``launch.train.run_sim`` with the CLI's
@@ -168,6 +174,13 @@ CHANNEL_ROUNDS, CHANNEL_SEED = 6, 1
 # 1e3 at a 50% duty cycle, stale prob 1, trim at tau 5
 ROBUST_CLIP = 5.0
 F32_TOL = 1e-5      # kernel vs plain, f32: same correctly rounded ops, exp
+# mixing_gossip_stacked vs plain at both dtypes: the same operations in the
+# same order (expf on both sides), so bit for bit
+EXACT = 0.0
+# the earlier gossip kernels' times, as PERF.md section 6 records them
+# (NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+EARLIER_STACKED_MS, EARLIER_WORLDS_MS = 1.1627, 4.6092
+EARLIER_LM_COMM_MS = 7.13
 # bf16: the kernels round every intermediate and every scalar where the
 # plain versions do, so they agree exactly
 BF16_TOL = 0.0
@@ -391,6 +404,57 @@ def check_kernel(card, kernel, ref, dyn, w, d, d_real, dtype, tol, gen):
     return err, (x, xt, partner, dt)
 
 
+def partner_maps() -> list:
+    """(label, partner) maps of phase 1's small checks: the sizes and
+    shapes of matching that the kernel's pair path must get right, and one
+    map outside the contract (row 2 points at a paired row, rows 4-6 a
+    3-cycle) that takes its row-by-row path."""
+    def ends(w):
+        p = np.arange(w, dtype=np.int32)
+        p[0], p[-1] = w - 1, 0
+        return p
+    return [("W=1", np.zeros(1, np.int32)),
+            ("W=2, one pair", np.array([1, 0], np.int32)),
+            ("W=15, 1 idle", involution(15, idle=1, seed=15)),
+            ("W=16, 0 idle", involution(16, idle=0, seed=16)),
+            ("W=16, all idle", np.arange(16, dtype=np.int32)),
+            ("W=16, the pair (0, 15)", ends(16)),
+            ("W=15, the pair (0, 14)", ends(15)),
+            ("W=8, not an involution",
+             np.array([1, 0, 0, 3, 5, 6, 4, 7], np.int32))]
+
+
+def check_partner_maps(card, kernel, plain, dyn, gen) -> None:
+    """The kernel bit for bit its plain version on every map of
+    ``partner_maps`` at D = 128 (one vector a thread at most) and 4224 (33
+    vectors of 128 f32 values, so a pair's halves are uneven), f32 and
+    bf16."""
+    dev = torch.device("cuda")
+    n = 0
+    for label, partner_np in partner_maps():
+        w = len(partner_np)
+        partner = torch.from_numpy(partner_np).to(dev)
+        for d in (128, 4224):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(w, d, generator=gen, device=dev).to(dtype)
+                xt = torch.randn(w, d, generator=gen, device=dev).to(dtype)
+                dt = torch.rand(w, generator=gen, device=dev) * 1.5
+                rx, rxt = plain(x, xt, partner, dt, **dyn)
+                xt_in = xt.clone()
+                kx, kxt = kernel(x, xt_in, partner, dt, **dyn)
+                torch.cuda.synchronize()
+                require(kxt.data_ptr() == xt_in.data_ptr(),
+                        "x~ was not updated in place")
+                require(torch.equal(kx, rx) and torch.equal(kxt, rxt),
+                        f"kernel differs from plain on {label}, D = {d}, "
+                        f"{dtype}")
+                n += 1
+    print(f"[{card}] kernel bit for bit the plain version on "
+          f"{len(partner_maps())} partner maps x D in (128, 4224) x "
+          f"(f32, bf16) = {n} cases: W = 1, 2, 15; 0 and all idle; the "
+          f"pair (0, W-1); a map that is not an involution")
+
+
 def phase_kernel(card, d, d_real, dyn):
     from repro_torch.kernels.a2cid2_mixing.kernel import mixing_gossip_stacked
     from repro_torch.kernels.a2cid2_mixing.ops import gossip_event_stacked
@@ -400,10 +464,11 @@ def phase_kernel(card, d, d_real, dyn):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     check_kernel(card, mixing_gossip_stacked, plain, dyn, N_WORKERS, 4096,
-                 4096 - 54, torch.bfloat16, BF16_TOL, gen)
+                 4096 - 54, torch.bfloat16, EXACT, gen)
+    check_partner_maps(card, mixing_gossip_stacked, plain, dyn, gen)
     err, (x, xt, partner, dt) = check_kernel(
         card, mixing_gossip_stacked, plain, dyn,
-        N_WORKERS, d, d_real, torch.float32, F32_TOL, gen)
+        N_WORKERS, d, d_real, torch.float32, EXACT, gen)
     w = N_WORKERS
     xt_run = xt.clone()
     ms = cuda_ms(lambda: mixing_gossip_stacked(x, xt_run, partner, dt,
@@ -413,12 +478,14 @@ def phase_kernel(card, d, d_real, dyn):
     # each input read once (x, x~, partner, dt), each output written once
     nbytes = 4 * w * d * x.element_size() + 2 * w * 4
     b = bound(nbytes, FLOPS_PER_ELEM * w * d)
-    print(f"[{card}] kernel ({w}, {d}) f32: {ms:.4f} ms over 20 launches, "
-          f"bound {b['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} GB at "
+    print(f"[{card}] kernel ({w}, {d}) f32: {ms:.4f} ms over 20 launches "
+          f"(earlier design {EARLIER_STACKED_MS:.4f} ms), bound "
+          f"{b['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} GB at "
           f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; ops bound "
-          f"{b['ops_ms']:.4f} ms), {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s "
-          f"achieved, plain version {plain_ms:.4f} ms; no single PyTorch "
-          f"call computes this function (library_ms null)")
+          f"{b['ops_ms']:.4f} ms), {b['bound_ms'] / ms:.1%} of the bound, "
+          f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved, plain version "
+          f"{plain_ms:.4f} ms; no single PyTorch call computes this "
+          f"function (library_ms null)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": None}
@@ -961,8 +1028,11 @@ def phase_worlds_kernels(card, d, d_real, dyn):
         ms = cuda_ms(kern, reps=20)
         plain_ms = cuda_ms(plain, reps=5, warmup=1)
         b = bound(nbytes, fpe * bw * d)
+        earlier = (f" (earlier: {EARLIER_WORLDS_MS:.4f} ms)"
+                   if name == "mixing_gossip_worlds" else "")
         print(f"[{card}] {name} ({N_WORLDS}, {N_WORKERS}, {d}) f32: "
-              f"{ms:.4f} ms over 20 launches, bound {b['bound_ms']:.4f} ms "
+              f"{ms:.4f} ms over 20 launches{earlier}, bound "
+              f"{b['bound_ms']:.4f} ms "
               f"({nbytes / 1e9:.3f} GB at {PEAK_BYTES_PER_S / 1e12:.2f} "
               f"TB/s; ops bound {b['ops_ms']:.4f} ms), "
               f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved, plain "
@@ -1393,48 +1463,88 @@ def phase_flash_kernel(card):
 
 
 # --------------------------------------------------------- rmsnorm kernel
+def misaligned(t, d, dtype, offset, gen):
+    """A (t, d) view of a larger buffer that starts ``offset`` elements
+    past a 16-byte boundary, as ``ops.rmsnorm`` hands the kernel a
+    flattened view."""
+    buf = torch.randn(t * d + offset, generator=gen, device="cuda").to(dtype)
+    x = buf[offset:].view(t, d)
+    require(x.data_ptr() % 16 != 0, "the view is 16-byte aligned")
+    return x
+
+
 def phase_rmsnorm_kernel(card):
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_2d
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (t, d, dtype, elements off a 16-byte boundary, timed): the size
+    # classes (warp, block, long) with vectors; D not a multiple of the
+    # vector width (7, 250 at bf16, 1001, 8193), element by element in each
+    # class; views off a boundary (a head and a tail slot with vectors)
+    cases = [(t, d, dt, 0, True) for t, d in ((8192, 768), (8192, 1024),
+                                              (64, 8192), (16, 16384))
+             for dt in (f32, bf16)]
+    cases += [(t, d, dt, 0, False) for t, d in ((130, 768), (1, 256),
+                                               (1, 7), (3, 1000))
+              for dt in (f32, bf16)]
+    cases += [(8192, 768, bf16, 3, True), (130, 768, f32, 1, False),
+              (3, 1000, bf16, 5, False), (64, 8192, f32, 2, False),
+              (16, 16384, bf16, 7, False), (5, 7, f32, 1, False),
+              (3, 250, bf16, 0, False), (4, 1001, f32, 0, False),
+              (4, 1001, bf16, 1, False), (2, 8193, bf16, 0, False),
+              (2, 8193, f32, 3, False)]
     rows = {}
-    for t, d, dtype in ((8192, 768, torch.float32),
-                        (8192, 768, torch.bfloat16),
-                        (8192, 1024, torch.float32),
-                        (8192, 1024, torch.bfloat16),
-                        (130, 768, torch.float32), (1, 256, torch.float32)):
-        x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+    for t, d, dtype, offset, timed in cases:
+        x = misaligned(t, d, dtype, offset, gen) if offset else \
+            torch.randn(t, d, generator=gen, device=dev).to(dtype)
         sc = (0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
         out, ref = rmsnorm_2d(x, sc), rmsnorm_ref(x, sc)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        tol = RMSNORM_F32_ATOL if dtype == torch.float32 \
-            else RMSNORM_BF16_ATOL
-        require(err <= tol, f"rmsnorm_2d disagrees with plain at ({t}, {d})"
-                            f" {dtype}: {err}")
-        ms = cuda_ms(lambda: rmsnorm_2d(x, sc), reps=20)
+        tol = RMSNORM_F32_ATOL if dtype == f32 else RMSNORM_BF16_ATOL
+        label = (f"({t}, {d}) {str(dtype)[6:]}"
+                 + (f", {offset} elements off 16 B" if offset else ""))
+        require(err <= tol, f"rmsnorm_2d disagrees with plain at {label}: "
+                            f"{err}")
+        require(out.data_ptr() % 16 == x.data_ptr() % 16,
+                f"rmsnorm_2d's out is not aligned as x at {label}")
+        if not timed:
+            print(f"[{card}] rmsnorm_2d {label}: max abs err {err:.3e} "
+                  f"(atol {tol:g})")
+            continue
+        # eagerly 200 launches: the host sets the pace here, and its time
+        # varies more than the card's
+        ms = cuda_ms(lambda: rmsnorm_2d(x, sc), reps=200)
+        g_ms, _ = graph_ms(lambda: rmsnorm_2d(x, sc), calls=20)
         plain_ms = cuda_ms(lambda: rmsnorm_ref(x, sc), reps=20)
         weight = 1 + sc
-        lib_ms = cuda_ms(lambda: F.rms_norm(x, (d,), weight, 1e-6), reps=20)
+        lib_ms = cuda_ms(lambda: F.rms_norm(x, (d,), weight, 1e-6),
+                         reps=200)
+        lib_g_ms, _ = graph_ms(lambda: F.rms_norm(x, (d,), weight, 1e-6),
+                               calls=20)
+        # the same bytes moved by PyTorch's copy into a fresh tensor, timed
+        # the same way: what a read-once write-once pass reaches here
+        copy_g_ms, _ = graph_ms(lambda: x.clone(), calls=20)
         nbytes = (2 * t * d + d) * x.element_size()
         b = bound(nbytes, 4 * t * d,
-                  PEAK_F32_FLOPS if dtype == torch.float32
-                  else PEAK_BF16_FLOPS)
-        print(f"[{card}] rmsnorm_2d ({t}, {d}) {str(dtype)[6:]}: max abs err "
-              f"{err:.3e} (atol {tol:g}); {ms:.4f} ms (mean of 20), bound "
+                  PEAK_F32_FLOPS if dtype == f32 else PEAK_BF16_FLOPS)
+        print(f"[{card}] rmsnorm_2d {label}: max abs err {err:.3e} (atol "
+              f"{tol:g}); eager {ms:.4f} ms (mean of 200), CUDA graph "
+              f"{g_ms:.4f} ms (mean of 20 x 10), bound "
               f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
               f"({nbytes / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} "
-              f"TB/s), {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved "
-              f"({b['bound_ms'] / ms:.1%} of the bound); plain "
-              f"{plain_ms:.4f} ms; F.rms_norm {lib_ms:.4f} ms")
-        rows[(t, d, dtype)] = {"max_abs_err": err, "ms": ms,
-                               "plain_ms": plain_ms,
-                               "bound_ms": b["bound_ms"],
-                               "bound_by": b["bound_by"],
-                               "library_ms": lib_ms}
-    return rows[(8192, 768, torch.float32)]
+              f"TB/s; {b['bound_ms'] / ms:.1%} eager, "
+              f"{b['bound_ms'] / g_ms:.1%} graph); F.rms_norm eager "
+              f"{lib_ms:.4f} ms, graph {lib_g_ms:.4f} ms; x.clone() graph "
+              f"{copy_g_ms:.4f} ms; plain {plain_ms:.4f} ms")
+        rows[(t, d, dtype, offset)] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": lib_ms}
+    return rows[(8192, 768, f32, 0)]
 
 
 # ------------------------------------------------ (A) the LM gossip replay
@@ -1514,7 +1624,8 @@ def phase_lm_replay(card):
               f"tokens) {np.mean(grad):.2f} ms x {LM_ROUNDS} "
               f"{[round(t, 2) for t in grad]} ({sum(grad) / wall:.1%}), "
               f"comm batch {np.mean(comm):.4f} ms x {comm_steps} "
-              f"{[round(t, 4) for t in comm]}, rest per round (pack, "
+              f"{[round(t, 4) for t in comm]} (earlier: "
+              f"{EARLIER_LM_COMM_MS:.2f} ms), rest per round (pack, "
               f"update, metrics, mix, host) {rest:.2f} ms; peak memory "
               f"{peaks[arm] / 2**30:.2f} GiB")
     print(f"[{card}] LM replay: nano-lm full, {n_params} parameters, "

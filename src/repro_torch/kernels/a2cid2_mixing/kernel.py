@@ -106,9 +106,11 @@ def mixing_gossip_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
     """One coalesced gossip batch on the card: p2p then mix.
 
     x, x_tilde: (W, D) float32 or bfloat16, contiguous, D % 128 == 0;
-    partner: (W,) int32 involution on the same device (partner[w] == w for
-    idle workers; its values are trusted, not checked, since checking them
-    would synchronise with the card); dt_next: (W,) float32.  alpha and
+    partner: (W,) int32 on the same device, an involution by contract
+    (partner[w] == w for idle workers; the kernel reads a pair's rows once
+    for both, and takes any other map row by row, re-reading the partner's
+    row; its values are trusted, not checked, since checking them would
+    synchronise with the card); dt_next: (W,) float32.  alpha and
     alpha_t are rounded here to the buffer dtype, as JAX binds a weak
     scalar.
 

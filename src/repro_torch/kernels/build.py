@@ -6,7 +6,9 @@ point, ``<name>_launch``.  At first use it is compiled with ``nvcc`` for
 keyed by a hash of the source, the headers of its package (``csrc/*.cuh``)
 and the flags, and loaded with ``ctypes``.  ``build_all`` starts one
 ``nvcc`` per missing library, all at once.  Nothing is built or loaded when
-this module is imported, so the CPU tests import it freely.
+this module is imported, so the CPU tests import it freely.  ``root``
+names another tree of the same packages (an edited copy, or an earlier
+version, to time against): its libraries take their own keys.
 """
 from __future__ import annotations
 
@@ -53,32 +55,33 @@ def toolkit_tool(name: str = "nvcc") -> str:
                        f"built where the CUDA toolkit is installed")
 
 
-def source(name: str) -> Path:
-    return _KERNELS_DIR / PACKAGES[name] / "csrc" / f"{name}.cu"
+def source(name: str, root: Path = _KERNELS_DIR) -> Path:
+    return root / PACKAGES[name] / "csrc" / f"{name}.cu"
 
 
-def lib_path(name: str) -> Path:
-    src = source(name)
+def lib_path(name: str, root: Path = _KERNELS_DIR) -> Path:
+    src = source(name, root)
     parts = [src, *sorted(src.parent.glob("*.cuh"))]
     key = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
-def build_all(names=KERNELS) -> dict[str, tuple[Path, str]]:
+def build_all(names=KERNELS, root: Path = _KERNELS_DIR
+              ) -> dict[str, tuple[Path, str]]:
     """Compile every named kernel library that this source and these flags
     have not built yet, one ``nvcc`` each, all started together.  Returns
     ``{name: (library path, the compiler's -Xptxas -v report)}``."""
-    missing = [name for name in names if not lib_path(name).exists()]
+    missing = [name for name in names if not lib_path(name, root).exists()]
     if missing:
         nvcc = toolkit_tool()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in missing:
-        lib = lib_path(name)
+        lib = lib_path(name, root)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
         jobs[name] = (lib, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name, root))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (lib, tmp, proc) in jobs.items():
@@ -93,7 +96,7 @@ def build_all(names=KERNELS) -> dict[str, tuple[Path, str]]:
         raise RuntimeError("\n".join(failed))
     out = {}
     for name in names:
-        lib = lib_path(name)
+        lib = lib_path(name, root)
         log = lib.with_suffix(".log")
         out[name] = (lib, log.read_text() if log.exists() else "")
     return out
@@ -105,6 +108,12 @@ def entry(name: str, argtypes: tuple):
     argument types set (a pointer is ``c_void_p``: an untyped int would be
     cut to 32 bits) and an ``int`` result, the launch's CUDA error code."""
     path, _ = build_all((name,))[name]
+    return bind(path, name, argtypes)
+
+
+def bind(path: Path, name: str, argtypes: tuple):
+    """``<name>_launch`` of the library at ``path``, typed as ``entry``
+    types it."""
     fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int

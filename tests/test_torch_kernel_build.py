@@ -1,11 +1,15 @@
 """The shared kernel build (``kernels/build.py``): every kernel of the port
 has its source where the build looks for it, each library is keyed by a
 hash of its source, its package's headers and the flags, and nothing is
-built where there is no ``nvcc``.  Building and binding on the card is
+built where there is no ``nvcc``; another tree of the packages (the
+variant sweep's edited copies) takes keys of its own.  Building and
+binding on the card is
 ``chip_smoke.py``'s first phase and the gpu-marked test below."""
 import ctypes
 import hashlib
+import importlib.util
 import shutil
+from pathlib import Path
 
 import pytest
 import torch
@@ -51,6 +55,38 @@ def test_no_nvcc_means_no_build(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build_all(("rmsnorm_2d",))
     assert not (build.BUILD_DIR).exists()
+
+
+def test_another_root_takes_its_own_key(tmp_path):
+    src = build.source("rmsnorm_2d")
+    copy = tmp_path / "rmsnorm" / "csrc"
+    shutil.copytree(src.parent, copy)
+    assert build.source("rmsnorm_2d", tmp_path) == copy / src.name
+    assert build.lib_path("rmsnorm_2d", tmp_path) == \
+        build.lib_path("rmsnorm_2d")
+    (copy / src.name).write_text(src.read_text() + "// edited\n")
+    assert build.lib_path("rmsnorm_2d", tmp_path) != \
+        build.lib_path("rmsnorm_2d")
+
+
+@pytest.mark.parametrize("name", ["mixing_gossip_stacked", "rmsnorm_2d"])
+def test_sweep_variants_edit_the_sources(monkeypatch, tmp_path, name):
+    """Every edit of ``tools/kernel_sweep.py`` still finds its text once in
+    the kernel's source, so each variant builds from its own key."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_sweep", Path(__file__).parents[1] / "tools" /
+        "kernel_sweep.py")
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    roots = sweep.variant_roots(name, None)
+    assert list(roots) == ["as is", *sweep.VARIANTS[name]]
+    assert roots["as is"] == build.source(name).parents[2]
+    for label, edits in sweep.VARIANTS[name].items():
+        text = build.source(name, roots[label]).read_text()
+        assert all(new in text for _, new in edits if new)
+    assert len({build.lib_path(name, r) for r in roots.values()}) == \
+        len(roots)
 
 
 @pytest.mark.gpu

@@ -7,7 +7,9 @@ Tolerance, f32: rtol 1e-6 (plus atol 1e-6 for values near 0) — ``exp``
 may differ by an ulp between XLA and PyTorch, everything else is the same
 sequence of correctly rounded f32 operations.  bf16: bit for bit against
 the JAX oracle, since alpha and alpha~ are rounded to bf16 before they
-multiply, as JAX binds a weak Python scalar.
+multiply, as JAX binds a weak Python scalar.  The hand kernel against the
+plain version on the card: bit for bit at both dtypes, on every partner
+map of ``chip_smoke.py``'s phase 1.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,38 @@ def _involution(w, rng, idle=2):
         i, j = perm[2 * k], perm[2 * k + 1]
         partner[i], partner[j] = j, i
     return partner
+
+
+def _ends(w):
+    p = np.arange(w, dtype=np.int32)
+    p[0], p[-1] = w - 1, 0
+    return p
+
+
+# the partner maps of chip_smoke.py's phase 1: matchings of several sizes
+# and shapes (the kernel's pair path), and one map that is not an
+# involution (row 2 points at a paired row, rows 4-6 a 3-cycle), which the
+# kernel takes row by row
+PARTNER_MAPS = {
+    "w1": np.zeros(1, np.int32),
+    "w2_pair": np.array([1, 0], np.int32),
+    "w15_odd": _involution(15, np.random.default_rng(15), idle=1),
+    "w16_no_idle": _involution(16, np.random.default_rng(16), idle=0),
+    "w16_all_idle": np.arange(16, dtype=np.int32),
+    "w16_ends": _ends(16),
+    "w15_ends": _ends(15),
+    "w8_not_involution": np.array([1, 0, 0, 3, 5, 6, 4, 7], np.int32),
+}
+
+
+def _map_inputs(name, d, seed):
+    partner = PARTNER_MAPS[name]
+    w = len(partner)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(w, d)).astype(np.float32)
+    xt = rng.normal(size=(w, d)).astype(np.float32)
+    dt = rng.uniform(0.0, 1.5, size=w).astype(np.float32)
+    return x, xt, partner, dt
 
 
 def _inputs(w, d, seed=0, d_real=None):
@@ -89,6 +123,31 @@ def test_ref_bf16_matches_jax_bitwise(d, params):
                                           np.asarray(j, np.float32))
 
 
+@pytest.mark.parametrize("name", ["w15_odd", "w16_all_idle",
+                                  "w8_not_involution", "w2_pair",
+                                  "w16_ends"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_matches_jax_kernel_on_partner_maps(name, dtype):
+    """The card's oracle on the maps the kernel's three paths take: odd W,
+    all idle, a map outside the involution contract.  bf16 bit for bit;
+    f32 at the file's tolerance (``exp`` may differ by an ulp)."""
+    x, xt, partner, dt = _map_inputs(name, 384, seed=len(name))
+    tx, txt, tp, tdt = _torch(x, xt, partner, dt)
+    ox, oxt = mixing_gossip_stacked_ref(tx.to(getattr(torch, dtype)),
+                                        txt.to(getattr(torch, dtype)), tp,
+                                        tdt, **ACID)
+    jk = j_kernel(jnp.asarray(x, getattr(jnp, dtype)),
+                  jnp.asarray(xt, getattr(jnp, dtype)), jnp.asarray(partner),
+                  jnp.asarray(dt), interpret=True, **ACID)
+    for t, j in zip((ox, oxt), jk):
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(t.float().numpy(),
+                                          np.asarray(j, np.float32))
+        else:
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
+                                       atol=1e-6)
+
+
 def test_ref_identities_exact():
     x, xt, partner, dt = _inputs(8, 384, seed=1, d_real=300)
     tx, txt, tp, tdt = _torch(x, xt, partner, dt)
@@ -135,12 +194,20 @@ def test_dispatch_follows_the_tensor():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,d,tol", [(torch.float32, 16512, 1e-6),
-                                         (torch.bfloat16, 4096, 0.0)])
-def test_cuda_kernel_matches_ref(dtype, d, tol):
+@pytest.mark.parametrize("name", list(PARTNER_MAPS))
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16512),
+                                     (torch.bfloat16, 4096),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 128)])
+def test_cuda_kernel_matches_ref(name, dtype, d):
+    """Bit for bit at both dtypes: the kernel runs the plain version's
+    correctly rounded operations in its order, on every map."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the card)")
-    x, xt, partner, dt = _inputs(8, d, seed=5, d_real=d - 100)
+    x, xt, partner, dt = _map_inputs(name, d, seed=5)
+    d_real = d - 100 if d > 128 else d
+    x[:, d_real:] = 0
+    xt[:, d_real:] = 0
     tx, txt, tp, tdt = _torch(x, xt, partner, dt, device="cuda")
     tx, txt = tx.to(dtype), txt.to(dtype)
     rx, rxt = mixing_gossip_stacked_ref(tx, txt, tp, tdt, **ACID)
@@ -150,10 +217,9 @@ def test_cuda_kernel_matches_ref(dtype, d, tol):
     torch.cuda.synchronize()
     assert t_kernel.mixing_gossip_stacked.launches == before + 1
     assert kxt.data_ptr() == kxt_in.data_ptr()  # x~ updated in place
-    torch.testing.assert_close(kx.float(), rx.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(kxt.float(), rxt.float(), rtol=tol, atol=tol)
-    assert torch.all(kx[:, d - 100:] == 0) and torch.all(kxt[:, d - 100:] == 0)
-    idle = torch.from_numpy(partner == np.arange(8)).cuda()
+    assert torch.equal(kx, rx) and torch.equal(kxt, rxt)
+    assert torch.all(kx[:, d_real:] == 0) and torch.all(kxt[:, d_real:] == 0)
+    idle = torch.from_numpy(partner == np.arange(len(partner))).cuda()
     kx0, _ = t_kernel.mixing_gossip_stacked(tx, txt.clone(), tp, tdt,
                                             eta=0.0, alpha=0.5, alpha_t=0.5)
     assert torch.equal(kx0[idle], tx[idle])

@@ -25,6 +25,12 @@ from repro_torch.models.layers import rmsnorm as t_layer
 
 SHAPES = [(64, 512, "float32"), (128, 1024, "bfloat16"),
           (130, 768, "float32"), (1, 256, "float32")]
+# D not a multiple of the kernel's vector width (7), and one in each of its
+# size classes past the warp's (1000 at f32 is still a warp's; 8192 a
+# block's; 16384 the long class)
+WIDE_SHAPES = [(t, d, dtype) for t, d in ((3, 7), (5, 1000), (4, 8192),
+                                          (2, 16384))
+               for dtype in ("float32", "bfloat16")]
 
 
 def _inputs(t, d, seed=0):
@@ -37,7 +43,7 @@ def _as(a, dtype):
     return torch.from_numpy(a).to(getattr(torch, dtype))
 
 
-@pytest.mark.parametrize("t,d,dtype", SHAPES)
+@pytest.mark.parametrize("t,d,dtype", SHAPES + WIDE_SHAPES)
 def test_plain_matches_jax_oracle_and_kernel(t, d, dtype):
     x, sc = _inputs(t, d, seed=t + d)
     out = rmsnorm_ref(_as(x, dtype), _as(sc, dtype))
@@ -89,17 +95,28 @@ def test_kernel_refuses_cpu_tensors():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,d,dtype", SHAPES + [(8192, 768, "float32"),
-                                                (8192, 1024, "bfloat16")])
-def test_cuda_kernel_matches_plain(t, d, dtype):
+@pytest.mark.parametrize("t,d,dtype", SHAPES + WIDE_SHAPES + [
+    (8192, 768, "float32"), (8192, 768, "bfloat16"),
+    (8192, 1024, "bfloat16"), (64, 8192, "float32"), (16, 16384, "bfloat16"),
+    (4, 1001, "float32"), (2, 8193, "bfloat16")])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_cuda_kernel_matches_plain(t, d, dtype, offset):
+    """On the card, also on a view that starts ``offset`` elements past a
+    16-byte boundary (its out starts as far past one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the card)")
     x, sc = _inputs(t, d, seed=5)
-    tx, tsc = _as(x, dtype).cuda(), _as(sc, dtype).cuda()
+    buf = torch.zeros(t * d + offset, dtype=getattr(torch, dtype),
+                      device="cuda")
+    tx = buf[offset:].view(t, d)
+    tx.copy_(_as(x, dtype))
+    tsc = _as(sc, dtype).cuda()
     before = t_kernel.rmsnorm_2d.launches
     out = t_kernel.rmsnorm_2d(tx, tsc)
     torch.cuda.synchronize()
     assert t_kernel.rmsnorm_2d.launches == before + 1
+    assert out.shape == (t, d) and out.is_contiguous()
+    assert out.data_ptr() % 16 == tx.data_ptr() % 16
     ref = rmsnorm_ref(tx, tsc)
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0.0)
