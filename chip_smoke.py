@@ -124,10 +124,17 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      step, padding 0), each row bit for bit what ``mixing_gossip_stacked``
      computes for it; its time beside its 0.0667 ms bound;
  16. ``mixing_p2p`` through ``ops.gossip_event_pytree`` on the 56 leaves of
-     the ResNet-18-CIFAR tree, f32 and bf16, bit for bit its plain version,
-     plus odd lengths and views at odd element offsets; one tree launches
-     it exactly 56 times and nothing else; the time per tree beside the
-     summed bound;
+     the ResNet-18-CIFAR tree, f32 and bf16, bit for bit its plain version
+     in ONE launch a tree (the leaves in a table passed by value), and
+     nothing else launched; bit for bit also on odd lengths and views at
+     odd element offsets (as one tree and alone) and on a tree of 129
+     leaves of both dtypes, wider than a launch takes (3 launches); a CUDA
+     graph of the tree bit for bit the eager tree; the tree's times, eager
+     and in a graph, f32 and bf16, beside the summed bound, the earlier
+     per-leaf kernel's (``EARLIER_TREE_*``), the plain version and a
+     ``torch._foreach_*`` composition of the same arithmetic; the host
+     time of one call split into checks, outputs, table, launch and rest;
+     the kernel alone on the largest leaf beside its bound;
  17. the SPMD slice: ``GossipTrainer.from_world`` on ResNet-18-CIFAR, 16
      workers on a ring in lockstep over the single-card worker axis,
      ``SyntheticCIFAR`` batch 32 per worker, ``sgd()`` (0.9, 5e-4), lr 0.1,
@@ -181,6 +188,9 @@ EXACT = 0.0
 # (NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
 EARLIER_STACKED_MS, EARLIER_WORLDS_MS = 1.1627, 4.6092
 EARLIER_LM_COMM_MS = 7.13
+# the earlier mixing_p2p, one launch a leaf: the f32 ResNet-18 tree eagerly and
+# as one CUDA graph (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W)
+EARLIER_TREE_EAGER_MS, EARLIER_TREE_GRAPH_MS = 3.9799, 0.1954
 # bf16: the kernels round every intermediate and every scalar where the
 # plain versions do, so they agree exactly
 BF16_TOL = 0.0
@@ -1982,14 +1992,108 @@ def phase_channel_local(card, d, d_real, dyn):
 
 
 # -------------------------------------------- 16: the per-leaf event API
-def phase_mixing_p2p(card, params0, dyn):
-    """16: ``mixing_p2p`` through ``gossip_event_pytree`` on every leaf of
-    the ResNet-18-CIFAR tree, f32 and bf16, bit for bit its plain version,
-    plus odd lengths and misaligned views.  Returns (the row, the launches
-    of the main-path call)."""
-    from repro_torch.core.tree import tree_leaves, tree_map
-    from repro_torch.kernels.a2cid2_mixing.kernel import mixing_p2p
+def foreach_event(xs, xts, xps, c, a, at):
+    """mix then p2p on lists of leaves as a composition of eight
+    ``torch._foreach_*`` calls, the plain version's operations in its
+    order: a yardstick of the same arithmetic, not one library call."""
+    d = torch._foreach_sub(xts, xs)
+    cd = torch._foreach_mul(d, c)
+    xm = torch._foreach_add(xs, cd)
+    xtm = torch._foreach_sub(xts, cd)
+    m = torch._foreach_sub(xm, xps)
+    return (torch._foreach_sub(xm, torch._foreach_mul(m, a)),
+            torch._foreach_sub(xtm, torch._foreach_mul(m, at)))
+
+
+def leaves_equal(want, got) -> tuple[bool, float]:
+    """(every leaf of two lists or trees bit for bit, the largest
+    difference)."""
+    from repro_torch.core.tree import tree_leaves
+    want, got = tree_leaves(want), tree_leaves(got)
+    err, same = 0.0, len(want) == len(got)
+    for a, b in zip(want, got):
+        same = same and a.shape == b.shape and torch.equal(a, b)
+        if a.numel():
+            err = max(err, (a.float() - b.float()).abs().max().item())
+    return same, err
+
+
+def wide_tree(gen, leaves: int):
+    """Three lists of ``leaves`` leaves on the card, more than one launch
+    holds: empty and one-element leaves, odd lengths up to 70,000, views 1
+    and 3 elements past an aligned start, f32 and bf16 mixed."""
+    xs, xts, xps = [], [], []
+    for k in range(leaves):
+        n = (0, 1, 2, 7, 127, 4099, 70_001)[k % 7] if k < 14 else int(
+            torch.randint(0, 70_000, (), generator=gen, device="cuda"))
+        off = (0, 1, 3)[k % 3]
+        dtype = torch.bfloat16 if k % 4 == 1 else torch.float32
+        for out in (xs, xts, xps):
+            base = torch.randn(n + 8, generator=gen, device="cuda")
+            out.append(base.to(dtype)[off:off + n])
+    return xs, xts, xps
+
+
+def host_split(xs, xts, xps, dt, dyn, calls: int = 40) -> dict:
+    """Host microseconds of one ``gossip_event_pytree`` call on a
+    one-dtype tree, and of its parts, each the median of 5 means of
+    ``calls`` calls (``time.perf_counter_ns``; the card runs behind): the
+    checks (which
+    also read each leaf's addresses, length, shape and strides), the
+    outputs (two buffers and a view a leaf), the table (``plan_launches``),
+    the launch (the ctypes calls), and the rest (tree flatten and
+    unflatten, dt, the device context and stream)."""
+    from repro_torch.kernels.a2cid2_mixing import kernel as mk
     from repro_torch.kernels.a2cid2_mixing.ops import gossip_event_pytree
+    dtype, dev = xs[0].dtype, xs[0].device
+    fn = mk._entry("mixing_p2p")
+    stream = torch.cuda.current_stream().cuda_stream
+    (leaves,) = mk._check_tree(xs, xts, xps, dt).values()
+    # the launches write into these outputs: keep them alive
+    outs = mk._tree_outputs(leaves, dtype, dev)
+    launches = outs[2]
+    rows = [tuple(int(v) for v in tuple(r)[:6]) for t, _ in launches
+            for r in t]
+
+    def mean_us(f) -> float:
+        """The median of 5 means of ``calls`` calls (the host swings)."""
+        f()
+        means = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(calls):
+                f()
+            means.append((time.perf_counter_ns() - t0) / calls / 1e3)
+        torch.cuda.synchronize()
+        return float(np.median(means))
+
+    out = {
+        "call": mean_us(lambda: gossip_event_pytree(xs, xts, xps, dt,
+                                                    **dyn)),
+        "checks": mean_us(lambda: mk._check_tree(xs, xts, xps, dt)),
+        "outputs": mean_us(lambda: mk._tree_outputs(leaves, dtype, dev)),
+        "table": mean_us(lambda: mk.plan_launches(rows,
+                                                  xs[0].element_size())),
+        "launch": mean_us(lambda: mk._launch_tree(fn, dtype, launches, dt,
+                                                  stream, **dyn))}
+    # _tree_outputs plans the table too: its own share is outputs - table
+    out["outputs"] -= out["table"]
+    out["rest"] = out["call"] - sum(v for k, v in out.items() if k != "call")
+    return out
+
+
+def phase_mixing_p2p(card, params0, dyn):
+    """16: ``mixing_p2p`` through ``gossip_event_pytree``: ONE launch a
+    ResNet-18-CIFAR tree, f32 and bf16, bit for bit its plain version, also
+    on odd and misaligned leaves and on a tree wider than a launch, and in a
+    CUDA graph; its times beside the summed bound, the earlier per-leaf
+    kernel's and a ``torch._foreach_*`` composition.  Returns (the row, the
+    launches of the main-path call)."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.a2cid2_mixing import kernel as mk
+    from repro_torch.kernels.a2cid2_mixing.ops import gossip_event_pytree
+    from repro_torch.kernels.a2cid2_mixing.ref import _coeff, dtype_scalar
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
 
     def perturbed(tree):
@@ -2000,84 +2104,145 @@ def phase_mixing_p2p(card, params0, dyn):
     leaves = tree_leaves(x)
     n = sum(a.numel() for a in leaves)
     dt = torch.tensor(0.37, device="cuda")
-    err = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        trees = [tree_map(lambda a: a.to(dtype), t) for t in (x, xt, xp)]
-        ref = gossip_event_pytree(*trees, dt, backend="ref", **dyn)
-        got = gossip_event_pytree(*trees, dt, **dyn)
+    trees = {dtype: [tree_map(lambda a: a.to(dtype), t) for t in (x, xt, xp)]
+             for dtype in (torch.float32, torch.bfloat16)}
+
+    def launched(fn) -> tuple:
+        before = mk.mixing_p2p.launches
+        out = fn()
         torch.cuda.synchronize()
-        for r, g in zip(ref, got):
-            for a, b in zip(tree_leaves(r), tree_leaves(g)):
-                err = max(err, (a.float() - b.float()).abs().max().item())
-                require(torch.equal(a, b), f"mixing_p2p {dtype} differs "
-                                           f"from its plain version")
-    # odd lengths, and views 1 and 3 elements past an aligned start
-    for length, off in ODD_LEAVES:
-        for dtype in (torch.float32, torch.bfloat16):
-            base = [torch.randn(length + 8, generator=gen,
-                                device="cuda").to(dtype) for _ in range(3)]
-            args = [v[off:off + length] for v in base]
-            r = gossip_event_pytree(*args, dt, backend="ref", **dyn)
-            g = mixing_p2p(*args, dt, **dyn)
-            torch.cuda.synchronize()
-            require(torch.equal(r[0], g[0]) and torch.equal(r[1], g[1]),
-                    f"mixing_p2p ({length},) at offset {off} {dtype} "
-                    f"differs from its plain version")
+        return out, mk.mixing_p2p.launches - before
+
+    err = 0.0
+    for dtype, tree in trees.items():
+        ref = gossip_event_pytree(*tree, dt, backend="ref", **dyn)
+        got, count = launched(lambda: gossip_event_pytree(*tree, dt, **dyn))
+        same, e = leaves_equal(ref, got)
+        err = max(err, e)
+        require(same and count == 1,
+                f"mixing_p2p {dtype} on the ResNet tree: {count} launches, "
+                f"bit for bit the plain version: {same}")
+    # odd lengths, and views 1 and 3 elements past an aligned start: one
+    # tree of them, and each alone
+    for dtype in (torch.float32, torch.bfloat16):
+        odd = [[torch.randn(length + 8, generator=gen, device="cuda").to(
+            dtype)[off:off + length] for length, off in ODD_LEAVES]
+            for _ in range(3)]
+        ref = gossip_event_pytree(*odd, dt, backend="ref", **dyn)
+        got, count = launched(lambda: gossip_event_pytree(*odd, dt, **dyn))
+        alone = [mk.mixing_p2p(*leaf, dt, **dyn) for leaf in zip(*odd)]
+        same = leaves_equal(ref, got)[0] and leaves_equal(
+            ref, ([a for a, _ in alone], [b for _, b in alone]))[0]
+        require(same and count == 1,
+                f"mixing_p2p {dtype} on {ODD_LEAVES}: {count} launches, bit "
+                f"for bit the plain version: {same}")
+    # a tree wider than a launch: 2 * MAX_SEGMENTS + 3 leaves of both dtypes
+    wide = wide_tree(gen, 2 * mk.MAX_SEGMENTS + 3)
+    per_dtype: dict = {}
+    for a in wide[0]:
+        per_dtype[a.dtype] = per_dtype.get(a.dtype, 0) + (a.numel() > 0)
+    want_launches = sum(-(-v // mk.MAX_SEGMENTS) for v in per_dtype.values())
+    ref = gossip_event_pytree(*wide, dt, backend="ref", **dyn)
+    got, count = launched(lambda: gossip_event_pytree(*wide, dt, **dyn))
+    same = leaves_equal(ref, got)[0]
+    require(same and count == want_launches,
+            f"mixing_p2p on {len(wide[0])} leaves: {count} launches (want "
+            f"{want_launches}), bit for bit the plain version: {same}")
     print(f"[{card}] mixing_p2p vs plain on the {len(leaves)} leaves of "
           f"the ResNet tree ({n} parameters, "
           f"{min(a.numel() for a in leaves)} to "
-          f"{max(a.numel() for a in leaves)} a leaf) f32 and bf16: max abs "
-          f"err {err:.1e} (bit for bit); odd lengths and views at element "
-          f"offsets 1 and 3 ({ODD_LEAVES}), f32 and bf16: bit for bit")
+          f"{max(a.numel() for a in leaves)} a leaf) f32 and bf16, one "
+          f"launch a tree: max abs err {err:.1e} (bit for bit); odd lengths "
+          f"and views at element offsets 1 and 3 ({ODD_LEAVES}) as one tree "
+          f"and alone, f32 and bf16: bit for bit; {len(wide[0])} leaves of "
+          f"lengths 0 to 70,001, f32 and bf16 mixed, in {count} launches "
+          f"(at most {mk.MAX_SEGMENTS} leaves a launch): bit for bit")
+    del wide, ref, got
     reset_launches()
     gossip_event_pytree(x, xt, xp, dt, **dyn)     # the main-path call
     torch.cuda.synchronize()
     launches = read_launches()
-    require(launches["mixing_p2p"] == len(leaves)
+    require(launches["mixing_p2p"] == 1
             and only_launched(launches, "mixing_p2p"),
-            f"gossip_event_pytree launched {launches}, want "
-            f"{len(leaves)} mixing_p2p and nothing else")
-    ms = cuda_ms(lambda: gossip_event_pytree(x, xt, xp, dt, **dyn), reps=20)
-    plain_ms = cuda_ms(lambda: gossip_event_pytree(x, xt, xp, dt,
-                                                   backend="ref", **dyn),
-                       reps=5, warmup=1)
-    # per leaf: x, x~, xp read once, two outputs written once, dt once
-    nbytes = 5 * n * 4 + 4 * len(leaves)
-    b = bound(nbytes, FLOPS_PER_ELEM * n)
-    # the host taken out (CUDA graphs): the kernel alone, 20 launches on
-    # the largest leaf against its own bound, and the tree's 56 launches
+            f"gossip_event_pytree launched {launches}, want one mixing_p2p "
+            f"and nothing else")
+    print(f"[{card}] gossip_event_pytree on the ResNet tree f32: "
+          f"{launches['mixing_p2p']} mixing_p2p launch and nothing else")
+    row = {}
+    for dtype, (tx, txt, txp) in trees.items():
+        name = str(dtype)[6:]
+        size = tree_leaves(tx)[0].element_size()
+        # x, x~, xp read once, two outputs written once, dt once
+        nbytes = 5 * n * size + 4
+        b = bound(nbytes, FLOPS_PER_ELEM * n)
+        call = lambda: gossip_event_pytree(tx, txt, txp, dt, **dyn)  # noqa
+        # eagerly the host sets the pace, and it swings from run to run:
+        # the median of 5 runs of 20 trees, and their range
+        eager = [cuda_ms(call, reps=20) for _ in range(5)]
+        ms = float(np.median(eager))
+        want = call()
+        g_ms, got = graph_ms(call, 1)
+        torch.cuda.synchronize()
+        require(leaves_equal(want, got)[0],
+                f"mixing_p2p {name}: the graph-captured tree differs from "
+                f"the eager one")
+        del want, got
+        lx, ltx, lxp = (tree_leaves(t) for t in (tx, txt, txp))
+        c = _coeff(dyn["eta"], dt, dtype)
+        a, at = (dtype_scalar(dyn[k], dtype) for k in ("alpha", "alpha_t"))
+        fe = lambda: foreach_event(lx, ltx, lxp, c, a, at)  # noqa: E731
+        fe_same, fe_err = leaves_equal(
+            gossip_event_pytree(tx, txt, txp, dt, backend="ref", **dyn),
+            list(fe()))
+        fe_eager = [cuda_ms(fe, reps=20) for _ in range(5)]
+        fe_ms = float(np.median(fe_eager))
+        fe_graph_ms, _ = graph_ms(fe, 1)
+        plain_ms = cuda_ms(lambda: gossip_event_pytree(
+            tx, txt, txp, dt, backend="ref", **dyn), reps=5, warmup=1)
+        print(f"[{card}] gossip_event_pytree on the ResNet tree {name}, "
+              f"one launch: eager {ms:.4f} ms a tree (median of 5 runs of "
+              f"20 trees, {min(eager):.4f} to {max(eager):.4f}; the earlier "
+              f"per-leaf kernel's 56 launches {EARLIER_TREE_EAGER_MS:.4f} ms at f32), in a "
+              f"CUDA graph {g_ms:.4f} ms a tree over 10 (the earlier "
+              f"{EARLIER_TREE_GRAPH_MS:.4f} ms at f32; bit for bit the "
+              f"eager tree); summed bound {b['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB; {b['bound_ms'] / g_ms:.1%} in the "
+              f"graph, {b['bound_ms'] / ms:.1%} eagerly); the host is "
+              f"{1 - g_ms / ms:.1%} of the eager tree; plain version "
+              f"{plain_ms:.4f} ms; a torch._foreach_* composition of the "
+              f"same arithmetic (8 calls over the {len(lx)} leaves, a "
+              f"yardstick, not one library call) eager {fe_ms:.4f} ms "
+              f"({min(fe_eager):.4f} to {max(fe_eager):.4f}), in "
+              f"a graph {fe_graph_ms:.4f} ms, bit for bit the plain version:"
+              f" {fe_same} (max abs err {fe_err:.1e}); library_ms null")
+        row[name] = {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+                     "bound": b, "foreach_ms": fe_ms,
+                     "foreach_graph_ms": fe_graph_ms}
+    split = host_split(*(tree_leaves(t) for t in trees[torch.float32]), dt,
+                       dyn)
+    print(f"[{card}] host time of one gossip_event_pytree call on the f32 "
+          f"ResNet tree (time.perf_counter_ns, median of 5 means of 40): "
+          f"{split['call']:.1f} us = checks {split['checks']:.1f} + outputs "
+          f"(2 buffers, {2 * len(leaves)} views) {split['outputs']:.1f} + "
+          f"table {split['table']:.1f} + launch {split['launch']:.1f} + "
+          f"rest (flatten, unflatten, dt, device context) "
+          f"{split['rest']:.1f} us")
+    # the kernel alone on the largest leaf, against its own bound
     big = max(range(len(leaves)), key=lambda i: leaves[i].numel())
     lx, lxt, lxp = (tree_leaves(t)[big] for t in (x, xt, xp))
-    eager_leaf_ms = cuda_ms(lambda: mixing_p2p(lx, lxt, lxp, dt, **dyn),
+    eager_leaf_ms = cuda_ms(lambda: mk.mixing_p2p(lx, lxt, lxp, dt, **dyn),
                             reps=20)
-    leaf_ms, _ = graph_ms(lambda: mixing_p2p(lx, lxt, lxp, dt, **dyn), 20)
+    leaf_ms, _ = graph_ms(lambda: mk.mixing_p2p(lx, lxt, lxp, dt, **dyn), 20)
     lb = bound(5 * lx.numel() * 4 + 4, FLOPS_PER_ELEM * lx.numel())
-    want = gossip_event_pytree(x, xt, xp, dt, **dyn)
-    tree_ms, got = graph_ms(lambda: gossip_event_pytree(x, xt, xp, dt,
-                                                        **dyn), 1)
-    torch.cuda.synchronize()
-    require(all(torch.equal(a, g) for r, o in zip(want, got)
-                for a, g in zip(tree_leaves(r), tree_leaves(o))),
-            "mixing_p2p: the graph-captured tree differs from the eager one")
-    del got, want
-    print(f"[{card}] gossip_event_pytree on the ResNet tree f32: "
-          f"{launches['mixing_p2p']} mixing_p2p launches and nothing else; "
-          f"{ms:.4f} ms a tree (20 trees, {ms / len(leaves) * 1e3:.2f} us a "
-          f"launch), summed bound {b['bound_ms']:.4f} ms "
-          f"({nbytes / 1e6:.1f} MB), plain version {plain_ms:.4f} ms; "
-          f"library_ms null")
     print(f"[{card}] mixing_p2p alone on the largest leaf ({lx.numel()},) "
           f"f32, 20 launches in a CUDA graph: {leaf_ms:.4f} ms a launch, "
           f"bound {lb['bound_ms']:.4f} ms ({lb['bound_ms'] / leaf_ms:.1%}); "
-          f"issued eagerly {eager_leaf_ms:.4f} ms a launch; the tree's "
-          f"{len(leaves)} launches as one CUDA graph (bit for bit the eager "
-          f"tree): {tree_ms:.4f} ms a tree over 10 "
-          f"({tree_ms / len(leaves) * 1e3:.2f} us a launch, "
-          f"{b['bound_ms'] / tree_ms:.1%} of the summed bound); the host "
-          f"is {1 - tree_ms / ms:.1%} of the eager tree")
-    return ({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-             "library_ms": None}, launches["mixing_p2p"])
+          f"issued eagerly {eager_leaf_ms:.4f} ms a launch")
+    f32 = row["float32"]
+    return ({"max_abs_err": err, "ms": f32["ms"], "graph_ms": f32["graph_ms"],
+             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound"]["bound_ms"],
+             "bound_by": f32["bound"]["bound_by"], "library_ms": None},
+            launches["mixing_p2p"])
 
 
 # ------------------------------------------------ 17, 18: the trainers

@@ -38,7 +38,12 @@ class TreeDef:
             except StopIteration:
                 raise ValueError("too few leaves for this tree structure") \
                     from None
-        kids = [c._build(it) for c in self.children]
+        kids = []
+        for c in self.children:  # leaves inline: no call a leaf
+            kid = next(it, _END) if c.kind == "leaf" else c._build(it)
+            if kid is _END:
+                raise ValueError("too few leaves for this tree structure")
+            kids.append(kid)
         if self.kind == "dict":
             return dict(zip(self.keys, kids))
         return kids if self.kind == "list" else tuple(kids)
@@ -58,14 +63,20 @@ class TreeDef:
             if not isinstance(tree, dict) or tuple(sorted(tree)) != self.keys:
                 raise ValueError(f"expected a dict with keys {self.keys}")
             for k, c in zip(self.keys, self.children):
-                c._collect(tree[k], out)
+                if c.kind == "leaf":
+                    out.append(tree[k])
+                else:
+                    c._collect(tree[k], out)
             return
         want = list if self.kind == "list" else tuple
         if not isinstance(tree, want) or len(tree) != len(self.children):
             raise ValueError(f"expected a {self.kind} of length "
                              f"{len(self.children)}")
         for sub, c in zip(tree, self.children):
-            c._collect(sub, out)
+            if c.kind == "leaf":
+                out.append(sub)
+            else:
+                c._collect(sub, out)
 
 
 _END = object()
@@ -82,12 +93,25 @@ def _flatten(tree, leaves: list) -> TreeDef:
     if isinstance(tree, dict):
         keys = tuple(sorted(tree))
         return TreeDef("dict", keys,
-                       tuple(_flatten(tree[k], leaves) for k in keys))
+                       _children([tree[k] for k in keys], leaves))
     if isinstance(tree, (list, tuple)):
         kind = "list" if isinstance(tree, list) else "tuple"
-        return TreeDef(kind, (), tuple(_flatten(t, leaves) for t in tree))
+        return TreeDef(kind, (), _children(tree, leaves))
     leaves.append(tree)
     return _LEAF
+
+
+def _children(subtrees, leaves: list) -> tuple:
+    """The structures of ``subtrees``, their leaves appended to ``leaves``
+    inline (no call a leaf)."""
+    out = []
+    for t in subtrees:
+        if isinstance(t, (dict, list, tuple)):
+            out.append(_flatten(t, leaves))
+        else:
+            leaves.append(t)
+            out.append(_LEAF)
+    return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,9 @@ it computes, what bounds it and how it is laid out.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from ..build import DTYPE_CODE, entry
@@ -42,9 +44,9 @@ _ARGTYPES = {
     # dtype, x, x_tilde, xp, out_x, dt_next, d, neg2eta, alpha, alpha_t,
     # stream
     "p2p_mixing": (_I, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _P),
-    # dtype, x, x_tilde, xp, out_x, out_xt, dt, n, neg2eta, alpha, alpha_t,
+    # dtype, segments, count, blocks, chunk, dt, neg2eta, alpha, alpha_t,
     # stream
-    "mixing_p2p": (_I, _P, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _P),
+    "mixing_p2p": (_I, _P, _I, _LL, _LL, _P, _F, _F, _F, _P),
 }
 
 
@@ -293,7 +295,7 @@ channel_gossip_worlds.launches = 0
 
 def _check_flat(name: str, x: torch.Tensor, others: dict,
                 dt: torch.Tensor) -> None:
-    """The checks of the two flat-vector kernels: ``x`` and ``others`` are
+    """The checks of the flat-vector kernel: ``x`` and ``others`` are
     contiguous tensors of one supported dtype and shape on one card, and
     ``dt`` is one float32 on the same card."""
     if not x.is_cuda:
@@ -361,38 +363,211 @@ def p2p_mixing(x: torch.Tensor, x_tilde: torch.Tensor,
 p2p_mixing.launches = 0
 
 
+# One row of mixing_p2p's launch table, laid out as csrc/mixing_p2p.cu's
+# Segment: a leaf's five pointers and length, the 16-byte vectors of its
+# body and the scalar elements before it, and its first block.
+SEGMENT = np.dtype([("x", "<u8"), ("x_tilde", "<u8"), ("xp", "<u8"),
+                    ("out_x", "<u8"), ("out_xt", "<u8"), ("n", "<i8"),
+                    ("body", "<i8"), ("head", "<i4"),
+                    ("first_block", "<i4")])
+MAX_SEGMENTS = 63  # leaves a launch: kMaxSegments in mixing_p2p.cu
+CHUNK = 4096       # elements a block: kChunk in mixing_p2p.cu
+# each output leaf starts at its x's offset modulo this many bytes (a
+# cache line), so that the five pointers of a leaf line up within 16 bytes
+# whenever x, x~ and xp do
+OUT_ALIGN = 128
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+# alpha and alpha~ at a dtype, once per value rather than once per launch
+_dtype_scalar = functools.lru_cache(maxsize=64)(dtype_scalar)
+
+
+def out_offsets(x_ptrs, sizes, itemsize: int) -> tuple[list, int]:
+    """Element offsets of the leaves' outputs in one buffer that starts on
+    an ``OUT_ALIGN``-byte boundary: each after the one before, at the byte
+    offset of its x modulo ``OUT_ALIGN``.  Returns (offsets, the buffer's
+    length in elements)."""
+    offsets, end = [], 0
+    for ptr, n in zip(x_ptrs, sizes):
+        pos = end * itemsize
+        o = (pos + (ptr - pos) % OUT_ALIGN) // itemsize
+        offsets.append(o)
+        end = o + n
+    return offsets, end
+
+
+def plan_launches(rows, itemsize: int, *, max_segments: int = MAX_SEGMENTS,
+                  chunk: int = CHUNK) -> list:
+    """The launches of ``mixing_p2p`` for the leaves of one dtype.
+
+    ``rows`` holds (x, x_tilde, xp, out_x, out_xt, n) of each leaf with n
+    >= 1: five addresses and a length.  A leaf whose five addresses share
+    their offset within 16 bytes splits into a scalar head up to the next
+    16-byte boundary, a body of 16-byte vectors and a scalar tail; any
+    other leaf is scalar throughout.  A block takes ``chunk`` elements of
+    one leaf (the head and tail go with the first), so a leaf takes as many
+    blocks as its body or its scalars need.  The leaves go longest first,
+    ``max_segments`` to a launch.  Returns [(table, blocks)], one per
+    launch: a ``SEGMENT`` array and its blocks in all.  Host code only
+    (numpy): the CPU tests check it against an emulation of the kernel's
+    block map.
+    """
+    lanes = 16 // itemsize
+    a = np.array(rows, dtype=np.int64).reshape(-1, 6)
+    a = a[np.argsort(-a[:, 5], kind="stable")]
+    ptrs, n = a[:, :5], a[:, 5]
+    off = ptrs[:, 0] % 16
+    vec = (ptrs % 16 == off[:, None]).all(axis=1)
+    head = np.where(vec, np.minimum((16 - off) % 16 // itemsize, n), 0)
+    body = np.where(vec, (n - head) // lanes, 0)
+    blocks = np.maximum(-(-body // (chunk // lanes)),
+                        -(-(n - body * lanes) // chunk))
+    launches = []
+    for k in range(0, len(a), max_segments):
+        part = slice(k, k + max_segments)
+        table = np.empty(len(a[part]), SEGMENT)
+        for j, key in enumerate(SEGMENT.names[:6]):
+            table[key] = a[part, j]
+        table["body"], table["head"] = body[part], head[part]
+        table["first_block"] = np.cumsum(blocks[part]) - blocks[part]
+        launches.append((table, int(blocks[part].sum())))
+    return launches
+
+
+def _refuse_leaf(i: int, dev: torch.device, *leaves) -> None:
+    """Raise what is wrong with leaf ``i`` (x, x_tilde, x_partner) of a
+    tree on ``dev``."""
+    x = leaves[0]
+    if x.dtype not in DTYPE_CODE:
+        raise TypeError(f"leaf {i}: dtype {x.dtype} is not supported by "
+                        f"the CUDA kernel (float32, bfloat16)")
+    for key, t in zip(("x", "x_tilde", "x_partner"), leaves):
+        if t.device != dev:
+            raise ValueError(f"leaf {i}: {key} is on {t.device}, the first "
+                             f"leaf on {dev}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"leaf {i}: {key} is {t.dtype}, x is {x.dtype}")
+        if t.shape != x.shape:
+            raise ValueError(f"leaf {i}: {key} must share x's shape, got "
+                             f"{tuple(t.shape)} and {tuple(x.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"leaf {i}: {key} must be contiguous")
+
+
+def _check_tree(xs, xts, xps, dt) -> dict:
+    """The checks of ``mixing_p2p_tree``: three equally long lists of
+    contiguous leaves, leaf for leaf of one shape and one supported dtype,
+    all on one card with ``dt``, one float32.  Returns {dtype: [(leaf
+    index, x, x_tilde and xp addresses, length, shape, strides), ...]}: all
+    that the outputs and the table need of a leaf, read once."""
+    if not len(xs) == len(xts) == len(xps):
+        raise ValueError(f"need as many leaves of x, x_tilde and x_partner, "
+                         f"got {len(xs)}, {len(xts)}, {len(xps)}")
+    dev = xs[0].device
+    card = xs[0].get_device()
+    groups: dict = {}
+    for i, (x, xt, xp) in enumerate(zip(xs, xts, xps)):
+        dtype, shape = x.dtype, x.shape
+        if not (dtype in DTYPE_CODE and xt.dtype is dtype
+                and xp.dtype is dtype and xt.shape == shape
+                and xp.shape == shape and x.get_device() == card
+                and xt.get_device() == card and xp.get_device() == card
+                and x.is_contiguous() and xt.is_contiguous()
+                and xp.is_contiguous()):
+            _refuse_leaf(i, dev, x, xt, xp)
+        leaf = (i, x.data_ptr(), xt.data_ptr(), xp.data_ptr(), x.numel(),
+                shape, x.stride())
+        if dtype in groups:
+            groups[dtype].append(leaf)
+        else:
+            groups[dtype] = [leaf]
+    if dev.type != "cuda":
+        raise ValueError("mixing_p2p runs on CUDA tensors only; CPU tensors "
+                         "take the plain version (ops.py)")
+    if dt.device != dev or dt.dtype != torch.float32 or dt.numel() != 1:
+        raise ValueError(f"dt must be one float32 on {dev}, got "
+                         f"{tuple(dt.shape)} {dt.dtype} on {dt.device}")
+    return groups
+
+
+def _tree_outputs(leaves: list, dtype: torch.dtype, dev: torch.device):
+    """The outputs of one dtype's ``leaves`` (as ``_check_tree`` groups
+    them): views into one fresh buffer per output tree, each at its x's
+    offset modulo ``OUT_ALIGN`` bytes.  Returns (out_x views, out_xt views,
+    the launches planned for them)."""
+    size = _ITEMSIZE[dtype]
+    offsets, total = out_offsets([leaf[1] for leaf in leaves],
+                                 [leaf[4] for leaf in leaves], size)
+    bx = torch.empty(total, dtype=dtype, device=dev)
+    bxt = torch.empty_like(bx)
+    px, pxt = bx.data_ptr(), bxt.data_ptr()
+    vx, vxt, rows = [], [], []
+    for (_, x, xt, xp, n, shape, stride), o in zip(leaves, offsets):
+        vx.append(bx.as_strided(shape, stride, o))
+        vxt.append(bxt.as_strided(shape, stride, o))
+        if n:
+            rows.append((x, xt, xp, px + o * size, pxt + o * size, n))
+    return vx, vxt, plan_launches(rows, size)
+
+
+def _launch_tree(fn, dtype: torch.dtype, launches: list, dt: torch.Tensor,
+                 stream: int, *, eta: float, alpha: float,
+                 alpha_t: float) -> None:
+    """Issue the planned launches of one dtype on ``stream``."""
+    a, at = _dtype_scalar(alpha, dtype), _dtype_scalar(alpha_t, dtype)
+    for table, blocks in launches:
+        err = fn(DTYPE_CODE[dtype], table.ctypes.data, len(table), blocks,
+                 CHUNK, dt.data_ptr(), float(-2.0 * eta), a, at, stream)
+        if err != 0:
+            raise RuntimeError(f"mixing_p2p launch failed: CUDA error {err}")
+        mixing_p2p.launches += 1
+
+
+def mixing_p2p_tree(xs, xts, xps, dt: torch.Tensor, *, eta: float,
+                    alpha: float, alpha_t: float) -> tuple[list, list]:
+    """One gossip event on every leaf of a tree on the card: mix for
+    ``dt``, then p2p against ``xps`` (the partner's already mixed leaves).
+
+    xs, xts, xps: lists of leaves, leaf for leaf of one shape, float32 or
+    bfloat16, contiguous, at any element alignment, all on one card; dt:
+    one float32 on that card, read by the kernel.  alpha and alpha_t are
+    rounded here to each leaf's dtype.  Returns two lists of outputs of the
+    leaves' shapes: per dtype, views into one fresh buffer per output tree
+    (so one output leaf keeps the others' buffer alive); the inputs are
+    left as they were.  ONE launch takes up to ``MAX_SEGMENTS`` non-empty
+    leaves of one dtype, so a tree of one dtype takes ceil(leaves /
+    ``MAX_SEGMENTS``) launches; empty leaves launch nothing.  The launches
+    are queued on the current stream and not waited for.  Each adds one to
+    ``mixing_p2p.launches``.
+    """
+    if not xs and not xts and not xps:
+        return [], []
+    groups = _check_tree(xs, xts, xps, dt)
+    dev = xs[0].device
+    fn = _entry("mixing_p2p")
+    out_x, out_xt = [None] * len(xs), [None] * len(xs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for dtype, leaves in groups.items():
+            vx, vxt, launches = _tree_outputs(leaves, dtype, dev)
+            _launch_tree(fn, dtype, launches, dt, stream, eta=eta,
+                         alpha=alpha, alpha_t=alpha_t)
+            for leaf, a, b in zip(leaves, vx, vxt):
+                out_x[leaf[0]], out_xt[leaf[0]] = a, b
+    return out_x, out_xt
+
+
 def mixing_p2p(x: torch.Tensor, x_tilde: torch.Tensor,
                x_partner: torch.Tensor, dt: torch.Tensor, *, eta: float,
                alpha: float, alpha_t: float
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One gossip event on one tensor of any shape and length on the card:
-    mix for ``dt``, then p2p against ``x_partner`` (the partner's already
-    mixed x).
-
-    x, x_tilde, x_partner: one shape, float32 or bfloat16, contiguous, at
-    any element alignment; dt: one float32 on the same card, read by the
-    kernel.  alpha and alpha_t are rounded here to the buffer dtype.
-    Returns two fresh tensors of x's shape; the inputs are left as they
-    were.  The launch is queued on the current stream and not waited for.
-    Each launch adds one to ``mixing_p2p.launches``; an empty tensor
-    launches nothing.
-    """
-    _check_flat("mixing_p2p", x, {"x_tilde": x_tilde,
-                                  "x_partner": x_partner}, dt)
-    out_x, out_xt = torch.empty_like(x), torch.empty_like(x)
-    if x.numel() == 0:
-        return out_x, out_xt
-    with torch.cuda.device(x.device):
-        err = _entry("mixing_p2p")(
-            DTYPE_CODE[x.dtype], x.data_ptr(), x_tilde.data_ptr(),
-            x_partner.data_ptr(), out_x.data_ptr(), out_xt.data_ptr(),
-            dt.data_ptr(), x.numel(), float(-2.0 * eta),
-            dtype_scalar(alpha, x.dtype), dtype_scalar(alpha_t, x.dtype),
-            _stream(x))
-    if err != 0:
-        raise RuntimeError(f"mixing_p2p launch failed: CUDA error {err}")
-    mixing_p2p.launches += 1
-    return out_x, out_xt
+    """``mixing_p2p_tree`` on one tensor of any shape and length: one
+    launch (none for an empty tensor), two fresh outputs of x's shape, each
+    at x's offset modulo ``OUT_ALIGN`` bytes in its own buffer.  Each launch
+    adds one to ``mixing_p2p.launches``, which counts the launches of both
+    functions."""
+    ox, oxt = mixing_p2p_tree([x], [x_tilde], [x_partner], dt, eta=eta,
+                              alpha=alpha, alpha_t=alpha_t)
+    return ox[0], oxt[0]
 
 
 mixing_p2p.launches = 0

@@ -13,7 +13,7 @@ import torch
 from .. import resolve_backend
 from .kernel import (channel_gossip_stacked, channel_gossip_worlds,
                      mixing_gossip_stacked, mixing_gossip_worlds, mixing_p2p,
-                     p2p_mixing)
+                     mixing_p2p_tree, p2p_mixing)
 from .ref import (channel_gossip_stacked_ref, channel_gossip_worlds_ref,
                   channel_p2p_mixing_ref, mixing_gossip_stacked_ref,
                   mixing_gossip_worlds_ref, mixing_p2p_ref, p2p_mixing_ref)
@@ -40,21 +40,27 @@ def gossip_event(x: torch.Tensor, x_tilde: torch.Tensor,
 
 def gossip_event_pytree(x, x_tilde, x_partner, dt, *, eta: float,
                         alpha: float, alpha_t: float, backend: str = "auto"):
-    """``gossip_event`` on every leaf of a parameter tree (one launch per
-    leaf on the card); leaves keep their shapes.  ``dt`` is moved to the
-    leaves' device once for the whole tree."""
+    """``gossip_event`` on every leaf of a parameter tree; leaves keep their
+    shapes.  A tree on the card takes ONE ``mixing_p2p`` launch per dtype
+    (up to ``MAX_SEGMENTS`` leaves a launch), its outputs views into one
+    buffer per output tree (``kernel.mixing_p2p_tree``); on the CPU the
+    plain version runs leaf by leaf.  ``dt`` is moved to the leaves' device
+    once for the whole tree."""
     # imported here: repro_torch.core imports this module
     from ...core.tree import tree_flatten
     flat_x, treedef = tree_flatten(x)
     flat_t = treedef.flatten_up_to(x_tilde)
     flat_p = treedef.flatten_up_to(x_partner)
+    dyn = dict(eta=eta, alpha=alpha, alpha_t=alpha_t)
     if flat_x:
         dt = _scalar_on(dt, flat_x[0])
-    outs = [gossip_event(a, b, c, dt, eta=eta, alpha=alpha, alpha_t=alpha_t,
-                         backend=backend)
-            for a, b, c in zip(flat_x, flat_t, flat_p)]
-    return (treedef.unflatten([o[0] for o in outs]),
-            treedef.unflatten([o[1] for o in outs]))
+    if flat_x and resolve_backend(backend, flat_x[0]) == "cuda":
+        out_x, out_xt = mixing_p2p_tree(flat_x, flat_t, flat_p, dt, **dyn)
+    else:
+        outs = [gossip_event(a, b, c, dt, backend=backend, **dyn)
+                for a, b, c in zip(flat_x, flat_t, flat_p)]
+        out_x, out_xt = [o[0] for o in outs], [o[1] for o in outs]
+    return treedef.unflatten(out_x), treedef.unflatten(out_xt)
 
 
 def p2p_mix_event(x: torch.Tensor, x_tilde: torch.Tensor,

@@ -1,16 +1,17 @@
-"""Time the ``mixing_gossip_stacked`` and ``rmsnorm_2d`` CUDA kernels
-against edited copies of their own sources and, with ``--baseline``, an
-earlier version of them, in one process on one card.
+"""Time the ``mixing_gossip_stacked``, ``rmsnorm_2d`` and ``mixing_p2p``
+CUDA kernels against edited copies of their own sources and, with
+``--baseline``, an earlier version of them, in one process on one card.
 
-    python3 tools/kernel_sweep.py [--baseline KERNELS_DIR]
+    python3 tools/kernel_sweep.py [--baseline KERNELS_DIR] [--only NAME ...]
 
 A variant is a copy of the kernel package's ``csrc/`` under
 ``build/sweep/``, with the text replacements that ``VARIANTS`` lists made
 in its ``.cu`` (each text must occur exactly once), built by
 ``kernels/build.py`` with the port's flags; all builds start together.
 ``--baseline`` names the ``src/repro_torch/kernels`` directory of another
-commit (unpacked with ``git archive``), whose two sources build unchanged
-as the variant "baseline".  Each variant is held against the plain version
+commit (unpacked with ``git archive``), whose sources build unchanged
+as the variant "baseline"; ``--only`` names the kernels to sweep (all three
+by default).  Each variant is held against the plain version
 (the gossip kernel bit for bit, rmsnorm within 1e-5 at f32 and 2e-2 at
 bf16) and timed with ``chip_smoke.py``'s ``cuda_ms`` and ``graph_ms``, in
 the order v1 .. vn, then vn .. v1:
@@ -22,7 +23,14 @@ the order v1 .. vn, then vn .. v1:
   bytes;
 - ``rmsnorm_2d``: 20 and 200 back-to-back launches and 20 launches in a
   CUDA graph, at (8192, 768), (8192, 1024), (64, 8192) and (16, 16384), f32
-  and bf16, beside ``F.rms_norm`` timed the same three ways.
+  and bf16, beside ``F.rms_norm`` timed the same three ways;
+- ``mixing_p2p``: the 56 leaves of a ResNet-18-CIFAR tree, f32 and bf16,
+  20 trees back to back and 10 trees in a CUDA graph, and the largest leaf
+  alone (20 launches in a graph), beside ``copy_`` of the tree's bytes.  A
+  variant with the launch table (``kMaxSegments`` in its source) takes the
+  tree in one launch, planned once by ``kernel.plan_launches`` with its own
+  ``kChunk``; a baseline without one (the per-leaf kernel) takes 56 launches
+  of its 12-argument entry point.
 
 Every variant launches through the same bare ctypes call (a fresh output,
 the current stream), so eager times compare kernels, not wrappers.  Prints
@@ -32,7 +40,9 @@ writes them to ``chiprun_out/kernel_sweep.json``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import re
 import shutil
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -49,12 +59,18 @@ import chip_smoke as cs  # noqa: E402  (it puts src/ on the path)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.a2cid2_mixing import kernel as gk  # noqa: E402
 from repro_torch.kernels.a2cid2_mixing.ref import (  # noqa: E402
-    dtype_scalar, mixing_gossip_stacked_ref)
+    dtype_scalar, mixing_gossip_stacked_ref, mixing_p2p_ref)
 from repro_torch.kernels.rmsnorm import kernel as rk  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 
-GOSSIP, RMSNORM = "mixing_gossip_stacked", "rmsnorm_2d"
-ARGTYPES = {GOSSIP: gk._ARGTYPES[GOSSIP], RMSNORM: rk._ARGTYPES}
+GOSSIP, RMSNORM, P2P = "mixing_gossip_stacked", "rmsnorm_2d", "mixing_p2p"
+ARGTYPES = {GOSSIP: gk._ARGTYPES[GOSSIP], RMSNORM: rk._ARGTYPES,
+            P2P: gk._ARGTYPES[P2P]}
+_P, _LL, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                   ctypes.c_int)
+# the per-leaf mixing_p2p_launch, before the launch table: dtype, x,
+# x_tilde, xp, out_x, out_xt, dt, n, neg2eta, alpha, alpha_t, stream
+PER_LEAF_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _P)
 _PREFETCH = "        if (next < rows) load_row(nv, next);\n"
 _SHIFT = "        for (int k = 0; k < V; ++k) v[k] = nv[k];\n"
 # kernel -> {label: ((text, replacement), ...)}
@@ -69,6 +85,12 @@ VARIANTS = {
     RMSNORM: {"no prefetch": ((_PREFETCH, ""),
                               (_SHIFT, "        if (next < rows) "
                                        "load_row(v, next);\n"))},
+    P2P: {
+        **{f"chunk {c}": (("kChunk = 4096;", f"kChunk = {c};"),)
+           for c in (2048, 8192)},
+        **{f"{v} values": (("kValues = 16;", f"kValues = {v};"),)
+           for v in (4, 8)},
+    },
 }
 DYN = dict(eta=0.5, alpha=0.5, alpha_t=1.5)
 RESNET_D, NANO_D = 11_171_328, 128_404_224
@@ -102,6 +124,12 @@ def variant_roots(name: str, baseline: Path | None) -> dict:
     return roots
 
 
+def per_leaf(name: str, root: Path) -> bool:
+    """True for a mixing_p2p source from before the launch table."""
+    return name == P2P and "kMaxSegments" not in \
+        build.source(name, root).read_text()
+
+
 def build_variants(roots: dict) -> dict:
     """{kernel: {label: its launch function}}, every library built at
     once."""
@@ -111,8 +139,14 @@ def build_variants(roots: dict) -> dict:
         paths = list(pool.map(
             lambda job: build.build_all((job[0],), job[2])[job[0]][0], jobs))
     fns = {name: {} for name in roots}
-    for (name, label, _), path in zip(jobs, paths):
-        fns[name][label] = build.bind(path, name, ARGTYPES[name])
+    for (name, label, root), path in zip(jobs, paths):
+        types = PER_LEAF_ARGTYPES if per_leaf(name, root) else ARGTYPES[name]
+        fn = build.bind(path, name, types)
+        if name == P2P:
+            text = build.source(name, root).read_text()
+            fn.chunk = (None if per_leaf(name, root) else
+                        int(re.search(r"kChunk = (\d+);", text).group(1)))
+        fns[name][label] = fn
     return fns
 
 
@@ -231,19 +265,123 @@ def sweep_rmsnorm(card: str, fns: dict) -> list:
     return rows
 
 
+def p2p_launcher(fn, xs, xts, xps, dt):
+    """A bare launch of a tree (one launch a table, or one a leaf for the
+    per-leaf kernel) into outputs made once: returns (the call, the output
+    lists)."""
+    dtype = xs[0].dtype
+    size = xs[0].element_size()
+    code = build.DTYPE_CODE[dtype]
+    dyn = (float(-2.0 * DYN["eta"]), dtype_scalar(DYN["alpha"], dtype),
+           dtype_scalar(DYN["alpha_t"], dtype))
+    if fn.chunk is None:
+        ox = [torch.empty_like(x) for x in xs]
+        oxt = [torch.empty_like(x) for x in xs]
+        args = [(x.data_ptr(), t.data_ptr(), p.data_ptr(), a.data_ptr(),
+                 b.data_ptr(), x.numel())
+                for x, t, p, a, b in zip(xs, xts, xps, ox, oxt)]
+
+        def call():
+            for x, t, p, a, b, n in args:
+                cs.require(fn(code, x, t, p, a, b, dt.data_ptr(), n, *dyn,
+                              torch.cuda.current_stream().cuda_stream) == 0,
+                           "launch failed")
+        return call, (ox, oxt)
+    offsets, total = gk.out_offsets([x.data_ptr() for x in xs],
+                                    [x.numel() for x in xs], size)
+    bx = torch.empty(total, dtype=dtype, device=xs[0].device)
+    bxt = torch.empty_like(bx)
+    ox = [bx.as_strided(x.shape, x.stride(), o) for x, o in zip(xs, offsets)]
+    oxt = [bxt.as_strided(x.shape, x.stride(), o)
+           for x, o in zip(xs, offsets)]
+    rows = [(x.data_ptr(), t.data_ptr(), p.data_ptr(), a.data_ptr(),
+             b.data_ptr(), x.numel())
+            for x, t, p, a, b in zip(xs, xts, xps, ox, oxt) if x.numel()]
+    launches = gk.plan_launches(rows, size, chunk=fn.chunk)
+
+    def call():
+        for table, blocks in launches:
+            cs.require(fn(code, table.ctypes.data, len(table), blocks,
+                          fn.chunk, dt.data_ptr(), *dyn,
+                          torch.cuda.current_stream().cuda_stream) == 0,
+                       "launch failed")
+    return call, (ox, oxt)
+
+
+def sweep_p2p(card: str, fns: dict) -> list:
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.resnet import init_resnet, resnet18_cifar
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x0 = tree_leaves(init_resnet(gen, resnet18_cifar()))
+    big = max(range(len(x0)), key=lambda i: x0[i].numel())
+    dt = torch.tensor(0.37, device=dev)
+    ways = {"eager 20": lambda f: cs.cuda_ms(f, reps=20),
+            "graph 10 x 10": lambda f: cs.graph_ms(f, calls=10)[0]}
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [a.to(dtype) for a in x0]
+        xts, xps = ([(a + 0.1 * torch.randn(a.shape, generator=gen,
+                                            device=dev)).to(dtype)
+                     for a in x0] for _ in range(2))
+        refs = [mixing_p2p_ref(*leaf, dt, **DYN)
+                for leaf in zip(xs, xts, xps)]
+        n = sum(a.numel() for a in xs)
+        for shape, idx in ((f"resnet tree {str(dtype)[6:]}", None),
+                           (f"largest leaf {str(dtype)[6:]}", big)):
+            pick = (lambda ls: ls) if idx is None else (lambda ls: [ls[idx]])
+            # each call writes into its outputs: keep them all alive
+            calls, exact, keep = {}, {}, []
+            for label, fn in fns.items():
+                call, (ox, oxt) = p2p_launcher(fn, pick(xs), pick(xts),
+                                               pick(xps), dt)
+                keep.append((ox, oxt))
+                call()
+                torch.cuda.synchronize()
+                exact[label] = all(
+                    torch.equal(a, r[0]) and torch.equal(b, r[1])
+                    for a, b, r in zip(ox, oxt, pick(refs)))
+                calls[label] = call
+            m = n if idx is None else xs[idx].numel()
+            nbytes = 5 * m * xs[0].element_size() + 4
+            bound_ms = nbytes / cs.PEAK_BYTES_PER_S * 1e3
+            src = torch.empty(nbytes // 8, dtype=torch.float32, device=dev)
+            dst = torch.empty_like(src)
+            calls["copy_"] = lambda: dst.copy_(src)
+            times = both_ways(list(calls), lambda label: {
+                way: time(calls[label]) for way, time in ways.items()})
+            for label, ts in times.items():
+                ms = {way: [t[way] for t in ts] for way in ways}
+                rows.append({"card": card, "kernel": P2P, "shape": shape,
+                             "variant": label, "bound_ms": bound_ms,
+                             "bit_exact": exact.get(label), **ms})
+                print(f"[{card}] {P2P} {shape} {label}: "
+                      + "; ".join(f"{way} {' / '.join(f'{v:.4f}' for v in vs)}"
+                                  for way, vs in ms.items())
+                      + f" ms (bound {bound_ms:.4f} ms); bit for bit the "
+                        f"plain version: {exact.get(label)}")
+            del src, dst, calls, keep, ox, oxt
+        del xs, xts, xps, refs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
                     help="another src/repro_torch/kernels directory")
+    ap.add_argument("--only", nargs="+", choices=list(VARIANTS),
+                    default=list(VARIANTS), help="the kernels to sweep")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device", file=sys.stderr)
         return 2
     card = cs.card_line()
     fns = build_variants({name: variant_roots(name, args.baseline)
-                          for name in VARIANTS})
-    rows = sweep_rmsnorm(card, fns[RMSNORM]) + sweep_gossip(card,
-                                                            fns[GOSSIP])
+                          for name in args.only})
+    sweeps = {RMSNORM: sweep_rmsnorm, GOSSIP: sweep_gossip, P2P: sweep_p2p}
+    rows = [row for name in args.only
+            for row in sweeps[name](card, fns[name])]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "kernel_sweep.json").write_text(json.dumps(rows, indent=1))
