@@ -149,7 +149,38 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      once per event not dropped), the same spans timed; the SPMD and the
      stacked event loops per row bit for bit on shared gaps; one
      ``make_pair_ring_step`` and one ``make_ar_step``: finite, no gossip
-     kernel.
+     kernel;
+ 19. telemetry on the card (cuDNN set deterministic from here on, so that
+     two replays can be held bit for bit): (a) phase 5's hostile channel
+     slice, static trim and defense arms, replayed with ``Telemetry()``
+     from the same start as without: x, x~, loss, consensus and the
+     defense trace bit for bit, the launches equal, per round applied +
+     rejected + dropped == scheduled exactly, the defense arm rejecting,
+     row_bytes 44,685,096, the host-clock overhead a round; (b) phase 3's
+     clean A2CiD2 arm with ``Telemetry()``: ``channel_gossip_stacked`` once
+     a comm step, ``mixing_gossip_stacked`` never, bit for bit the clean
+     replay (the channel kernel at corrupt 0 / mscale 1 / no clip is the
+     clean one); (c) engine columns against the per-event replay's on the
+     quadratic (counts exactly, moments within 1e-5 relative); (d) phase
+     9's channel + defense worlds with ``Telemetry()`` in one
+     ``run_worlds`` call, bit for bit the batch without it, and on the
+     quadratic each world's columns against its serial replay's;
+ 20. ``run_world(state, World(ring, telemetry=Telemetry()), 4, seed=0)``
+     bit for bit ``run_schedule`` of ``world.compile(4, seed=0)``, and
+     ``allreduce_sgd`` (AR-SGD) for 4 rounds on ResNet-18-CIFAR, 16
+     workers: finite losses, no gossip kernel, the 16 rows bit for bit
+     equal after every round, each round timed by CUDA events;
+ 21. ``launch.train.run_sync`` on nano-lm at full width (128,404,224
+     parameters) at the CLI's defaults (batch 8 x 128, lr 0.05, ``sgd()``),
+     4 steps, then the same 4 batches with ``remat=True`` and with 2
+     micro-batches of 4, losses and parameters within 1e-4 of the plain
+     run's (relative to each tensor's largest magnitude); per step the
+     forward + backward and the optimizer by CUDA events and the peak
+     device memory; then ``--ckpt``: the params and a whole ``TrainState``
+     restored bit for bit into fresh trees, a bf16 copy round-tripped bit
+     for bit, retention keeping the last 3 of 5 saves, and ``run_sim
+     --ckpt`` (2 workers, 2 rounds) writing the stacked x, reloaded bit
+     for bit.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -161,6 +192,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2602,6 +2634,564 @@ def phase_stacked_slice(card, params0, cfg):
     return out
 
 
+# ---------------------------------------- 19, 20: telemetry, run_world, AR
+# ResNet-18-CIFAR's flat row: 11,171,274 f32 parameters
+RESNET_ROW_BYTES = 44_685_096
+
+
+def tree_equal(a, b) -> bool:
+    """Every tensor leaf bit for bit (None leaves must match None)."""
+    from repro_torch.core.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x, y))
+        for x, y in zip(la, lb))
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b|: the LM tolerance's measure."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def twin_replays(make_state, run, spec) -> dict:
+    """``run(state, telemetry)`` from two equal starts, with no spec and
+    with ``spec``: {label: (final, trace, launches, host ms)}, each run's
+    kernel launches counted from 0."""
+    out = {}
+    for label, tel in (("none", None), ("telemetry", spec)):
+        state = make_state()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        final, trace = run(state, tel)
+        torch.cuda.synchronize()
+        out[label] = (final, trace, read_launches(),
+                      (time.perf_counter() - t0) * 1e3)
+        del state
+    return out
+
+
+def require_same_replay(runs: dict, what: str) -> None:
+    """The telemetry run is bit for bit the run without a spec: final x,
+    x~, every trace column and the defense trace, and the launches."""
+    (fa, ta, la, _), (fb, tb, lb, _) = runs["none"], runs["telemetry"]
+    require(ta.telemetry is None and tb.telemetry is not None,
+            f"{what}: telemetry column missing or unasked")
+    same = (tree_equal(fa.x, fb.x) and tree_equal(fa.x_tilde, fb.x_tilde)
+            and all(torch.equal(getattr(ta, k), getattr(tb, k))
+                    for k in ("loss", "consensus", "mean_param_norm")))
+    if ta.defense is not None:
+        same = same and all(torch.equal(u, v)
+                            for u, v in zip(ta.defense, tb.defense))
+    require(same, f"{what}: the telemetry replay is not bit for bit the "
+                  f"replay without it")
+    require(la == lb, f"{what}: launches differ with telemetry: {la} vs "
+                      f"{lb}")
+
+
+def budget_holds(tel) -> bool:
+    """applied + rejected + dropped == scheduled, every round exactly."""
+    total = (tel.applied + tel.rejected).cpu().numpy() + tel.dropped
+    return bool(np.array_equal(total, tel.scheduled))
+
+
+def stream_comm_steps(sched) -> int:
+    from repro_torch.core import coalesce_schedule, coalesced_stream
+    steps = coalesced_stream(coalesce_schedule(sched),
+                             np.zeros(sched.n, np.float32))
+    return int((~steps.is_grad).sum())
+
+
+def columns_agree(a, b, what: str) -> float:
+    """Engine-against-oracle columns: counts exactly, moments within
+    ENGINE_TOL relative; returns the largest moment error."""
+    require(torch.equal(a.applied, b.applied)
+            and torch.equal(a.rejected, b.rejected)
+            and np.array_equal(a.scheduled, b.scheduled)
+            and np.array_equal(a.stale_hist, b.stale_hist),
+            f"{what}: telemetry counts differ")
+    err = 0.0
+    for k in ("norm_sum", "norm_sq_sum"):
+        u, v = getattr(a, k), getattr(b, k)
+        torch.testing.assert_close(u, v, rtol=ENGINE_TOL, atol=1e-6)
+        err = max(err, ((u - v).abs() / v.abs().clamp_min(1e-30)).max()
+                  .item())
+    return err
+
+
+def phase_telemetry(card, params0, cfg, stream_cls, grad_fn_for) -> dict:
+    """19: ``Telemetry()`` on the card: (a) phase 5's hostile channel slice
+    (static trim and defense arms), (b) phase 3's clean A2CiD2 arm, each
+    bit for bit its replay without a spec; (c) engine columns against the
+    per-event replay's on the quadratic; (d) phase 9's channel + defense
+    worlds batch, bit for bit, and each world's columns against its serial
+    replay's on the quadratic.  Returns the launches of the telemetry
+    runs."""
+    from repro_torch.core import (AdaptiveDefense, Algorithm, Simulator,
+                                  Telemetry, World, make_schedule,
+                                  params_from_graph, ring_graph,
+                                  trace_summary)
+    dev = torch.device("cuda")
+    graph = ring_graph(N_WORKERS)
+    hostile = hostile_channel(graph)
+    grad = grad_fn_for(cfg, stream_cls(batch_size=BATCH))
+    params = params_from_graph(graph, True)
+    spec = Telemetry()
+    out = {"channel_gossip_stacked": 0, "channel_gossip_worlds": 0}
+    # warm-up: one model step outside the measured replays (the
+    # deterministic cuDNN algorithms' set-up)
+    warm = Simulator(grad, params, GAMMA).init(
+        params0, N_WORKERS, torch.Generator(device=dev).manual_seed(9))
+    grad(warm.x, warm.generator, torch.arange(N_WORKERS, device=dev))
+    del warm
+
+    def start(sim):
+        return lambda: sim.init(params0, N_WORKERS, torch.Generator(
+            device=dev).manual_seed(SEED + 1))
+
+    # (a) the channel slice of phase 5
+    sched = hostile.apply(make_schedule(graph, CHANNEL_ROUNDS,
+                                        comms_per_grad=1.0,
+                                        seed=CHANNEL_SEED),
+                          seed=CHANNEL_SEED)
+    comm_steps = stream_comm_steps(sched)
+    sim = Simulator(grad, params, GAMMA, robust_clip=ROBUST_CLIP,
+                    robust_rule="trim")
+    for arm, defense in (("static trim", None),
+                         ("defense", AdaptiveDefense())):
+        runs = twin_replays(start(sim), lambda st, tel, d=defense:
+                            sim.run_schedule(st, sched, defense=d,
+                                             telemetry=tel), spec)
+        require_same_replay(runs, f"channel {arm}")
+        launched = runs["telemetry"][2]
+        require(launched["channel_gossip_stacked"] == comm_steps
+                and only_launched(launched, "channel_gossip_stacked"),
+                f"channel {arm} with telemetry launched {launched}, the "
+                f"stream has {comm_steps} comm steps")
+        tel = runs["telemetry"][1].telemetry
+        require(budget_holds(tel), f"channel {arm}: applied + rejected + "
+                                   f"dropped != scheduled")
+        require(tel.row_bytes == RESNET_ROW_BYTES,
+                f"row_bytes {tel.row_bytes} != {RESNET_ROW_BYTES}")
+        if defense is not None:
+            require(float(tel.rejected.sum()) > 0,
+                    "the defense arm's telemetry rejected nothing")
+        wall_n, wall_t = runs["none"][3], runs["telemetry"][3]
+        print(f"[{card}] 19a telemetry, channel {arm}: bit for bit the "
+              f"replay without it (x, x~, loss, consensus"
+              f"{', defense trace' if defense else ''}), launches equal "
+              f"({launched['channel_gossip_stacked']} channel kernel); per "
+              f"round applied {tel.applied.tolist()} rejected "
+              f"{tel.rejected.tolist()} dropped {tel.dropped.tolist()} "
+              f"scheduled {tel.scheduled.tolist()} (budget exact); "
+              f"row_bytes {tel.row_bytes}; {trace_summary(tel)}")
+        print(f"[{card}] 19a telemetry overhead, channel {arm}: replay "
+              f"{wall_n:.1f} ms without, {wall_t:.1f} ms with: "
+              f"{(wall_t - wall_n) / CHANNEL_ROUNDS:.2f} ms a round "
+              f"(host clock, {CHANNEL_ROUNDS} rounds, {comm_steps} comm "
+              f"steps)")
+        out["channel_gossip_stacked"] += launched["channel_gossip_stacked"]
+        del runs
+
+    # (b) the clean A2CiD2 arm of phase 3: the spec forces the channel
+    # flavour, the pinned reduction keeps it bit for bit
+    sched = make_schedule(graph, ROUNDS, comms_per_grad=1.0, seed=SEED)
+    comm_steps = stream_comm_steps(sched)
+    sim = Simulator(grad, params, GAMMA)
+    runs = twin_replays(start(sim), lambda st, tel: sim.run_schedule(
+        st, sched, telemetry=tel), spec)
+    (_, _, plain_l, wall_n), (_, tr, tel_l, wall_t) = \
+        runs["none"], runs["telemetry"]
+    require(plain_l["mixing_gossip_stacked"] == comm_steps
+            and only_launched(plain_l, "mixing_gossip_stacked"),
+            f"clean replay launched {plain_l}")
+    require(tel_l["channel_gossip_stacked"] == comm_steps
+            and only_launched(tel_l, "channel_gossip_stacked"),
+            f"clean replay with telemetry launched {tel_l}, expected the "
+            f"channel kernel {comm_steps} times and nothing else")
+    (fa, ta, _, _), (fb, tb, _, _) = runs["none"], runs["telemetry"]
+    require(tree_equal(fa.x, fb.x) and tree_equal(fa.x_tilde, fb.x_tilde)
+            and torch.equal(ta.loss, tb.loss)
+            and torch.equal(ta.consensus, tb.consensus),
+            "clean slice: the telemetry replay (channel kernel) is not bit "
+            "for bit the clean replay (clean kernel)")
+    require(budget_holds(tr.telemetry)
+            and float(tr.telemetry.rejected.sum()) == 0,
+            "clean slice: budget or rejections wrong")
+    print(f"[{card}] 19b telemetry, clean A2CiD2 arm: "
+          f"channel_gossip_stacked {tel_l['channel_gossip_stacked']} == "
+          f"{comm_steps} comm steps, mixing_gossip_stacked 0 (without the "
+          f"spec: mixing_gossip_stacked {plain_l['mixing_gossip_stacked']}"
+          f"); final state bit for bit the clean replay's; replay "
+          f"{wall_n:.1f} ms without, {wall_t:.1f} ms with: "
+          f"{(wall_t - wall_n) / comm_steps:.2f} ms a comm step (host "
+          f"clock); applied {tr.telemetry.applied.tolist()}")
+    out["channel_gossip_stacked"] += tel_l["channel_gossip_stacked"]
+    del runs
+
+    # (c) engine against the per-event replay on the quadratic
+    sched = hostile.apply(make_schedule(graph, 20, comms_per_grad=1.5,
+                                        seed=SEED + 4), seed=SEED + 4)
+    for flavour, defense in (("channel", None),
+                             ("defense", AdaptiveDefense())):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        qsim, state = quadratic_sim(dev, gen, scale=0.1,
+                                    robust_clip=ROBUST_CLIP)
+        _, et = qsim.run_schedule(state, sched, defense=defense,
+                                  telemetry=spec)
+        _, rt = qsim.run_schedule(state, sched, defense=defense,
+                                  telemetry=spec, engine=False)
+        err = columns_agree(et.telemetry, rt.telemetry, flavour)
+        print(f"[{card}] 19c telemetry engine vs per-event, {flavour} "
+              f"(quadratic n=16 d=256, 20 rounds, hostile channel): "
+              f"applied {int(et.telemetry.applied.sum())} rejected "
+              f"{int(et.telemetry.rejected.sum())} equal exactly, moments "
+              f"max rel err {err:.3e} (tolerance {ENGINE_TOL:g})")
+
+    # (d) phase 9's channel + defense worlds batch in one call
+    base = World(topology=graph, channel=hostile)
+    worlds = [dataclasses.replace(base, algorithm=Algorithm(kind))
+              for _ in range(2) for kind in ("adpsgd", "a2cid2")]
+    defenses = [None, None, AdaptiveDefense(), AdaptiveDefense()]
+    scheds = [w.compile(CHANNEL_ROUNDS, seed=CHANNEL_SEED) for w in worlds]
+    comm_steps = worlds_comm_steps(scheds)
+    sim = Simulator(grad, params, GAMMA)
+    runs = twin_replays(
+        lambda: worlds_states(sim, params0, SEED + 1),
+        lambda st, tel: sim.run_worlds(
+            st, scheds, worlds=worlds, robust_clips=[ROBUST_CLIP] * N_WORLDS,
+            defenses=defenses, telemetry=tel), spec)
+    require_same_replay(runs, "channel worlds")
+    launched = runs["telemetry"][2]
+    require(launched["channel_gossip_worlds"] == comm_steps
+            and only_launched(launched, "channel_gossip_worlds"),
+            f"worlds with telemetry launched {launched}")
+    tel = runs["telemetry"][1].telemetry
+    require(budget_holds(tel), "worlds: applied + rejected + dropped != "
+                               "scheduled")
+    require(all(float(tel.rejected[b].sum()) > 0 for b in (2, 3)),
+            "a defense world's telemetry rejected nothing")
+    wall_n, wall_t = runs["none"][3], runs["telemetry"][3]
+    print(f"[{card}] 19d telemetry, B={N_WORLDS} channel + defense worlds "
+          f"in one run_worlds call: bit for bit the batch without it, "
+          f"channel_gossip_worlds {launched['channel_gossip_worlds']} == "
+          f"{comm_steps} both ways; rejected per world "
+          f"{tel.rejected.sum(dim=1).tolist()}, budget exact; replay "
+          f"{wall_n:.1f} ms without, {wall_t:.1f} ms with: "
+          f"{(wall_t - wall_n) / CHANNEL_ROUNDS:.2f} ms a round (host "
+          f"clock)")
+    out["channel_gossip_worlds"] += launched["channel_gossip_worlds"]
+    del runs
+
+    # each world's columns against its own serial replay's (quadratic)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    target = 0.1 * torch.randn(N_WORKERS, 256, generator=gen, device=dev)
+
+    def quad(x, generator, ids):
+        return 0.5 * ((x - target[ids]) ** 2).sum(dim=1), x - target[ids]
+
+    qsim = Simulator(quad, params, GAMMA)
+    qworlds = [World(topology=graph, channel=hostile,
+                     algorithm=Algorithm(("adpsgd", "a2cid2")[b % 2]),
+                     comms_per_grad=(1.0, 2.0, 1.5, 1.0)[b])
+               for b in range(N_WORLDS)]
+    qscheds = [w.compile(20, seed=SEED + 6 + b)
+               for b, w in enumerate(qworlds)]
+    gammas = [GAMMA, 0.5 * GAMMA, GAMMA, 2 * GAMMA]
+    qdef = [None, AdaptiveDefense(), None, AdaptiveDefense()]
+
+    def qstates():
+        return [qsim.init(torch.zeros(256, device=dev), N_WORKERS,
+                          torch.Generator(device=dev).manual_seed(b))
+                for b in range(N_WORLDS)]
+
+    _, trace = qsim.run_worlds(qstates(), qscheds, worlds=qworlds,
+                               gammas=gammas,
+                               robust_clips=[ROBUST_CLIP] * N_WORLDS,
+                               defenses=qdef, telemetry=spec)
+    err = 0.0
+    for b in range(N_WORLDS):
+        serial = dataclasses.replace(
+            qsim, params=qworlds[b].algorithm_params(), gamma=gammas[b],
+            robust_clip=ROBUST_CLIP)
+        _, st = serial.run_schedule(qstates()[b], qscheds[b],
+                                    defense=qdef[b], telemetry=spec)
+        one = trace.telemetry._replace(**{
+            k: getattr(trace.telemetry, k)[b] for k in (
+                "applied", "rejected", "norm_sum", "norm_sq_sum",
+                "scheduled", "stale_hist")})
+        err = max(err, columns_agree(one, st.telemetry, f"world {b}"))
+    print(f"[{card}] 19d worlds vs serial telemetry (quadratic n=16 d=256, "
+          f"20 rounds, B={N_WORLDS}, two defense worlds): counts equal "
+          f"exactly, moments max rel err {err:.3e} (tolerance "
+          f"{ENGINE_TOL:g})")
+    return out
+
+
+def phase_run_world_ar(card, params0, cfg, stream_cls, grad_fn_for) -> int:
+    """20: ``run_world`` bit for bit ``run_schedule`` of the compiled world
+    (a clean ring world with a telemetry spec), and the AR-SGD baseline
+    ``allreduce_sgd``; returns the channel kernel's launches of the
+    ``run_world`` replay."""
+    from repro_torch.core import (Simulator, Telemetry, World,
+                                  allreduce_sgd, params_from_graph,
+                                  ring_graph)
+    from repro_torch.core.tree import tree_leaves
+    dev = torch.device("cuda")
+    graph = ring_graph(N_WORKERS)
+    grad = grad_fn_for(cfg, stream_cls(batch_size=BATCH))
+    sim = Simulator(grad, params_from_graph(graph, True), GAMMA)
+    world = World(topology=graph, telemetry=Telemetry())
+    sched = world.compile(ROUNDS, seed=SEED)
+    comm_steps = stream_comm_steps(sched)
+    runs = {}
+    for label, run in (
+            ("run_world", lambda st: sim.run_world(st, world, ROUNDS,
+                                                   seed=SEED)),
+            ("run_schedule", lambda st: sim.run_schedule(
+                st, sched, telemetry=world.telemetry))):
+        state = sim.init(params0, N_WORKERS,
+                         torch.Generator(device=dev).manual_seed(SEED + 1))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        final, trace = run(state)
+        torch.cuda.synchronize()
+        runs[label] = (final, trace, read_launches(),
+                       (time.perf_counter() - t0) * 1e3)
+        del state
+    (fa, ta, la, wa), (fb, tb, lb, wb) = runs["run_world"], \
+        runs["run_schedule"]
+    require(tree_equal(fa.x, fb.x) and tree_equal(fa.x_tilde, fb.x_tilde)
+            and all(torch.equal(getattr(ta, k), getattr(tb, k))
+                    for k in ("loss", "consensus", "mean_param_norm"))
+            and all(torch.equal(getattr(ta.telemetry, k),
+                                getattr(tb.telemetry, k))
+                    for k in ("applied", "rejected", "norm_sum",
+                              "norm_sq_sum")),
+            "run_world is not bit for bit run_schedule of its compile")
+    require(la == lb and la["channel_gossip_stacked"] == comm_steps
+            and only_launched(la, "channel_gossip_stacked"),
+            f"run_world launched {la}, run_schedule {lb}")
+    print(f"[{card}] 20 run_world(World(ring, telemetry=Telemetry()), "
+          f"{ROUNDS}, seed={SEED}): bit for bit run_schedule of "
+          f"world.compile (x, x~, trace, telemetry columns); "
+          f"channel_gossip_stacked {la['channel_gossip_stacked']} == "
+          f"{comm_steps} both; loss {ta.loss.tolist()}; {wa:.1f} / "
+          f"{wb:.1f} ms (host clock)")
+    del runs, fa, fb
+
+    # AR-SGD: one batched gradient a round, the mean over the 16 workers
+    marks, spread = [], []
+
+    def timed_grad(x, generator, ids):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        # rows unequal anywhere (checked after the run, no host wait here)
+        spread.append(torch.stack([(a != a[:1]).any()
+                                   for a in tree_leaves(x)]).any())
+        return grad(x, generator, ids)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    x_last, losses = allreduce_sgd(timed_grad, GAMMA, params0, N_WORKERS,
+                                   ROUNDS, gen)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launched = read_launches()
+    # the returned leaves are worker 0's rows of the final stacked state
+    finals = [a._base for a in tree_leaves(x_last)]
+    require(all(f is not None and f.shape[0] == N_WORKERS for f in finals),
+            "allreduce_sgd's result is not a row of the stacked state")
+    spread.append(torch.stack([(f != f[:1]).any() for f in finals]).any())
+    require(not any(bool(s) for s in spread[1:]),
+            f"AR-SGD rows differ after a round: {[bool(s) for s in spread]}")
+    require(all(v == 0 for v in launched.values()),
+            f"AR-SGD launched a gossip kernel: {launched}")
+    require(losses.shape == (ROUNDS,) and bool(torch.isfinite(losses).all()),
+            f"AR-SGD losses {losses.tolist()}")
+    rounds_ms = [marks[r].elapsed_time((marks + [end])[r + 1])
+                 for r in range(ROUNDS)]
+    print(f"[{card}] 20 allreduce_sgd, ResNet-18-CIFAR, {N_WORKERS} workers "
+          f"x {BATCH}, {ROUNDS} rounds: losses {losses.tolist()}; the "
+          f"{N_WORKERS} rows bit for bit equal after every round; no "
+          f"kernel launched; a round (gradient, mean, step; CUDA events) "
+          f"{[round(t, 2) for t in rounds_ms]} ms, {wall:.1f} ms in all "
+          f"(host clock)")
+    return la["channel_gossip_stacked"]
+
+
+# ------------------------------ 21: synchronous LM training, checkpoints
+SYNC_STEPS, SYNC_TOL = 4, 1e-4   # the port's LM gradient tolerance
+
+
+def phase_sync_train(card, stream) -> None:
+    """21: ``launch.train.run_sync`` on nano-lm at full width and the CLI's
+    defaults, 4 steps; the same 4 batches with ``remat=True`` and with 2
+    micro-batches of 4 within SYNC_TOL of it; then the checkpoints."""
+    from repro_torch.checkpoint import load_pytree, restore, save, \
+        save_pytree
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.optim import Optimizer, sgd
+    dev = torch.device("cuda")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    tmp = Path(tmp_dir.name)
+    args = train.build_parser().parse_args(
+        ["--mode", "sync", "--full", "--arch", "nano-lm", "--steps",
+         str(SYNC_STEPS), "--no-bayes-ce", "--ckpt", str(tmp / "sync")])
+    timer = ReplayTimer()
+
+    def timed_sgd():
+        opt = sgd()
+        return Optimizer(opt.init, timer.wrap("opt", opt.update))
+
+    def timed_make(*a, **kw):
+        step, opt = make_train_step(*a, **kw)
+        return timer.wrap("step", step), opt
+
+    peaks = {}   # (peak above the run's start, allocated at its start)
+
+    def mark():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    orig = train.sgd, train.make_train_step
+    train.sgd, train.make_train_step = timed_sgd, timed_make
+    timer.arm = "plain"
+    base = mark()
+    reset_launches()
+    try:
+        run = train.run_sync(args, stream=stream)
+    finally:
+        train.sgd, train.make_train_step = orig
+    peaks["plain"] = (torch.cuda.max_memory_allocated() - base, base)
+    launched = read_launches()
+    require(all(v == 0 for v in launched.values()),
+            f"the sync step launched a hand kernel: {launched}")
+    n_params = sum(a.numel() for a in tree_leaves(run.state.params))
+    require(n_params == NANO_PARAMS, f"nano-lm has {n_params} parameters")
+    require(run.losses.shape == (SYNC_STEPS,)
+            and bool(torch.isfinite(run.losses).all()),
+            f"sync losses {run.losses.tolist()}")
+
+    # the same batches: run_sync draws them from a generator seeded
+    # seed + 1, one stream.sample a step
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    batches = [stream.sample(gen) for _ in range(SYNC_STEPS)]
+    model = run.model
+    errs = {}
+    for label, kw in (("remat", dict(remat=True)),
+                      ("2 micro-batches", dict(remat=False,
+                                               num_microbatches=2))):
+        timer.arm = label
+        base = mark()
+        step, opt = timed_make(model, timed_sgd(), lr=args.lr, **kw)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            args.seed))
+        state = TrainState(params, opt.init(params))
+        del params
+        losses = []
+        for b in batches:
+            if "num_microbatches" in kw:
+                b = {k: v.reshape(2, v.shape[0] // 2, *v.shape[1:])
+                     for k, v in b.items()}
+            state, met = step(state, b)
+            losses.append(met["loss"])
+        torch.cuda.synchronize()
+        peaks[label] = (torch.cuda.max_memory_allocated() - base, base)
+        err = max([rel_err(torch.stack(losses), run.losses)]
+                  + [rel_err(a, c) for a, c in zip(
+                      tree_leaves(state.params),
+                      tree_leaves(run.state.params))])
+        require(err <= SYNC_TOL, f"{label}: losses or params differ from "
+                                 f"the plain run by {err:.3e} > {SYNC_TOL}")
+        errs[label] = (err, [round(float(v), 5) for v in losses])
+        del state
+    for label in ("plain", "remat", "2 micro-batches"):
+        st, op = timer.ms(label, "step"), timer.ms(label, "opt")
+        require(len(st) == SYNC_STEPS and len(op) == SYNC_STEPS,
+                f"{label}: timed {len(st)} steps, {len(op)} updates")
+        extra = "" if label == "plain" else (
+            f"; losses {errs[label][1]}, max rel err vs plain "
+            f"{errs[label][0]:.3e} (tolerance {SYNC_TOL:g})")
+        print(f"[{card}] 21 sync {label}: step (CUDA events) "
+              f"{[round(t, 2) for t in st]} ms = forward + backward "
+              f"{[round(s - o, 2) for s, o in zip(st, op)]} + optimizer "
+              f"{[round(o, 2) for o in op]} ms; peak memory "
+              f"{peaks[label][0] / 2**30:.2f} GiB above the "
+              f"{peaks[label][1] / 2**30:.2f} GiB allocated at its start "
+              f"(the stream's (V, V) chain; for the later runs also the "
+              f"plain run's state and the batches){extra}")
+    print(f"[{card}] 21 run_sync nano-lm full ({n_params} parameters), "
+          f"batch {args.batch_size} x {args.seq_len}, lr {args.lr}, sgd(), "
+          f"{SYNC_STEPS} steps: losses {run.losses.tolist()}; "
+          f"{run.seconds * 1e3:.1f} ms (host clock); no hand kernel "
+          f"launched (xla attention path)")
+
+    # checkpoints: the CLI's params, the whole TrainState, a bf16 copy,
+    # retention, and run_sim's stacked replicas
+    fresh = model.init(torch.Generator(device=dev).manual_seed(7))
+    step_n, params = restore(str(tmp / "sync"), fresh)
+    require(step_n == SYNC_STEPS and tree_equal(params, run.state.params),
+            "--ckpt params do not reload bit for bit")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save(str(tmp / "state"), SYNC_STEPS, run.state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    like = TrainState(fresh, sgd().init(fresh))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_n, back = restore(str(tmp / "state"), like)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    require(type(back) is TrainState and tree_equal(back, run.state),
+            "restore into a fresh TrainState is not bit for bit")
+    nbytes = sum(a.numel() * a.element_size()
+                 for a in tree_leaves(run.state) if a is not None)
+    bf16 = tree_map(lambda a: a.to(torch.bfloat16), run.state.params)
+    save_pytree(str(tmp / "bf16.msgpack"), bf16)
+    back16 = load_pytree(str(tmp / "bf16.msgpack"), bf16)
+    require(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                for a, b in zip(tree_leaves(back16), tree_leaves(bf16))),
+            "the bf16 tree does not round-trip bit for bit")
+    for s in range(1, 6):
+        save(str(tmp / "keep"), s, {"w": torch.full((4,), float(s),
+                                                    device=dev)})
+    kept = sorted(p.name for p in (tmp / "keep").iterdir())
+    require(kept == [f"step_{s:08d}" for s in (3, 4, 5)],
+            f"retention kept {kept}")
+    sim_args = train.build_parser().parse_args(
+        ["--full", "--arch", "nano-lm", "--workers", "2", "--steps", "2",
+         "--no-bayes-ce", "--ckpt", str(tmp / "sim")])
+    sim_run = train.run_sim(sim_args, stream=stream)
+    step_n, x = restore(str(tmp / "sim"), sim_run.state.x)
+    require(step_n == 2 and tree_equal(x, sim_run.state.x),
+            "run_sim --ckpt's stacked x does not reload bit for bit")
+    sim_bytes = (tmp / "sim" / "step_00000002" / "state.msgpack").stat() \
+        .st_size
+    print(f"[{card}] 21 checkpoints: --ckpt params restore bit for bit into "
+          f"a fresh tree; the TrainState ({nbytes / 1e9:.3f} GB) saves in "
+          f"{save_ms:.1f} ms and restores bit for bit in {load_ms:.1f} ms "
+          f"(host clock, card to file and back); a bf16 copy round-trips "
+          f"bit for bit; retention keeps {kept} of 5 saves; run_sim "
+          f"--ckpt (2 workers, 2 rounds) wrote the stacked x "
+          f"({sim_bytes / 1e9:.3f} GB), reloaded bit for bit")
+    del sim_run, run
+    tmp_dir.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2673,7 +3263,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["flash_attention_bhsd"] = phase_prefill(card, nano, consensus,
                                                      stream)
-    del consensus, stream
+    del consensus   # the stream's (V, V) chain stays for phase 21
     print(f"[{card}] phases 1-14 done at {time.perf_counter() - t_start:.1f}"
           f" s")
     torch.cuda.empty_cache()
@@ -2693,6 +3283,22 @@ def main() -> int:
     launches["channel_gossip_stacked"] += (spmd["channel_gossip_stacked"]
                                            + stacked["channel_gossip_stacked"])
     print(f"[{card}] phases 1-18 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    # phases 19-20 hold two ResNet replays bit for bit against each other:
+    # deterministic cuDNN algorithms from here on
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    tel = phase_telemetry(card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)
+    torch.cuda.empty_cache()
+    tel["channel_gossip_stacked"] += phase_run_world_ar(
+        card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)
+    for name, n in tel.items():   # the telemetry paths (19, 20)
+        launches[name] += n
+    torch.cuda.empty_cache()
+    phase_sync_train(card, stream)
+    del stream
+    print(f"[{card}] phases 1-21 done at {time.perf_counter() - t_start:.1f}"
           f" s")
 
     print(card)

@@ -56,6 +56,15 @@ def opt_state_from_jax(np_opt, device="cuda"):
                     else params_from_jax(np_opt.nu, dev))
 
 
+def train_state_from_jax(np_state, device="cuda"):
+    """A JAX ``launch.steps.TrainState`` (numpy leaves: the params and the
+    ``OptState``) -> the port's ``TrainState``."""
+    from .launch.steps import TrainState
+    dev = resolve_device(device)
+    return TrainState(params_from_jax(np_state.params, dev),
+                      opt_state_from_jax(np_state.opt, dev))
+
+
 def _ring_from_jax(np_ring, dev):
     from .core.gossip import DelayRing
     if np_ring is None:

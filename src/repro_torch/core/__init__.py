@@ -2,15 +2,16 @@
 from .a2cid2 import (ALGORITHM_KINDS, A2CiD2Params, Algorithm, acid_params,
                      apply_mixing, baseline_params, consensus_distance,
                      gradient_event, matched_p2p_update, mixing_coeff,
-                     params_from_graph, worker_mean)
+                     p2p_event, params_from_graph, worker_mean)
 from .channel import (ByzantineEdges, ChannelModel, DelayProcess,
                       degradation_profile, has_channel_extras)
 from .defense import AdaptiveDefense, DefenseTrace
-from .engine import FlatGossipEngine
+from .engine import FlatGossipEngine, mix_flat
 from .events import (BatchedSchedule, BatchedStream, CoalescedSchedule,
                      EventStream, Schedule, coalesce_schedule,
-                     coalesced_stream, concat_schedules, make_schedule,
-                     make_topology_schedule, stack_schedules, stack_streams)
+                     coalesced_stream, concat_schedules, empirical_laplacian,
+                     make_schedule, make_topology_schedule, stack_schedules,
+                     stack_streams)
 from .flatbuf import FlatLayout, LeafSpec
 from .gossip import (DelayRing, GossipMixer, WorkerAxis, bank_corruption,
                      bank_edge_rates, check_mesh_channel,
@@ -19,7 +20,9 @@ from .gossip import (DelayRing, GossipMixer, WorkerAxis, bank_corruption,
 from .graphs import (Graph, TopologyPhase, TopologySchedule, build_graph,
                      complete_graph, exponential_graph, hypercube_graph,
                      ring_graph, star_graph, torus_graph)
-from .simulator import SimState, SimTrace, Simulator
+from .simulator import SimState, SimTrace, Simulator, allreduce_sgd
+from .telemetry import (Telemetry, TelemetryTrace, row_bytes_of,
+                        trace_summary)
 from .world import (SERVE_ARRIVE_KEY, ChurnProcess, LinkModel, PhaseSwitch,
                     RequestTrace, ServeLoad, WorkerModel, World, WorldSweep)
 
@@ -27,14 +30,14 @@ __all__ = [
     "ALGORITHM_KINDS", "A2CiD2Params", "Algorithm", "acid_params",
     "apply_mixing", "baseline_params",
     "consensus_distance", "gradient_event", "matched_p2p_update",
-    "mixing_coeff", "params_from_graph", "worker_mean",
+    "mixing_coeff", "p2p_event", "params_from_graph", "worker_mean",
     "ByzantineEdges", "ChannelModel", "DelayProcess",
     "degradation_profile", "has_channel_extras",
     "AdaptiveDefense", "DefenseTrace",
-    "FlatGossipEngine",
+    "FlatGossipEngine", "mix_flat",
     "BatchedSchedule", "BatchedStream", "CoalescedSchedule", "EventStream",
     "Schedule", "coalesce_schedule", "coalesced_stream", "concat_schedules",
-    "make_schedule", "make_topology_schedule", "stack_schedules",
+    "empirical_laplacian", "make_schedule", "make_topology_schedule", "stack_schedules",
     "stack_streams",
     "FlatLayout", "LeafSpec",
     "DelayRing", "GossipMixer", "WorkerAxis", "bank_corruption",
@@ -43,7 +46,8 @@ __all__ = [
     "Graph", "TopologyPhase", "TopologySchedule", "build_graph",
     "complete_graph", "exponential_graph", "hypercube_graph", "ring_graph",
     "star_graph", "torus_graph",
-    "SimState", "SimTrace", "Simulator",
+    "SimState", "SimTrace", "Simulator", "allreduce_sgd",
+    "Telemetry", "TelemetryTrace", "row_bytes_of", "trace_summary",
     "SERVE_ARRIVE_KEY", "ChurnProcess", "LinkModel", "PhaseSwitch",
     "RequestTrace", "ServeLoad", "WorkerModel", "World", "WorldSweep",
 ]

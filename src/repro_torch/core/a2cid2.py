@@ -239,6 +239,27 @@ def gradient_event(x: PyTree, x_tilde: PyTree, grads: PyTree, gamma: float
     return tree_map(upd, x, grads), tree_map(upd, x_tilde, grads)
 
 
+def p2p_event(x_i: PyTree, x_tilde_i: PyTree, x_j: PyTree,
+              params: A2CiD2Params) -> tuple[PyTree, PyTree]:
+    """One side of a pairwise averaging event on edge (i, j).
+
+    m = x_i - x_j;  x_i -= alpha*m ; x_tilde_i -= alpha_tilde*m.
+    The j side is obtained by calling with roles swapped (m flips sign).
+    With alpha = 1/2 the x-update is exact pairwise averaging.
+    """
+    def upd(a, at, b):
+        m = a - b
+        return (a - dtype_scalar(params.alpha, a.dtype) * m,
+                at - dtype_scalar(params.alpha_tilde, a.dtype) * m)
+
+    flat_i, treedef = tree_flatten(x_i)
+    flat_ti = treedef.flatten_up_to(x_tilde_i)
+    flat_j = treedef.flatten_up_to(x_j)
+    out = [upd(a, at, b) for a, at, b in zip(flat_i, flat_ti, flat_j)]
+    return (treedef.unflatten([o[0] for o in out]),
+            treedef.unflatten([o[1] for o in out]))
+
+
 def matched_p2p_update(x: PyTree, x_tilde: PyTree, partner: torch.Tensor,
                        params: A2CiD2Params) -> tuple[PyTree, PyTree]:
     """Apply one matching round to stacked worker states.

@@ -62,6 +62,21 @@ def norm_scale(nrm: torch.Tensor, tau, rule: str) -> torch.Tensor:
     return torch.clamp(tau / torch.clamp(nrm, min=1e-30), max=1.0).float()
 
 
+def _delta_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a - b`` taken at f32 or wider (a's dtype promoted), then f32."""
+    acc = torch.promote_types(a.dtype, torch.float32)
+    return (a.to(acc) - b.to(acc)).float()
+
+
+def mix_flat(bx: torch.Tensor, bxt: torch.Tensor, eta: float, dt
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pure mixing pass on flat buffers; ``dt`` broadcasts ((W,) against
+    (W, D) after the trailing-axis insert, or a scalar against (D,)).  A
+    flat buffer is a single-leaf pytree, so this is exactly
+    ``a2cid2.apply_mixing``."""
+    return apply_mixing(bx, bxt, eta, dt)
+
+
 def mix_worlds(bx: torch.Tensor, bxt: torch.Tensor, eta: torch.Tensor,
                dt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """World-batched mixing pass: (B, W, D) buffers, (B,) per-world eta,
@@ -165,10 +180,12 @@ class FlatGossipEngine:
         """f32 L2 norms of the corrupted channel deltas over the row axis
         ``axes`` ((W,) for (W, D) buffers with axes=1, (B, W) for worlds
         with axes=2, one 0-dim norm for a worker's (D,) vector with
-        axes=None): the subtraction at the buffer dtype, the squares and
-        sum in f32."""
+        axes=None): the product at the buffer dtype, the subtraction, the
+        squares and the sum in f32 (or wider).  JAX writes the difference
+        at the buffer dtype too, but XLA drops the rounding of a value that
+        is converted straight to f32, so at bf16 the JAX norms are these."""
         cadv = (1.0 + corrupt.float()).to(bx.dtype).unsqueeze(-1)
-        m32 = (bx - cadv * xp).float()
+        m32 = _delta_f32(bx, cadv * xp)
         return torch.sqrt((m32 * m32).sum(dim=axes))
 
     def _mscale(self, bx: torch.Tensor, xp: torch.Tensor,

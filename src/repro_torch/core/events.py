@@ -120,6 +120,21 @@ class Schedule:
         mask = gate if self.grad_mask is None else (self.grad_mask & gate)
         return dataclasses.replace(self, grad_mask=mask)
 
+    def comm_events_per_round(self) -> np.ndarray:
+        """(R,) pairwise communication count per round (benchmark x-axis)."""
+        idx = np.arange(self.n)
+        out = np.zeros(self.rounds, dtype=np.int64)
+        for r in range(self.rounds):
+            for k in range(self.partners.shape[1]):
+                if self.event_mask[r, k]:
+                    out[r] += int(np.sum(self.partners[r, k] != idx)) // 2
+        return out
+
+    def num_comm_events(self) -> int:
+        """Total pairwise communications in the schedule (counted per
+        pair)."""
+        return int(self.comm_events_per_round().sum())
+
 
 def make_schedule(
     graph: Graph,
@@ -782,3 +797,25 @@ def stack_streams(cs_list: list[CoalescedSchedule],
         grad_pos=s0.grad_pos,
         t_final=np.stack([st.t_final for st in streams]),
         extras=extras)
+
+
+def empirical_laplacian(schedule: Schedule, rounds: int | None = None
+                        ) -> np.ndarray:
+    """Empirical expected Laplacian from realized matchings (paper App
+    E.2)."""
+    R = rounds or schedule.rounds
+    n = schedule.n
+    L = np.zeros((n, n))
+    for r in range(R):
+        for k in range(schedule.partners.shape[1]):
+            if not schedule.event_mask[r, k]:
+                continue
+            p = schedule.partners[r, k]
+            for i in range(n):
+                j = int(p[i])
+                if j > i:
+                    L[i, i] += 1
+                    L[j, j] += 1
+                    L[i, j] -= 1
+                    L[j, i] -= 1
+    return L / R

@@ -38,8 +38,13 @@ The JAX ``lax.scan``/``lax.cond`` become a host loop over the precomputed
 stream.  ``is_grad`` and the ring slots stay on the host, the per-step
 schedule arrays are copied to the device once, and the per-round metrics
 and the defense state stay on the device until the replay ends, so the
-loop never waits for the card.  The telemetry and sharded flavors are not
-ported yet; ``run_schedule`` refuses them instead of taking another path.
+loop never waits for the card.  A ``Telemetry`` spec (``core/telemetry.py``)
+threads a small f32 accumulator of applied and rejected reads and delta-norm
+moments through the channel flavours' comm steps, emitted and reset at each
+gradient tick; it forces the channel flavour even for a clean schedule (at
+horizon 0, corrupt 0 and mscale 1 the channel kernel is the clean one), and
+with ``telemetry=None`` nothing of it runs.  The sharded flavour is not
+ported yet; ``mesh=`` is refused instead of taking another path.
 
 ``run_worlds`` replays B independent worlds at once, in the engine's three
 flavors (plain, channel, defense) on (B, W, D) buffers and (B, H, W, D)
@@ -66,11 +71,13 @@ from .a2cid2 import (A2CiD2Params, apply_mixing, consensus_distance,
 from .channel import CORRUPT_KEY, STALE_KEY
 from .defense import (DefenseTrace, defense_absorb, defense_comm,
                       defense_grad, defense_init, knobs_single, knobs_worlds)
-from .engine import FlatGossipEngine, norm_scale
+from .engine import FlatGossipEngine, _delta_f32, norm_scale
 from .events import (Schedule, coalesce_schedule, coalesced_stream,
                      stack_schedules, stack_streams)
 from .flatbuf import (FlatLayout, ring_init, ring_init_worlds, ring_push,
                       ring_push_worlds, ring_read)
+from .telemetry import (Telemetry, batch_schedule_columns, finalize_trace,
+                        row_bytes_of, schedule_columns)
 from .tree import PyTree, tree_flatten, tree_leaves, tree_map
 
 # grad_fn(x_stacked, generator, worker_ids) -> (losses (n,), grads) for ALL
@@ -100,12 +107,52 @@ class SimTrace(NamedTuple):
     # control-loop trace (defense.DefenseTrace) on the self-healing
     # replays, None elsewhere
     defense: Any = None
+    # flight-recorder columns (telemetry.TelemetryTrace) when a Telemetry
+    # spec was passed, None elsewhere; inside the replay loops it briefly
+    # holds the raw runtime tuple, which the entry points finalize
+    telemetry: Any = None
 
 
 def _stack_rows(rows, cls, dim: int = 0):
     """Per-round tuples of 0-d tensors -> ``cls`` of (rounds,) tensors; of
     (B,) tensors with ``dim=1`` -> (B, rounds)."""
     return cls(*(torch.stack(c, dim=dim) for c in zip(*rows)))
+
+
+def _check_telemetry(telemetry) -> None:
+    if telemetry is not None and not isinstance(telemetry, Telemetry):
+        raise ValueError("telemetry must be a telemetry.Telemetry, "
+                         f"got {type(telemetry).__name__}")
+
+
+def _tel_zeros(shape, device):
+    """A fresh telemetry accumulator: (applied, rejected, norm_sum,
+    norm_sq_sum), f32 scalars serially or (B,) world-batched."""
+    z = torch.zeros(shape, dtype=torch.float32, device=device)
+    return (z, z, z, z)
+
+
+def _tel_step(acc, involved, rej, nrm, batched: bool = False):
+    """Fold one comm step into the accumulator.  ``involved`` is the
+    directed-read mask ((n,) or (B, n)), ``rej`` the rejected subset,
+    ``nrm`` the per-read channel-delta norms; the moments are taken over
+    ADMITTED reads only (rejected garbage would swamp them)."""
+    a_cnt, r_cnt, s1, s2 = acc
+    inv = involved.float()
+    rj = rej.float() * inv
+    adm = inv - rj
+    dim = 1 if batched else 0
+    nf = nrm.float()
+    return (a_cnt + adm.sum(dim), r_cnt + rj.sum(dim),
+            s1 + (nf * adm).sum(dim), s2 + (nf * nf * adm).sum(dim))
+
+
+def _finish(trace: SimTrace, trows, dim: int = 0) -> SimTrace:
+    """Attach the emitted accumulator rows as the raw runtime columns."""
+    if trows is None:
+        return trace
+    return trace._replace(telemetry=tuple(torch.stack(c, dim=dim)
+                                          for c in zip(*trows)))
 
 
 def _cadv(corrupt: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -153,6 +200,32 @@ class Simulator:
                         t_last=torch.zeros(n, dtype=torch.float32,
                                            device=self.device),
                         generator=generator)
+
+    # ------------------------------------------------ telemetry accounting
+    def _tel_rej(self, nrm: torch.Tensor, tau=None) -> torch.Tensor:
+        """Rejected-read mask under the replay's robust rule.  Only the trim
+        rule REJECTS a read; 'clip' and 'coord' attenuate but still apply
+        it.  ``tau`` ((B,) f32 per-world thresholds) overrides the static
+        threshold; tau = inf rejects nothing."""
+        tval = tau if tau is not None else self.robust_clip
+        if tval is None or self.robust_rule != "trim":
+            return torch.zeros_like(nrm)
+        t = torch.as_tensor(tval, dtype=torch.float32, device=nrm.device)
+        t = t.reshape(t.shape + (1,) * (nrm.dim() - t.dim()))
+        return (nrm > t).float()
+
+    @staticmethod
+    def _row_bytes(state: SimState, worlds: bool = False) -> int:
+        """Flat-row transfer size for the bytes-moved column; the sum of
+        the leaf widths where no flat buffer can hold the tree."""
+        try:
+            return row_bytes_of(FlatLayout.from_pytree(
+                state.x, stacked=True, worlds=worlds))
+        except TypeError:
+            lead = 2 if worlds else 1
+            return sum(int(np.prod(leaf.shape[lead:], dtype=np.int64))
+                       * leaf.element_size()
+                       for leaf in tree_leaves(state.x))
 
     # ------------------------------------------------------ per-event path
     def reference_arrays(self, sched: Schedule):
@@ -222,7 +295,7 @@ class Simulator:
         norms of the corrupted channel deltas (per-leaf f32 square-sums)."""
         flat_x, treedef = tree_flatten(x)
         flat_p = treedef.flatten_up_to(xp)
-        nrm2 = sum(((a - _cadv(corrupt, a) * b).float() ** 2)
+        nrm2 = sum((_delta_f32(a, _cadv(corrupt, a) * b) ** 2)
                    .reshape(a.shape[0], -1).sum(dim=1)
                    for a, b in zip(flat_x, flat_p))
         return torch.sqrt(nrm2)
@@ -296,11 +369,14 @@ class Simulator:
                 grad_scale, alive, ring_pos), horizon
 
     def run_channel(self, state: SimState, schedule_arrays, horizon: int,
-                    knobs=None) -> tuple[SimState, SimTrace]:
+                    knobs=None, tel: Telemetry | None = None
+                    ) -> tuple[SimState, SimTrace]:
         """Per-event channel replay: stale reads from a ring of per-round
         snapshots, corrupted received values, the robust m-term.  With
         defense ``knobs`` (``defense.knobs_single``) the self-healing loop
-        runs per event and the trace carries a ``DefenseTrace``."""
+        runs per event and the trace carries a ``DefenseTrace``; with a
+        telemetry spec ``tel`` each round's accumulator rides along and the
+        trace carries its raw runtime columns."""
         (partners, times, mask, src_slots, corrupts, grad_times, grad_scale,
          alive, ring_pos) = schedule_arrays
         x, xt, t_last = state.x, state.x_tilde, state.t_last
@@ -310,7 +386,9 @@ class Simulator:
             if horizon else None
         ds = None if knobs is None else defense_init(n, t_last.device)
         rows, drows = [], []
+        trows = None if tel is None else []
         for r in range(partners.shape[0]):
+            acc = None if tel is None else _tel_zeros((), t_last.device)
             for k in range(partners.shape[1]):
                 partner, corrupt = partners[r, k], corrupts[r, k]
                 x, xt, t_last, involved = self._comm_mix(
@@ -321,6 +399,10 @@ class Simulator:
                 else:
                     xp = tree_map(lambda a: a.index_select(0, partner), x)
                 if ds is None:
+                    if acc is not None:
+                        nrm = self._delta_norms_tree(x, xp, corrupt)
+                        acc = _tel_step(acc, involved, self._tel_rej(nrm),
+                                        nrm)
                     # idle/masked rows read themselves fresh with corrupt
                     # 0, so m = 0
                     x, xt = self._channel_p2p(x, xt, xp, corrupt)
@@ -330,12 +412,16 @@ class Simulator:
                                                 involved, nrm)
                 x, xt = self._p2p_from(x, xt, xp, corrupt, mscale=mscale)
                 # the kernel's rejection output IS (mscale == 0)
-                ds = defense_absorb(ds, (mscale == 0.0).float(), quar,
-                                    involved)
+                rej = (mscale == 0.0).float()
+                ds = defense_absorb(ds, rej, quar, involved)
+                if acc is not None:
+                    acc = _tel_step(acc, involved, rej, nrm)
             x, xt, t_last, row = self._gradient_round(
                 x, xt, t_last, state.generator, grad_times[r],
                 grad_scale[r], alive[r], ids)
             rows.append(row)
+            if acc is not None:
+                trows.append(acc)
             if ds is not None:
                 ds, drow = defense_grad(knobs, ds)
                 drows.append(drow)
@@ -343,7 +429,7 @@ class Simulator:
                 # end-of-round snapshot: post-gradient, pre-trailing-mixing
                 tree_map(lambda ra, a: ring_push(ra, a, int(ring_pos[r])),
                          ring, x)
-        trace = _stack_rows(rows, SimTrace)
+        trace = _finish(_stack_rows(rows, SimTrace), trows)
         if ds is not None:
             trace = trace._replace(defense=_stack_rows(drows, DefenseTrace))
         return SimState(x, xt, t_last, state.generator), trace
@@ -440,13 +526,17 @@ class Simulator:
                          ring_pos), horizon
 
     def run_channel_coalesced(self, state: SimState, stream_arrays,
-                              horizon: int, knobs=None
+                              horizon: int, knobs=None,
+                              tel: Telemetry | None = None
                               ) -> tuple[SimState, SimTrace]:
         """Flat-buffer engine replay of a channel stream: per comm step the
         partner values are gathered (fresh rows or ring snapshots) and ONE
         channel-kernel launch applies the batch; the ring takes a snapshot
         at each gradient tick.  With defense ``knobs`` the self-healing loop
-        runs per fused batch, fed by the kernel's own rejection mask."""
+        runs per fused batch, fed by the kernel's own rejection mask.  With
+        a telemetry spec ``tel`` the accumulator folds in each comm step
+        (one more delta-norm reduce a step off the defense path) and is
+        emitted and reset at each gradient tick, all on the device."""
         (prologue, partners, dt_next, is_grad, grad_scale, _grad_pos,
          t_final, corrupt, src_slot, ring_pos) = stream_arrays
         engine = FlatGossipEngine.for_pytree(state.x, self.params,
@@ -459,7 +549,8 @@ class Simulator:
         ids = torch.arange(n, device=bx.device)
         ring = ring_init(bx, horizon) if horizon else None
         ds = None if knobs is None else defense_init(n, bx.device)
-        rows, drows = [], []
+        acc = None if tel is None else _tel_zeros((), bx.device)
+        rows, drows, trows = [], [], []
         for s in range(len(is_grad)):
             if not is_grad[s]:
                 partner = partners[s]
@@ -469,6 +560,10 @@ class Simulator:
                 else:
                     xp = bx.index_select(0, partner.long())
                 if ds is None:
+                    if acc is not None:
+                        nrm = engine.delta_norms(bx, xp, corrupt[s])
+                        acc = _tel_step(acc, partner != ids,
+                                        self._tel_rej(nrm), nrm)
                     bx, bxt = engine.channel_batch(bx, bxt, xp, corrupt[s],
                                                    dt_next[s])
                     continue
@@ -479,10 +574,15 @@ class Simulator:
                 bx, bxt, rej = engine.channel_batch_scaled(
                     bx, bxt, xp, corrupt[s], mscale, dt_next[s])
                 ds = defense_absorb(ds, rej, quar, involved)
+                if acc is not None:
+                    acc = _tel_step(acc, involved, rej, nrm)
                 continue
             bx, bxt, row = self._grad_tick(engine, bx, bxt, state.generator,
                                            grad_scale[s], ids)
             rows.append(row)
+            if acc is not None:
+                trows.append(acc)
+                acc = _tel_zeros((), bx.device)
             if ds is not None:
                 ds, drow = defense_grad(knobs, ds)
                 drows.append(drow)
@@ -491,28 +591,41 @@ class Simulator:
             bx, bxt = engine.mix(bx, bxt, dt_next[s])
         final = SimState(engine.unpack(bx), engine.unpack(bxt), t_final,
                          state.generator)
-        trace = _stack_rows(rows, SimTrace)
+        trace = _finish(_stack_rows(rows, SimTrace),
+                        None if tel is None else trows)
         if ds is not None:
             trace = trace._replace(defense=_stack_rows(drows, DefenseTrace))
         return final, trace
 
+    def run_world(self, state: SimState, world, rounds: int | None = None,
+                  *, seed: int = 0, engine: bool = True
+                  ) -> tuple[SimState, SimTrace]:
+        """Compile a declarative ``world.World`` and replay it: sugar for
+        ``run_schedule(state, world.compile(rounds, seed))`` with the
+        world's defense and telemetry spec riding along."""
+        return self.run_schedule(state, world.compile(rounds, seed=seed),
+                                 engine=engine,
+                                 defense=getattr(world, "defense", None),
+                                 telemetry=getattr(world, "telemetry", None))
+
     def run_schedule(self, state: SimState, sched: Schedule, *,
-                     engine: bool = True, defense=None, telemetry=None,
+                     engine: bool = True, defense=None,
+                     telemetry: Telemetry | None = None,
                      mesh=None) -> tuple[SimState, SimTrace]:
         """Replay a schedule: the engine by default, the per-event path
         with ``engine=False``.  Channel schedules (``stale``/``corrupt``
-        extras) and robust aggregation take the channel twins, an active
-        ``defense`` their self-healing form; everything else the plain
-        paths.  On the CPU a tree that no flat buffer can hold (e.g. int
-        leaves) takes the per-event path; on the card it is refused, so
-        the kernels are never skipped quietly."""
-        missing = [(mesh is not None, "mesh=... (the sharded replay)"),
-                   (telemetry is not None,
-                    "telemetry=... (the telemetry slice)")]
-        for hit, what in missing:
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet")
+        extras), robust aggregation and a ``telemetry`` spec take the
+        channel twins, an active ``defense`` their self-healing form;
+        everything else the plain paths.  With a spec the trace's
+        ``telemetry`` is a ``TelemetryTrace``.  On the CPU a tree that no
+        flat buffer can hold (e.g. int leaves) takes the per-event path; on
+        the card it is refused, so the kernels are never skipped
+        quietly."""
+        if mesh is not None:
+            raise NotImplementedError("mesh=... (the sharded replay) is not "
+                                      "ported to PyTorch yet")
+        _check_telemetry(telemetry)
+        tel = telemetry
         active = defense is not None and defense.is_active
         if active and self.robust_rule != "trim":
             raise ValueError("the self-healing defense needs "
@@ -530,20 +643,35 @@ class Simulator:
                         f"per-event replay") from err
                 engine = False  # e.g. int leaves: per-event path handles
         extras = sched.extras_dict()
+        # a telemetry spec forces the channel flavour, which carries the
+        # accumulator: a clean schedule runs it at horizon 0, corrupt 0 and
+        # mscale 1, where the channel kernel is the clean one bit for bit
         channel = (active or STALE_KEY in extras or CORRUPT_KEY in extras
-                   or self.robust_clip is not None)
+                   or self.robust_clip is not None or tel is not None)
         knobs = knobs_single(defense, self.robust_clip, self.device) \
             if active else None
+        # schedule columns and row bytes before dispatch: the kernels
+        # write x~ in place
+        rb = self._row_bytes(state) if tel is not None and tel.bytes_moved \
+            else 0
+        cols = schedule_columns(tel, sched) if tel is not None else None
         if engine and channel:
             arrays, horizon = self.channel_coalesced_arrays(state, sched)
-            return self.run_channel_coalesced(state, arrays, horizon, knobs)
-        if engine:
+            out = self.run_channel_coalesced(state, arrays, horizon, knobs,
+                                             tel)
+        elif engine:
             return self.run_coalesced(state,
                                       self.coalesced_arrays(state, sched))
-        if channel:
+        elif channel:
             arrays, horizon = self.channel_reference_arrays(sched)
-            return self.run_channel(state, arrays, horizon, knobs)
-        return self.run(state, self.reference_arrays(sched))
+            out = self.run_channel(state, arrays, horizon, knobs, tel)
+        else:
+            return self.run(state, self.reference_arrays(sched))
+        if tel is None:
+            return out
+        final, tr = out
+        return final, tr._replace(
+            telemetry=finalize_trace(tel, tr.telemetry, cols, rb))
 
     # --------------------------------------------- world-batched replay
     @staticmethod
@@ -690,7 +818,8 @@ class Simulator:
         return final, _stack_rows(rows, SimTrace, dim=1)
 
     def run_worlds_channel(self, state: SimState, pw, gammas, taus,
-                           stream_arrays, horizon: int, knobs=None
+                           stream_arrays, horizon: int, knobs=None,
+                           tel: Telemetry | None = None
                            ) -> tuple[SimState, SimTrace]:
         """World-batched channel replay: per shared comm step the partner
         values of every world are gathered (fresh rows or ring snapshots)
@@ -698,7 +827,9 @@ class Simulator:
         world's ring takes a snapshot at each gradient tick.  ``taus``
         ((B,) f32 or None) are per-world robust thresholds; with defense
         ``knobs`` (``defense.knobs_worlds``) the self-healing loop runs on
-        a batched state, fed by the kernel's (B, W) rejection mask."""
+        a batched state, fed by the kernel's (B, W) rejection mask.  With a
+        telemetry spec ``tel`` a (B,) accumulator rides along (rejections
+        judged against each world's threshold)."""
         (prologue, partners, dt_next, is_grad, grad_scale, _grad_pos,
          t_final, corrupt, src_slot, ring_pos) = stream_arrays
         engine = FlatGossipEngine.for_pytree(state.x, self.params,
@@ -712,13 +843,19 @@ class Simulator:
         ids = torch.arange(n, device=bx.device)
         ring = ring_init_worlds(bx, horizon) if horizon else None
         ds = None if knobs is None else defense_init(n, bx.device, batch=B)
-        rows, drows = [], []
+        acc = None if tel is None else _tel_zeros((B,), bx.device)
+        rows, drows, trows = [], [], []
         for s in range(len(is_grad)):
             if not is_grad[s]:
                 partner = partners[s]
                 xp = engine.partner_values_worlds(ring, bx, partner,
                                                   src_slot[s])
                 if ds is None:
+                    if acc is not None:
+                        nrm = engine.delta_norms(bx, xp, corrupt[s], axes=2)
+                        acc = _tel_step(acc, partner != ids,
+                                        self._tel_rej(nrm, taus), nrm,
+                                        batched=True)
                     bx, bxt = engine.channel_batch_worlds(
                         bx, bxt, xp, corrupt[s], dt_next[s], pw, taus)
                     continue
@@ -729,11 +866,16 @@ class Simulator:
                 bx, bxt, rej = engine.channel_batch_worlds_scaled(
                     bx, bxt, xp, corrupt[s], mscale, dt_next[s], pw)
                 ds = defense_absorb(ds, rej, quar, involved)
+                if acc is not None:
+                    acc = _tel_step(acc, involved, rej, nrm, batched=True)
                 continue
             bx, bxt, row = self._grad_worlds(engine, bx, bxt,
                                              state.generator, grad_scale[s],
                                              gammas, ids)
             rows.append(row)
+            if acc is not None:
+                trows.append(acc)
+                acc = _tel_zeros((B,), bx.device)
             if ds is not None:
                 ds, drow = defense_grad(knobs, ds)
                 drows.append(drow)
@@ -742,7 +884,8 @@ class Simulator:
             bx, bxt = engine.mix_batch(bx, bxt, dt_next[s], pw[0])
         final = SimState(engine.unpack_worlds(bx), engine.unpack_worlds(bxt),
                          t_final, state.generator)
-        trace = _stack_rows(rows, SimTrace, dim=1)
+        trace = _finish(_stack_rows(rows, SimTrace, dim=1),
+                        None if tel is None else trows, dim=1)
         if ds is not None:
             trace = trace._replace(
                 defense=_stack_rows(drows, DefenseTrace, dim=1))
@@ -770,25 +913,30 @@ class Simulator:
                                  self.device) if plan["active"] else None
             outs.append(sim.run_channel(
                 st, tuple(a[:, b] for a in arrays[:-1]) + arrays[-1:],
-                horizon, knobs))
+                horizon, knobs, plan["tel"]))
         final = self.batch_states([f for f, _ in outs])
         traces = [t for _, t in outs]
         trace = SimTrace(*(torch.stack([getattr(t, k) for t in traces])
                            for k in ("loss", "consensus", "mean_param_norm")))
+        if plan["tel"] is not None:
+            trace = trace._replace(telemetry=tuple(
+                torch.stack(c) for c in zip(*(t.telemetry for t in traces))))
         if plan["active"]:
             trace = trace._replace(defense=DefenseTrace(
                 *(torch.stack(c) for c in zip(*(t.defense for t in traces)))))
         return final, trace
 
     def _worlds_plan(self, states: SimState, scheds, *, params, gammas,
-                     robust_clips, defenses, worlds) -> dict:
+                     robust_clips, defenses, worlds, telemetry) -> dict:
         """Validate a worlds call and derive each world's knobs: params
         (explicit, else each world's ``algorithm_params()`` where it
         declares an algorithm, else ``self.params``), step sizes,
-        thresholds (None entries fall back to ``self.robust_clip``) and
-        defense arms (explicit, else the worlds' ``defense`` fields).  Any
-        active defense routes the whole batch to the defense flavor, whose
-        inactive arms run neutral knobs (their static arithmetic)."""
+        thresholds (None entries fall back to ``self.robust_clip``),
+        defense arms (explicit, else the worlds' ``defense`` fields) and
+        the telemetry spec (explicit, else the one spec the worlds
+        declare).  Any active defense routes the whole batch to the defense
+        flavor, whose inactive arms run neutral knobs (their static
+        arithmetic); a spec forces the channel flavor."""
         B = len(scheds)
         lead = tree_leaves(states.x)[0].shape[0]
         if lead != B:
@@ -805,6 +953,16 @@ class Simulator:
             if defenses is None and any(w.defense is not None
                                         for w in wlist):
                 defenses = [w.defense for w in wlist]
+            if telemetry is None:
+                tspecs = {w.telemetry for w in wlist
+                          if w.telemetry is not None}
+                if len(tspecs) > 1:
+                    raise ValueError(
+                        "worlds declare multiple distinct Telemetry specs; "
+                        "a batch shares ONE spec")
+                if tspecs:
+                    telemetry = next(iter(tspecs))
+        _check_telemetry(telemetry)
 
         def per_world(name, values, default):
             out = list(values) if values is not None else [default] * B
@@ -829,11 +987,13 @@ class Simulator:
                              "robust_rule='trim' (its accept/reject loop "
                              f"is binary), got {self.robust_rule!r}")
         channel = (active or any_clip or self.robust_clip is not None
+                   or telemetry is not None
                    or any(STALE_KEY in sc.extras_dict()
                           or CORRUPT_KEY in sc.extras_dict()
                           for sc in scheds))
         return dict(params=plist, gammas=glist, taus=taus, defenses=dlist,
-                    active=active, any_clip=any_clip, channel=channel)
+                    active=active, any_clip=any_clip, channel=channel,
+                    tel=telemetry)
 
     def run_worlds(self, states, scheds, *, params=None, gammas=None,
                    robust_clips=None, defenses=None, worlds=None,
@@ -852,27 +1012,43 @@ class Simulator:
           ``worlds`` — optional B ``World`` specs the params and defenses
           are derived from where not given.
 
+        telemetry — optional ``telemetry.Telemetry`` spec (or the one spec
+          the ``worlds`` declare): the trace's ``telemetry`` is then a
+          ``TelemetryTrace`` of (B, rounds) columns.
+
         Returns the world-batched final state and a SimTrace of (B, rounds)
         tensors: row b is world b's serial replay.  Dispatch mirrors
-        ``run_schedule``: channel extras, thresholds or a defense select
-        the channel flavor, an active defense its self-healing form;
-        ``engine=False`` the per-event oracle.  On the CPU a state no flat
-        buffer can hold takes the per-event path; on the card it is
-        refused.  ``mesh=`` and ``telemetry=`` are not ported yet.
+        ``run_schedule``: channel extras, thresholds, a telemetry spec or a
+        defense select the channel flavor, an active defense its
+        self-healing form; ``engine=False`` the per-event oracle.  On the
+        CPU a state no flat buffer can hold takes the per-event path; on
+        the card it is refused.  ``mesh=`` is not ported yet.
         """
-        missing = [(mesh is not None, "mesh=... (the sharded replay)"),
-                   (telemetry is not None,
-                    "telemetry=... (the telemetry slice)")]
-        for hit, what in missing:
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh=... (the sharded replay) is not "
+                                      "ported to PyTorch yet")
         scheds = list(scheds)
         if not isinstance(states, SimState):
             states = self.batch_states(states)
         plan = self._worlds_plan(states, scheds, params=params,
                                  gammas=gammas, robust_clips=robust_clips,
-                                 defenses=defenses, worlds=worlds)
+                                 defenses=defenses, worlds=worlds,
+                                 telemetry=telemetry)
+        tel = plan["tel"]
+        # schedule columns and row bytes before dispatch (the kernels write
+        # x~ in place)
+        rb = self._row_bytes(states, worlds=True) \
+            if tel is not None and tel.bytes_moved else 0
+        cols = batch_schedule_columns(tel, scheds) if tel is not None \
+            else None
+        final, trace = self._dispatch_worlds(states, scheds, plan, engine)
+        if tel is None:
+            return final, trace
+        return final, trace._replace(
+            telemetry=finalize_trace(tel, trace.telemetry, cols, rb))
+
+    def _dispatch_worlds(self, states: SimState, scheds, plan: dict,
+                         engine: bool) -> tuple[SimState, SimTrace]:
         if engine:
             try:
                 FlatLayout.from_pytree(states.x, worlds=True)
@@ -886,12 +1062,12 @@ class Simulator:
         if not engine:
             return self._run_worlds_per_event(states, scheds, plan)
         pw = self.world_params(plan["params"], self.device)
-        gammas = plan["gammas"]
+        gammas, tel = plan["gammas"], plan["tel"]
         if plan["active"]:
             arrays, horizon = self.worlds_channel_arrays(states, scheds)
             knobs = knobs_worlds(plan["defenses"], plan["taus"], self.device)
             return self.run_worlds_channel(states, pw, gammas, None, arrays,
-                                           horizon, knobs)
+                                           horizon, knobs, tel)
         if plan["channel"]:
             arrays, horizon = self.worlds_channel_arrays(states, scheds)
             taus = None
@@ -900,6 +1076,38 @@ class Simulator:
                                      for t in plan["taus"]],
                                     dtype=torch.float32, device=self.device)
             return self.run_worlds_channel(states, pw, gammas, taus, arrays,
-                                           horizon)
+                                           horizon, tel=tel)
         return self.run_worlds_coalesced(
             states, pw, gammas, self.worlds_coalesced_arrays(states, scheds))
+
+
+# --------------------------------------------------------------- AR-SGD ref
+
+def allreduce_sgd(grad_fn: GradFn, gamma: float, x0: PyTree, n: int,
+                  rounds: int, generator: torch.Generator,
+                  device: Any = "cuda") -> tuple[PyTree, torch.Tensor]:
+    """Synchronous All-Reduce SGD baseline (the paper's AR-SGD): per round
+    one batched ``grad_fn`` call for all n workers, the gradients averaged
+    over the workers, and every replica steps by ``gamma`` times the mean.
+    Returns worker 0's params and the (rounds,) mean losses.  The mean is
+    JAX's: a sum at f32 or wider, divided, rounded once to the gradient's
+    dtype."""
+    dev = resolve_device(device)
+
+    def stack(a):
+        a = torch.as_tensor(a, device=dev)
+        return a.unsqueeze(0).expand((n,) + a.shape).contiguous()
+
+    def step(p, g):
+        acc = g.to(torch.promote_types(g.dtype, torch.float32))
+        mean = (acc.sum(dim=0, keepdim=True) / n).to(g.dtype)
+        return p - dtype_scalar(gamma, g.dtype) * mean
+
+    x = tree_map(stack, x0)
+    ids = torch.arange(n, device=dev)
+    losses = []
+    for _ in range(rounds):
+        loss, grads = grad_fn(x, generator, ids)
+        x = tree_map(step, x, grads)
+        losses.append(loss.mean())
+    return tree_map(lambda a: a[0], x), torch.stack(losses)

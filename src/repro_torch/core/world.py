@@ -9,9 +9,9 @@ of worlds that ``Simulator.run_worlds`` replays in one batched call.
 
 This is the port of the JAX package's ``repro.core.world``: the same
 classes, validation and JSON, and every compiled array equal to the JAX
-package's for the same spec and seed.  The ``telemetry`` field is kept so
-that a world's JSON has the same keys, but a world that declares one is
-refused: the telemetry replay is not ported yet.
+package's for the same spec and seed.  A world's ``telemetry`` spec
+(``core/telemetry.py``) rides along to the replay, which then records its
+per-round columns.
 
 Compilation (all host-side numpy):
 
@@ -31,14 +31,13 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
-from typing import Any
-
 import numpy as np
 
 from .a2cid2 import Algorithm
 from .channel import ChannelModel
 from .defense import AdaptiveDefense
 from .graphs import Graph, TopologyPhase, TopologySchedule
+from .telemetry import Telemetry
 
 # rng-stream tag for churn draws — independent of the schedule's main stream
 # (events.py uses 0x48455 for straggler thinning)
@@ -549,9 +548,10 @@ class World:
     # ServeLoad attaches per-round request-arrival counts as
     # ``extras[SERVE_ARRIVE_KEY]`` for a gossip-serving fleet
     serve: "ServeLoad | None" = None
-    # flight recorder: kept so the JSON keeps its keys; a non-None spec is
-    # refused (the telemetry replay is not ported)
-    telemetry: Any = None
+    # flight recorder: None = no telemetry (the replay unchanged, bit for
+    # bit); a telemetry.Telemetry spec makes the replay emit per-round
+    # metric columns as ``trace.telemetry`` without changing any number
+    telemetry: "Telemetry | None" = None
 
     def __post_init__(self):
         if not isinstance(self.topology, (Graph, TopologySchedule)):
@@ -643,10 +643,10 @@ class World:
         if self.serve is not None and not isinstance(self.serve, ServeLoad):
             raise ValueError("serve must be a ServeLoad, "
                              f"got {type(self.serve).__name__}")
-        if self.telemetry is not None:
-            raise NotImplementedError(
-                "World(telemetry=...) (the telemetry slice) is not ported "
-                "to PyTorch yet")
+        if self.telemetry is not None and not isinstance(self.telemetry,
+                                                         Telemetry):
+            raise ValueError("telemetry must be a telemetry.Telemetry, "
+                             f"got {type(self.telemetry).__name__}")
 
     # ------------------------------------------------------------ structure
     @property
@@ -881,7 +881,8 @@ class World:
                 else self.algorithm.to_dict(),
                 "serve": None if self.serve is None
                 else self.serve.to_dict(),
-                "telemetry": None}
+                "telemetry": None if self.telemetry is None
+                else self.telemetry.to_dict()}
 
     @staticmethod
     def from_dict(d: dict) -> "World":
@@ -901,7 +902,8 @@ class World:
                      else Algorithm.from_dict(d["algorithm"]),
                      serve=None if d.get("serve") is None
                      else ServeLoad.from_dict(d["serve"]),
-                     telemetry=d.get("telemetry"))
+                     telemetry=None if d.get("telemetry") is None
+                     else Telemetry.from_dict(d["telemetry"]))
 
     def to_json(self, **kw) -> str:
         return json.dumps(self.to_dict(), **kw)

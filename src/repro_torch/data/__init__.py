@@ -1,4 +1,6 @@
 """Synthetic data streams."""
-from .pipeline import LMTaskStream, SyntheticCIFAR, make_lm_stream
+from .pipeline import (LMTaskStream, SyntheticCIFAR, WorkerStream,
+                       make_lm_stream)
 
-__all__ = ["LMTaskStream", "SyntheticCIFAR", "make_lm_stream"]
+__all__ = ["LMTaskStream", "SyntheticCIFAR", "WorkerStream",
+           "make_lm_stream"]

@@ -140,3 +140,44 @@ class SyntheticCIFAR:
         """One batch: images (B, 32, 32, 3), labels (B,)."""
         batch = self.sample_workers(generator, 1)
         return {k: v[0] for k, v in batch.items()}
+
+
+# ------------------------------------------------------------- worker views
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(z: int) -> int:
+    """SplitMix64's step and finalizer on a 64-bit integer."""
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerStream:
+    """Per-worker data stream: same task, a worker-specific random stream.
+
+    Mirrors the paper's protocol: all workers access the same dataset but
+    shuffle with different seeds — i.i.d. in distribution, independent in
+    realization.  ``key(worker_id, step)`` is a ``torch.Generator`` on the
+    stream's device seeded by
+
+        s = splitmix64(splitmix64(splitmix64(base_seed) ^ worker_id) ^ step)
+
+    (64-bit integers; ``splitmix64`` is SplitMix64's step and finalizer),
+    where the JAX package folds ``worker_id`` and then ``step`` into a
+    ``PRNGKey(base_seed)``: the same structure, other draws."""
+
+    base_seed: int = 0
+    device: Any = "cuda"   # the card unless the caller names the CPU
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def key(self, worker_id: int, step: int) -> torch.Generator:
+        h = _splitmix64(int(self.base_seed) & _MASK64)
+        h = _splitmix64(h ^ (int(worker_id) & _MASK64))
+        h = _splitmix64(h ^ (int(step) & _MASK64))
+        return torch.Generator(device=self.device).manual_seed(h)

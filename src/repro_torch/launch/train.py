@@ -8,9 +8,13 @@
   PYTHONPATH=src python -m repro_torch.launch.train --mode sim \
       --arch nano-lm --device cpu --steps 5
 
-``--mode sync`` (it needs ``launch/steps.make_train_step``) and ``--ckpt``
-(it needs ``checkpoint/``) are not ported yet and raise
-``NotImplementedError``.
+  # synchronous single-device training (AR-SGD semantics), checkpointed
+  PYTHONPATH=src python -m repro_torch.launch.train --mode sync \
+      --arch nano-lm --full --steps 100 --ckpt ckpt
+
+``--ckpt DIR`` saves the stacked replicas ``state.x`` after ``--mode sim``
+and the parameters after ``--mode sync`` (``checkpoint.save``, the JAX
+package's msgpack format, the last 3 steps kept).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..checkpoint import save
 from ..configs import get_config
 from ..core import (Simulator, build_graph, make_schedule,
                     params_from_graph)
@@ -27,6 +32,8 @@ from ..core.simulator import SimState, SimTrace
 from ..data import LMTaskStream
 from ..device import resolve_device
 from ..models.transformer import Model, lm_grad_fn
+from ..optim import sgd
+from .steps import TrainState, make_train_step
 
 
 class SimRun(NamedTuple):
@@ -35,6 +42,14 @@ class SimRun(NamedTuple):
     state: SimState
     trace: SimTrace
     seconds: float   # the replay's wall time, card synchronised
+
+
+class SyncRun(NamedTuple):
+    model: Model
+    stream: LMTaskStream
+    state: TrainState
+    losses: torch.Tensor   # (steps,) f32 on the device
+    seconds: float         # the training loop's wall time, card synchronised
 
 
 def build_model(arch: str, reduced: bool):
@@ -77,7 +92,49 @@ def run_sim(args, stream: LMTaskStream | None = None) -> SimRun:
     bayes = f"  bayes-CE {stream.bayes_ce():.4f}" if args.bayes_ce else ""
     print(f"  final loss {float(trace.loss[-1]):.4f}  "
           f"consensus {float(trace.consensus[-1]):.3e}{bayes}")
+    if args.ckpt:
+        save(args.ckpt, args.steps, state.x)
+        print(f"  checkpoint -> {args.ckpt}")
     return SimRun(model, stream, state, trace, dt)
+
+
+def run_sync(args, stream: LMTaskStream | None = None) -> SyncRun:
+    """Synchronous single-device training (AR-SGD semantics): ``sgd()`` at
+    lr ``args.lr``, one ``stream`` batch a step from a generator seeded
+    ``args.seed + 1``.  ``stream`` replaces the one built from ``args``."""
+    dev = resolve_device(args.device)
+    cfg, model = build_model(args.arch, reduced=not args.full)
+    if stream is None:
+        stream = LMTaskStream(vocab_size=cfg.vocab_size,
+                              seq_len=args.seq_len,
+                              batch_size=args.batch_size, seed=args.seed,
+                              device=dev)
+    train_step, optimizer = make_train_step(model, sgd(), lr=args.lr,
+                                            remat=False)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    state = TrainState(params, optimizer.init(params))
+    del params
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    losses = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        batch = stream.sample(gen)
+        state, metrics = train_step(state, batch)
+        losses.append(metrics["loss"])
+        if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
+            print(f"[train/sync] step {i:5d} loss "
+                  f"{float(metrics['loss']):.4f}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    bayes = f", bayes-CE {stream.bayes_ce():.4f}" if args.bayes_ce else ""
+    print(f"[train/sync] {args.steps} steps in {dt:.1f}s{bayes}")
+    if args.ckpt:
+        save(args.ckpt, args.steps, state.params)
+        print(f"  checkpoint -> {args.ckpt}")
+    return SyncRun(model, stream, state, torch.stack(losses), dt)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -109,14 +166,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Any = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mode == "sync":
-        raise NotImplementedError("--mode sync needs launch/steps."
-                                  "make_train_step, which is not ported to "
-                                  "PyTorch yet")
-    if args.ckpt:
-        raise NotImplementedError("--ckpt needs checkpoint/, which is not "
-                                  "ported to PyTorch yet")
-    run_sim(args)
+    (run_sim if args.mode == "sim" else run_sync)(args)
 
 
 if __name__ == "__main__":

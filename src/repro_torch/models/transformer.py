@@ -21,6 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch.func import grad_and_value, vmap
+from torch.utils.checkpoint import checkpoint
 
 from ..core.tree import PyTree, tree_leaves, tree_map
 from . import attention
@@ -104,31 +105,45 @@ class Model:
                 tree_map(lambda *xs: torch.stack(xs), *layers))
         return params
 
-    def forward(self, params: dict, inputs: torch.Tensor
+    def forward(self, params: dict, inputs: torch.Tensor, *,
+                remat: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """inputs: tokens (B,S) int or embeddings (B,S,D).
 
-        Returns (logits, aux_loss, final_hidden); aux is 0 without MoE."""
+        Returns (logits, aux_loss, final_hidden); aux is 0 without MoE.
+        With ``remat`` each unit (one step of a group's ``repeat`` loop,
+        the blocks JAX checkpoints together) runs under
+        ``torch.utils.checkpoint``: the backward keeps only the unit's
+        inputs and runs the unit's forward again."""
         cfg = self.cfg
         x = embed_inputs(params["embed"], cfg, inputs)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
         for (unit, repeat), group_p in zip(cfg.blocks, params["groups"]):
-            for r in range(repeat):
-                layer_p = tree_map(lambda a, r=r: a[r], group_p)
+
+            def unit_fn(x, layer_p, unit=unit):
                 for i, blk in enumerate(unit):
                     x = apply_block(layer_p[f"b{i}"], cfg, blk, x, positions)
+                return x
+
+            for r in range(repeat):
+                layer_p = tree_map(lambda a, r=r: a[r], group_p)
+                if remat:
+                    x = checkpoint(unit_fn, x, layer_p, use_reentrant=False)
+                else:
+                    x = unit_fn(x, layer_p)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = apply_lm_head(params["head"], params["embed"], cfg, x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, aux, x
 
-    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss(self, params: dict, batch: dict, *, remat: bool = False
+             ) -> tuple[torch.Tensor, dict]:
         """batch: {"inputs": tokens/embeddings, "labels": (B,S) or
         (B,S,C)}; CE in f32 over the ``padded_vocab`` logits."""
         cfg = self.cfg
-        logits, aux, _ = self.forward(params, batch["inputs"])
+        logits, aux, _ = self.forward(params, batch["inputs"], remat=remat)
         labels = batch["labels"]
         b, s = labels.shape[:2]
         logits = logits.reshape(b, s, cfg.num_codebooks, cfg.padded_vocab)

@@ -107,3 +107,18 @@ def test_chi_constants_equal(name, n):
     if name == "ring":
         lam2 = 0.5 * (2 - 2 * np.cos(2 * np.pi / n))
         np.testing.assert_allclose(tg.chi1(), 1 / lam2, rtol=1e-12)
+
+
+@pytest.mark.parametrize("name,n", GRAPHS)
+@pytest.mark.parametrize("cpg", [0.5, 2.0])
+def test_comm_counters_and_empirical_laplacian_equal(name, n, cpg):
+    js, ts = _both(name, n, 12, comms_per_grad=cpg, seed=2)
+    jc, tc = js.comm_events_per_round(), ts.comm_events_per_round()
+    assert tc.dtype == jc.dtype and tc.shape == (12,)
+    np.testing.assert_array_equal(tc, jc)
+    assert ts.num_comm_events() == js.num_comm_events() == int(jc.sum())
+    for rounds in (None, 5):
+        jl = jev.empirical_laplacian(js, rounds)
+        tl = tev.empirical_laplacian(ts, rounds)
+        assert tl.dtype == jl.dtype
+        np.testing.assert_array_equal(tl, jl)

@@ -1,11 +1,12 @@
-"""The port stands alone: importing every module of ``repro_torch`` with JAX
-and networkx blocked loads nothing of the JAX package (a matching bank
-builds and a ``GossipTrainer`` step runs there, and a ``World`` and a
-``WorldSweep`` build and compile there, and a reduced transformer builds
-and runs its forward on both attention paths), the entry points refuse to run on
-a machine without a card unless the caller names the CPU, and the parts
-not ported yet (the sharded and telemetry replays) raise instead of taking
-another path."""
+"""The port stands alone: importing every module of ``repro_torch`` with JAX,
+networkx and msgpack blocked loads nothing of the JAX package (a matching
+bank builds and a ``GossipTrainer`` step runs there, a ``World`` and a
+``WorldSweep`` build and compile there, a reduced transformer builds and
+runs its forward on both attention paths, a telemetry replay runs through
+``run_world``, and a ``make_train_step`` step and a checkpoint round trip
+run there), the entry points refuse to run on a machine without a card
+unless the caller names the CPU, and the part not ported yet (the sharded
+replay) raises instead of taking another path."""
 import os
 import subprocess
 import sys
@@ -22,13 +23,16 @@ PROBE = textwrap.dedent("""
     import importlib, pkgutil, sys
     sys.modules["jax"] = None          # any `import jax` now raises
     sys.modules["networkx"] = None     # and so does `import networkx`
+    sys.modules["msgpack"] = None      # and `import msgpack`
     import repro_torch
     for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
         importlib.import_module(m.name)
     leaked = sorted(k for k in sys.modules
                     if k == "repro" or k.startswith("repro.")
-                    or k in ("jax", "networkx") and sys.modules[k] is not None
-                    or k.startswith(("jax.", "jaxlib", "networkx.")))
+                    or k in ("jax", "networkx", "msgpack")
+                    and sys.modules[k] is not None
+                    or k.startswith(("jax.", "jaxlib", "networkx.",
+                                     "msgpack.")))
     print("LEAKED", leaked)
     import repro_torch.optim, repro_torch.core.gossip
     from repro_torch.launch.gossip_train import GossipTrainer
@@ -63,7 +67,33 @@ PROBE = textwrap.dedent("""
         logits, _, _ = model.forward(params, torch.zeros((1, 8),
                                                          dtype=torch.long))
         print("MODEL", impl, tuple(logits.shape))
-    from repro_torch.core import Simulator, baseline_params
+    from repro_torch.core import Simulator, Telemetry, baseline_params
+    from repro_torch.core import params_from_graph as pfg
+    ring = ring_graph(8)
+    tsim = Simulator(lambda x, g, ids: ((x ** 2).sum(1), x),
+                     pfg(ring), 0.1, robust_clip=1.0, device="cpu")
+    _, tr = tsim.run_world(tsim.init(torch.ones(6), 8, torch.Generator()),
+                           World(ring, telemetry=Telemetry()), 3)
+    tel = tr.telemetry
+    print("TELEMETRY", tuple(tel.applied.shape), tel.row_bytes,
+          bool(((tel.applied + tel.rejected).numpy() + tel.dropped
+                == tel.scheduled).all()))
+    from repro_torch.launch.steps import TrainState, make_train_step
+    lm = Model(cfg)
+    step, opt = make_train_step(lm, lr=0.05, remat=True)
+    p0 = lm.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 9), dtype=torch.long)
+    st, met = step(TrainState(p0, opt.init(p0)),
+                   {"inputs": toks[:, :-1], "labels": toks[:, 1:]})
+    import tempfile
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core.tree import tree_leaves
+    with tempfile.TemporaryDirectory() as d:
+        save(d, 1, st)
+        n, back = restore(d, st)
+    print("TRAIN", bool(torch.isfinite(met["loss"])), n, type(back).__name__,
+          all(torch.equal(a, b) for a, b in zip(tree_leaves(back.params),
+                                                tree_leaves(st.params))))
     from repro_torch.data import SyntheticCIFAR
     from repro_torch.convert import params_from_jax
     refused = 0
@@ -85,7 +115,7 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
                  if line.startswith(("LEAKED", "WORLDS", "CUDA", "BANK",
-                                     "STEP")))
+                                     "STEP", "TELEMETRY", "TRAIN")))
     models = [line for line in out.stdout.splitlines()
               if line.startswith("MODEL")]
     assert models == ["MODEL xla (1, 8, 512)", "MODEL pallas (1, 8, 512)"]
@@ -93,6 +123,8 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     assert lines["BANK"] == "(6, 8)"
     assert lines["STEP"] == "8 (5,) True"
     assert lines["WORLDS"] == "4 True"
+    assert lines["TELEMETRY"] == "(3,) 24 True"
+    assert lines["TRAIN"] == "True 1 TrainState True"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CPU-refusal half does not apply")
     assert lines["CUDA"] == "False REFUSED 3"
@@ -107,19 +139,28 @@ def test_explicit_cpu_is_accepted():
 
 
 def test_unported_world_parts_raise():
-    from repro_torch.core import Simulator, World, baseline_params, ring_graph
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    """A telemetry spec that is not a ``Telemetry`` raises JAX's
+    ``ValueError``, a JSON spec loads as one; ``mesh=`` (the sharded
+    replay, not ported) still raises ``NotImplementedError``."""
+    from repro.core import World as JWorld
+    from repro.core import ring_graph as j_ring
+    from repro_torch.core import (Simulator, Telemetry, World,
+                                  baseline_params, ring_graph)
+    with pytest.raises(ValueError, match="telemetry") as terr:
         World(ring_graph(4), telemetry=object())
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        World.from_json(World(ring_graph(4)).to_json().replace(
-            '"telemetry": null', '"telemetry": {"rounds": true}'))
+    with pytest.raises(ValueError, match="telemetry") as jerr:
+        JWorld(j_ring(4), telemetry=object())
+    assert str(terr.value) == str(jerr.value)
+    loaded = World.from_json(World(ring_graph(4)).to_json().replace(
+        '"telemetry": null', '"telemetry": {"shards": 2}'))
+    assert loaded.telemetry == Telemetry(shards=2)
     sim = Simulator(None, baseline_params(1.0), 0.1, device="cpu")
     state = sim.init(torch.zeros(4), 4, torch.Generator())
     sched = World(ring_graph(4)).compile(2)
-    for kw, what in (({"mesh": object()}, "sharded"),
-                     ({"telemetry": object()}, "telemetry")):
-        with pytest.raises(NotImplementedError, match=what):
-            sim.run_worlds([state], [sched], **kw)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        sim.run_worlds([state], [sched], mesh=object())
+    with pytest.raises(ValueError, match="telemetry"):
+        sim.run_worlds([state], [sched], telemetry=object())
 
 
 def test_worlds_replay_on_cpu_takes_the_plain_version():

@@ -172,8 +172,33 @@ def test_run_sim_on_cpu(capsys):
     assert "bayes-CE" not in capsys.readouterr().out
 
 
-def test_unported_launch_modes_raise():
-    with pytest.raises(NotImplementedError, match="make_train_step"):
-        train.main(["--mode", "sync", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        train.main(["--ckpt", "/nonexistent", "--device", "cpu"])
+def test_unported_launch_modes_raise(tmp_path, capsys):
+    """``--mode sync`` and ``--ckpt`` are ported: both run on the CPU, and
+    the checkpoint of each mode reloads bit for bit."""
+    from repro_torch.checkpoint import restore
+    train.main(["--mode", "sync", "--device", "cpu", "--steps", "2",
+                "--batch-size", "2", "--seq-len", "8", "--no-bayes-ce",
+                "--ckpt", str(tmp_path / "sync")])
+    out = capsys.readouterr().out
+    assert "[train/sync] step     1 loss" in out and "checkpoint" in out
+    args = _args(bayes_ce=False, ckpt=str(tmp_path / "sim"))
+    run = train.run_sim(args)
+    step, x = restore(args.ckpt, run.state.x)
+    assert step == args.steps
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(x), tree_leaves(run.state.x)))
+
+
+def test_worker_stream_keys_are_distinct_and_reproducible():
+    """The port's ``WorkerStream`` as JAX's test_substrates holds JAX's:
+    each (worker, step) its own stream, the same key the same draws."""
+    from repro_torch.data import WorkerStream
+    ws = WorkerStream(base_seed=0, device="cpu")
+    draws = {(w, s): torch.rand(4, generator=ws.key(w, s))
+             for w in range(3) for s in range(3)}
+    assert torch.equal(draws[(1, 2)], torch.rand(4, generator=ws.key(1, 2)))
+    values = [tuple(d.tolist()) for d in draws.values()]
+    assert len(set(values)) == len(values)
+    other = WorkerStream(base_seed=1, device="cpu")
+    assert not torch.equal(torch.rand(4, generator=other.key(1, 2)),
+                           draws[(1, 2)])

@@ -2,10 +2,13 @@
 (n=16, d=64) the port's ``run_schedule`` follows the JAX package's
 (``backend="ref"``) round by round, the port's engine follows the port's
 per-event replay, and A2CiD2 reaches a lower consensus distance than the
-baseline.
+baseline; ``run_world``, the AR-SGD baseline ``allreduce_sgd``,
+``a2cid2.p2p_event`` and ``engine.mix_flat`` follow the JAX package's.
 
 Tolerance: rtol 1e-5 (atol 1e-6) — both sides run the same f32 sequence of
-operations, but reductions and ``exp`` may round differently.
+operations, but reductions and ``exp`` may round differently;
+``allreduce_sgd`` rtol 1e-6 at f32 and bit for bit at bf16, ``p2p_event``
+bit for bit at bf16.
 """
 import dataclasses
 
@@ -20,8 +23,8 @@ from repro.core import make_schedule as j_make_schedule
 from repro.core import params_from_graph as j_params
 from repro.core import ring_graph as j_ring
 from repro_torch.core import (AdaptiveDefense, FlatGossipEngine, FlatLayout,
-                              Simulator, make_schedule, params_from_graph,
-                              ring_graph)
+                              Simulator, Telemetry, make_schedule,
+                              params_from_graph, ring_graph)
 from repro_torch.core import simulator as simulator_mod
 from repro_torch.core.simulator import SimState
 
@@ -102,15 +105,20 @@ def test_unported_flavors_raise():
                     device="cpu")
     state = sim.init(torch.zeros(DIM), N, torch.Generator())
     sched = make_schedule(ring_graph(N), 2, seed=0)
-    for kw in ({"telemetry": object()}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            sim.run_schedule(state, sched, **kw)
-    # the channel and defense flavors are ported, but not their telemetry
-    # or sharded forms: those are refused before any replay starts
+    with pytest.raises(NotImplementedError, match="mesh"):
+        sim.run_schedule(state, sched, mesh=object())
+    # the channel and defense flavors and their telemetry are ported, but
+    # not their sharded forms: those are refused before any replay starts;
+    # a telemetry spec that is not a Telemetry is refused as JAX's World
+    # refuses one
     stale = dataclasses.replace(
         sched, extras={"stale": np.zeros_like(sched.partners)})
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    with pytest.raises(NotImplementedError, match="mesh"):
+        sim.run_schedule(state, stale, telemetry=Telemetry(), mesh=object())
+    with pytest.raises(ValueError, match="telemetry"):
         sim.run_schedule(state, stale, telemetry=object())
+    _, trace = sim.run_schedule(state, stale, telemetry=Telemetry())
+    assert trace.telemetry.applied.shape == (2,)
     robust = Simulator(t_grad_fn, params_from_graph(ring_graph(N)), GAMMA,
                        robust_clip=1.0, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
@@ -143,3 +151,99 @@ def test_int_tree_refused_on_card(monkeypatch):
     card = Simulator(int_grad_fn, params, GAMMA, device="cuda")
     with pytest.raises(NotImplementedError, match="torch.int32"):
         card.run_schedule(state, sched)
+
+
+def test_run_world_matches_jax():
+    from repro.core import ChannelModel as JChannel
+    from repro.core import DelayProcess as JDelay
+    from repro.core import World as JWorld
+    from repro_torch.core import ChannelModel, DelayProcess, World
+    jw = JWorld(j_ring(N), channel=JChannel(delay=JDelay(2, 0.5),
+                                            drop_prob=0.1))
+    tw = World(ring_graph(N), channel=ChannelModel(delay=DelayProcess(
+        2, 0.5), drop_prob=0.1))
+    jsim = JSim(j_grad_fn, j_params(j_ring(N), True), GAMMA, backend="ref")
+    tsim = Simulator(t_grad_fn, params_from_graph(ring_graph(N), True),
+                     GAMMA, device="cpu")
+    jf, jt = jsim.run_world(jsim.init(jnp.zeros(DIM), N,
+                                      jax.random.PRNGKey(0)), jw, 6, seed=4)
+    tf, tt = tsim.run_world(tsim.init(torch.zeros(DIM), N,
+                                      torch.Generator()), tw, 6, seed=4)
+    for name in METRICS:
+        np.testing.assert_allclose(getattr(tt, name).numpy(),
+                                   np.asarray(getattr(jt, name)), **TOL)
+    np.testing.assert_allclose(tf.x.numpy(), np.asarray(jf.x), **TOL)
+    sf, st = tsim.run_schedule(tsim.init(torch.zeros(DIM), N,
+                                         torch.Generator()),
+                               tw.compile(6, seed=4))
+    assert torch.equal(sf.x, tf.x) and torch.equal(st.loss, tt.loss)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_allreduce_sgd_matches_jax(dtype):
+    from repro.core import allreduce_sgd as j_allreduce_sgd
+    from repro_torch.core import allreduce_sgd
+    """Per-worker curvatures are powers of two, so each gradient c_w x is
+    exact at bf16 however XLA fuses the JAX side's grad_fn into the mean
+    (it may skip rounding an intermediate the port rounds)."""
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    rng = np.random.default_rng(3)
+    curv = (2.0 ** rng.integers(-2, 3, N)).astype(np.float32)
+    x0 = rng.normal(size=DIM).astype(np.float32)
+    jc, tc = jnp.asarray(curv), torch.from_numpy(curv)
+
+    def jg(x, key, wid):
+        return 0.5 * jc[wid] * jnp.sum(x.astype(jnp.float32) ** 2), \
+            (jc[wid] * x).astype(x.dtype)
+
+    def tg(x, generator, ids):
+        return 0.5 * tc[ids] * (x.float() ** 2).sum(dim=1), \
+            tc[ids, None].to(x.dtype) * x
+
+    jx, jl = j_allreduce_sgd(jg, 0.3, jnp.asarray(x0).astype(jdt), N, 9,
+                             jax.random.PRNGKey(0))
+    tx, tl = allreduce_sgd(tg, 0.3, torch.from_numpy(x0).to(dtype), N, 9,
+                           torch.Generator(), device="cpu")
+    assert tx.shape == (DIM,) and tl.shape == (9,) and tx.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(
+            tx.view(torch.int16).numpy(),
+            np.asarray(jx).view(np.int16))
+    assert float(tl[-1]) < float(tl[0])
+
+
+def test_p2p_event_and_mix_flat_match_jax_bitwise():
+    from repro.core import a2cid2 as ja
+    from repro.core import engine as je
+    from repro_torch.core import engine as te
+    from repro_torch.core import mix_flat, p2p_event
+    rng = np.random.default_rng(9)
+    xi, xti, xj = (rng.normal(size=(5, 33)).astype(np.float32)
+                   for _ in range(3))
+    for dt, jdt in ((torch.float32, jnp.float32),
+                    (torch.bfloat16, jnp.bfloat16)):
+        params = params_from_graph(ring_graph(N), True)
+        jparams = j_params(j_ring(N), True)
+        t_in = [{"a": torch.from_numpy(a).to(dt),
+                 "b": [torch.from_numpy(a[0]).to(dt)]}
+                for a in (xi, xti, xj)]
+        j_in = [{"a": jnp.asarray(a).astype(jdt),
+                 "b": [jnp.asarray(a[0]).astype(jdt)]} for a in (xi, xti, xj)]
+        tx, txt = p2p_event(*t_in, params)
+        jx, jxt = ja.p2p_event(*j_in, jparams)
+        for t, j in ((tx["a"], jx["a"]), (txt["b"][0], jxt["b"][0])):
+            assert torch.equal(t.float(),
+                               torch.from_numpy(np.array(j, np.float32)))
+        dts = rng.random(5).astype(np.float32)
+        mx, mxt = mix_flat(t_in[0]["a"], t_in[1]["a"], params.eta,
+                           torch.from_numpy(dts))
+        jmx, jmxt = je.mix_flat(j_in[0]["a"], j_in[1]["a"], jparams.eta,
+                                jnp.asarray(dts))
+        np.testing.assert_allclose(mx.float().numpy(),
+                                   np.asarray(jmx, np.float32), rtol=1e-6,
+                                   atol=1e-6 if dt == torch.float32 else 1e-2)
+        assert te.mix_flat is mix_flat
