@@ -180,7 +180,31 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      restored bit for bit into fresh trees, a bf16 copy round-tripped bit
      for bit, retention keeping the last 3 of 5 saves, and ``run_sim
      --ckpt`` (2 workers, 2 rounds) writing the stacked x, reloaded bit
-     for bit.
+     for bit;
+ 22. decode: ``launch.serve.generate`` on Qwen3-0.6B at full width (f32,
+     weights from seed 0) at the serve CLI's defaults (batch 4, prompt 32,
+     gen 32, greedy): the decode logits of the 32 prompt positions within
+     2e-4 of the largest logit of ``Model.forward`` (xla), ``generate``'s
+     ids the token-by-token loop's, a (B,) position vector bit for bit the
+     duplicated-row references at the same batch shape; prefill and each
+     decode step timed by CUDA events beside the weight-read bound
+     (2.385 GB / 3.35 TB/s), tokens/s and the peak memory;
+ 23. ``ContinuousBatcher`` on the same model, 4 slots of 128 rows, 8
+     requests of 8-40 prompt and 8-32 new tokens admitted as slots free
+     up: each finishes with exactly max_new ids, equal to its own
+     ``generate``'s; steps, slot occupancy and a step's time;
+ 24. ``GossipFleet`` on nano-lm at full width, 4 replicas on a ring (the
+     (4, D) f32 bank 2.05 GB), A2CiD2 over a channel of delay horizon 2 /
+     prob 0.3 and drop 0.1, the JAX serve bench's load, drift "perturb" at
+     0.02, a stall of 0.03 an event, 12 rounds and the drain: the lossy
+     arm's bank and consensus prefix bit for bit ``run_schedule(engine=
+     False)``'s and nothing lost; a churn arm (a replica killed at round 4)
+     losing nothing and restarting at least one request; a drift-off arm
+     with a stall of 1.0 an event whose bank stays bit for bit and whose
+     every request's ids are ``generate``'s; per round the gossip
+     (``_round_channel``, the host waiting for its end) and decode times
+     by CUDA events and the host rest, tokens/s.  Phases 22-24 launch no hand kernel (the JAX serving
+     path reaches none), and each requires the counts to stay 0.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -397,13 +421,18 @@ class ReplayTimer:
         self.events: dict[tuple[str, str], list] = {}
         self.arm = "warm-up"
 
-    def wrap(self, kind, fn):
+    def wrap(self, kind, fn, sync: bool = False):
+        """``fn`` with a CUDA-event pair around each call; with ``sync``
+        the host waits for the call's end event (so a host-clock span
+        around it holds its device work)."""
         def call(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kw)
             end.record()
+            if sync:
+                end.synchronize()
             self.events.setdefault((self.arm, kind), []).append((start, end))
             return out
         return call
@@ -3192,6 +3221,412 @@ def phase_sync_train(card, stream) -> None:
     tmp_dir.cleanup()
 
 
+# ------------------------------ 22-24: the serving path (no hand kernel)
+# 22: the serve CLI's defaults (launch/serve.py), Qwen3-0.6B at full width
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 32
+DECODE_TOL = 2e-4   # decode vs forward logits (the JAX test_decode.py's)
+# 23: 8 requests of mixed lengths on 4 slots of 128 rows
+BATCH_SLOTS, BATCH_LEN, BATCH_REQUESTS = 4, 128, 8
+# 24: the JAX serve bench's physics (benchmarks/run.py, _SERVE_BENCH) on 4
+# replicas of nano-lm at full width, 12 rounds, one replica killed at
+# round 4 in the churn arm
+FLEET_REPLICAS, FLEET_ROUNDS, FLEET_SEED, FLEET_KILL = 4, 12, 0, 4
+FLEET_LOAD = dict(rate=1.2, prompt_len=(3, 6), gen_len=(4, 10),
+                  arrive_frac=0.55)
+FLEET_KW = dict(max_batch=4, max_len=24, drift_scale=0.02,
+                stall_per_event=0.03)
+
+
+def require_no_hand_kernel(what: str) -> None:
+    launched = read_launches()
+    require(all(v == 0 for v in launched.values()),
+            f"{what} launched a hand kernel: {launched}")
+
+
+def device_busy(fn) -> tuple:
+    """(ms the card was busy running ``fn``'s kernels and copies, summed
+    from ``torch.profiler``'s device events, or None where it recorded
+    none; the host-clock ms of the profiled call, card synchronised).
+    The profiler's own host cost lengthens the call, so the idle share
+    read from the two is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return (busy or None), wall
+
+
+def busy_text(busy, wall, what: str) -> str:
+    if busy is None:
+        return f"{what}: device busy share not measured (the profiler " \
+               f"recorded no device event; {wall:.1f} ms host clock)"
+    return f"{what}: the card busy {busy:.2f} of {wall:.2f} ms " \
+           f"(torch.profiler), idle share at most {1 - busy / wall:.3f}"
+
+
+def weights_bytes(params) -> int:
+    from repro_torch.core.tree import tree_leaves
+    return sum(a.numel() * a.element_size() for a in tree_leaves(params))
+
+
+def phase_decode(card, cfg, dev=None):
+    """22: ``serve.generate`` on ``cfg`` (Qwen3-0.6B at full width) at the
+    CLI's defaults, greedy: the decode logits of the prompt positions
+    against ``Model.forward`` (xla) within DECODE_TOL, ``generate``'s ids
+    the token-by-token loop's, a (B,) position vector bit for bit the
+    duplicated-row references; prefill and decode timed by CUDA events.
+    Returns (model, params)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import Model
+    dev = dev or torch.device("cuda")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    nbytes = weights_bytes(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    vocab = cfg.vocab_size
+
+    # the timed run: generate with decode_step wrapped (prefill's steps
+    # are the first SERVE_PROMPT of them)
+    timer = ReplayTimer()
+    timer.arm = "generate"
+    object.__setattr__(model, "decode_step",
+                       timer.wrap("decode", model.decode_step))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        ids = generate(model, params, prompts, SERVE_GEN)
+        torch.cuda.synchronize()
+    finally:
+        object.__delattr__(model, "decode_step")
+    wall = time.perf_counter() - t0
+    require_no_hand_kernel("generate")
+    peak = torch.cuda.max_memory_allocated() - base
+    events = timer.events[("generate", "decode")]
+    require(len(events) == SERVE_PROMPT + SERVE_GEN - 1,
+            f"generate took {len(events)} decode steps")
+    prefill_ms = events[0][0].elapsed_time(events[SERVE_PROMPT - 1][1])
+    steps = [s.elapsed_time(e) for s, e in events[SERVE_PROMPT:]]
+    require(tuple(ids.shape) == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+            and torch.equal(ids[:, :SERVE_PROMPT], prompts)
+            and int(ids.min()) >= 0 and int(ids.max()) < vocab,
+            f"generate's ids {tuple(ids.shape)} out of range or shape")
+
+    # the prompt positions against the forward, then the token loop
+    with torch.no_grad():
+        full, _, _ = model.forward(params, prompts)
+        caches = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+        outs = []
+        for t in range(SERVE_PROMPT):
+            lg, caches = model.decode_step(params, prompts[:, t:t + 1], t,
+                                           caches)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, dim=1)
+        rel = ((dec - full).abs().max() / full.abs().max()).item()
+        require(rel < DECODE_TOL, f"decode vs forward {rel:.3e} >= "
+                                  f"{DECODE_TOL}")
+        loop = [prompts]
+        for t in range(SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN):
+            cur = lg[:, 0, :vocab].argmax(-1)[:, None]
+            loop.append(cur)
+            lg, caches = model.decode_step(params, cur, t, caches)
+        loop = torch.cat(loop, dim=1)
+        require(torch.equal(ids, loop),
+                f"generate's ids differ from the token loop's in "
+                f"{int((ids != loop).sum())} places")
+        del full, dec, caches
+
+        # per-slot positions: row 0 at 5, row 1 at 2 in one batch, bit for
+        # bit references at the same batch shape (rows duplicated)
+        t_ids = torch.randint(0, vocab, (6,), generator=gen, device=dev)
+        u_ids = torch.randint(0, vocab, (3,), generator=gen, device=dev)
+
+        def duo(stream):
+            c = model.init_cache(2, 16)
+            for i, tok in enumerate(stream):
+                out, c = model.decode_step(params, tok.repeat(2, 1), i, c)
+            return out
+
+        ref_a, ref_b = duo(t_ids[:, None]), duo(u_ids[:, None])
+        c = model.init_cache(2, 16)
+        for i in range(6):
+            j = min(i, 2)
+            out, c = model.decode_step(
+                params, torch.stack([t_ids[i], u_ids[j]])[:, None],
+                torch.tensor([i, j], dtype=torch.int32, device=dev), c)
+        require(torch.equal(out[0], ref_a[0]) and torch.equal(out[1],
+                                                              ref_b[1]),
+                "a (B,) position vector is not bit for bit the "
+                "duplicated-row references")
+
+        def four_steps():
+            c = model.init_cache(SERVE_BATCH, SERVE_PROMPT)
+            for t in range(4):
+                _, c = model.decode_step(params, prompts[:, t:t + 1], t, c)
+
+        four_steps()
+        busy = busy_text(*device_busy(four_steps), "4 decode steps")
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    n_new = SERVE_BATCH * SERVE_GEN
+    print(f"[{card}] 22 decode {cfg.name} ({model.param_count(params)} "
+          f"parameters, {nbytes / 1e9:.3f} GB f32, seed {SEED}), batch "
+          f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}, greedy: "
+          f"decode vs forward {rel:.3e} (tolerance {DECODE_TOL:g}); "
+          f"generate's ids the token loop's; a (B,) position vector bit "
+          f"for bit the duplicated-row references; no hand kernel")
+    print(f"[{card}] 22 prefill ({SERVE_PROMPT} decode steps, CUDA events) "
+          f"{prefill_ms:.2f} ms; decode a step (CUDA events, "
+          f"{len(steps)} steps) mean {np.mean(steps):.3f} ms, min "
+          f"{min(steps):.3f}, max {max(steps):.3f} beside the weight-read "
+          f"bound {bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB / 3.35 TB/s); "
+          f"{n_new} tokens in {wall * 1e3:.1f} ms (host clock) = "
+          f"{n_new / wall:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+          f"allocated at its start; {busy}")
+    return model, params
+
+
+def phase_batching(card, model, params, dev=None):
+    """23: ``ContinuousBatcher`` with BATCH_SLOTS slots of BATCH_LEN rows
+    on BATCH_REQUESTS requests of 8-40 prompt and 8-32 new tokens: each
+    finishes with exactly ``max_new`` ids, each equal to its own
+    ``generate``; steps, slot occupancy and ms a step."""
+    from repro_torch.launch.batching import ContinuousBatcher, Request
+    from repro_torch.launch.serve import generate
+    dev = dev or torch.device("cuda")
+    rng = np.random.default_rng(SEED + 23)
+    vocab = model.cfg.vocab_size
+    reqs = [Request(uid, rng.integers(0, vocab, int(rng.integers(8, 41))
+                                      ).astype(np.int32),
+                    int(rng.integers(8, 33)))
+            for uid in range(BATCH_REQUESTS)]
+    batcher = ContinuousBatcher(model, params, max_batch=BATCH_SLOTS,
+                                max_len=BATCH_LEN)
+    timer = ReplayTimer()
+    timer.arm = "batch"
+    batcher._step = timer.wrap("step", batcher._step)
+    for r in reqs:
+        batcher.submit(r)
+    admitted, steps, active = {}, 0, 0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        n = batcher.step()
+        if n == 0 and not batcher.scheduler.queue:
+            break
+        for slot in batcher.scheduler.slots:
+            if slot.req is not None:
+                admitted.setdefault(slot.req.uid, steps)
+        steps += 1
+        active += n
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require_no_hand_kernel("the batcher")
+    require(all(r.done and len(r.out) == r.max_new for r in reqs),
+            "a request did not finish with exactly max_new ids")
+    require(sorted(set(admitted.values()))[-1] > 0,
+            f"no staggered admission: {admitted}")
+    step_ms = timer.ms("batch", "step")
+    for r in reqs:
+        ref = generate(model, params, torch.from_numpy(r.prompt).to(dev)
+                       [None].long(), r.max_new)
+        want = ref[0, len(r.prompt):].tolist()
+        require(r.out == want, f"request {r.uid}: the batcher's ids differ "
+                               f"from its own generate's")
+    print(f"[{card}] 23 ContinuousBatcher {model.cfg.name}, "
+          f"{BATCH_SLOTS} slots x {BATCH_LEN} rows, {BATCH_REQUESTS} "
+          f"requests (prompt, new) "
+          f"{[(len(r.prompt), r.max_new) for r in reqs]}, admitted at steps "
+          f"{[admitted[r.uid] for r in reqs]}: every request finished with "
+          f"exactly max_new ids, each its own generate's; {steps} steps, "
+          f"slot occupancy {active / (steps * BATCH_SLOTS):.3f}; a step "
+          f"(CUDA events) mean {np.mean(step_ms):.3f} ms, min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}; "
+          f"{sum(r.max_new for r in reqs)} tokens in {wall * 1e3:.1f} ms "
+          f"(host clock); no hand kernel")
+
+
+def fleet_breakdown(tracer, timer, arm) -> tuple:
+    """Per scheduled round: gossip and decode ms (CUDA events) and the
+    host rest (the round's host-clock span minus both)."""
+    rounds = [e["dur"] / 1e3 for e in tracer.events
+              if e.get("name") == "fleet.round"]
+    gossip = timer.ms(arm, "gossip")
+    decode = timer.ms(arm, "decode")
+    dec_r = [0.0] * len(rounds)
+    decode_rounds = [e["args"]["round"] for e in tracer.events
+                     if e.get("name") == "fleet.decode"]
+    for r, ms in zip(decode_rounds, decode):
+        if r < len(rounds):
+            dec_r[r] = ms
+    rest = [w - g - d for w, g, d in zip(rounds, gossip, dec_r)]
+    drain = [ms for r, ms in zip(decode_rounds, decode) if r >= len(rounds)]
+    return gossip[:len(rounds)], dec_r, rest, drain
+
+
+def phase_fleet(card, cfg, dev=None):
+    """24: ``GossipFleet`` on ``cfg`` (nano-lm at full width), 4 replicas
+    on a ring, A2CiD2, delay horizon 2 / prob 0.3, drop 0.1, the serve
+    bench's load, drift 'perturb' at 0.02, stall 0.03 an event, 12 rounds
+    and the drain.  Arms: lossy (bank and consensus prefix bit for bit
+    ``run_schedule(engine=False)``, nothing lost), churn (a replica killed
+    at round 4: nothing lost, a restart), drift off with a stall of 1.0 an
+    event (the bank unchanged, every request's ids ``generate``'s)."""
+    from repro_torch.analysis import SpanTracer
+    from repro_torch.core import (Algorithm, ChannelModel, DelayProcess,
+                                  PhaseSwitch, ServeLoad, World, ring_graph)
+    from repro_torch.core.simulator import SimState, Simulator
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.fleet import GossipFleet
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import Model
+    dev = dev or torch.device("cuda")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    nbytes = weights_bytes(params)
+    base = dict(topology=ring_graph(FLEET_REPLICAS),
+                algorithm=Algorithm("a2cid2"),
+                channel=ChannelModel(delay=DelayProcess(horizon=2, prob=0.3),
+                                     drop_prob=0.1),
+                serve=ServeLoad(**FLEET_LOAD))
+    kill = tuple(w != FLEET_REPLICAS - 1 for w in range(FLEET_REPLICAS))
+    arms = [
+        ("lossy", World(**base), dict(drift="perturb")),
+        ("churn", World(**base, faults=(PhaseSwitch(FLEET_KILL,
+                                                    active=kill),)),
+         dict(drift="perturb")),
+        ("drift off, stall 1.0", World(**base),
+         dict(drift="none", stall_per_event=1.0)),
+    ]
+    timer = ReplayTimer()
+    orig = Simulator._round_channel
+    # the round's host span then holds its gossip, also on rounds where no
+    # decode (which waits for the card) follows
+    Simulator._round_channel = timer.wrap("gossip", orig, sync=True)
+    try:
+        for arm, world, kw in arms:
+            fleet = GossipFleet(model, params, world, **{**FLEET_KW, **kw})
+            fleet._decode_step = timer.wrap("decode", fleet._decode_step)
+            tracer = SpanTracer(f"fleet {arm}")
+            timer.arm = arm
+            reset_launches()
+            torch.cuda.synchronize()
+            rep = fleet.run(rounds=FLEET_ROUNDS, seed=FLEET_SEED,
+                            tracer=tracer)
+            torch.cuda.synchronize()
+            require_no_hand_kernel(f"the fleet ({arm})")
+            require(rep.lost == 0 and rep.requests_total > 0,
+                    f"{arm}: lost {rep.lost} of {rep.requests_total}")
+            require(all(q.done and len(q.out) == q.max_new
+                        for q in rep.completed),
+                    f"{arm}: a request finished short")
+            require(bool(np.isfinite(rep.consensus).all()),
+                    f"{arm}: consensus {rep.consensus}")
+            gossip, dec, rest, drain_dec = fleet_breakdown(tracer, timer,
+                                                           arm)
+            if arm == "lossy":
+                timer.arm = "check"
+                state = SimState(fleet._bank0, fleet._bank0.clone(),
+                                 torch.zeros(FLEET_REPLICAS, device=dev),
+                                 torch.Generator(device=dev).manual_seed(
+                                     FLEET_SEED))
+                out, trace = fleet.sim.run_schedule(
+                    state, world.compile(FLEET_ROUNDS, FLEET_SEED),
+                    engine=False)
+                require(torch.equal(rep.final_bank, out.x),
+                        "the fleet's bank is not bit for bit "
+                        "run_schedule(engine=False)'s")
+                require(np.array_equal(
+                    rep.consensus[:rep.rounds],
+                    trace.consensus.cpu().numpy().astype(np.float64)),
+                        "the fleet's consensus is not run_schedule's")
+                require(not torch.equal(rep.final_bank, fleet._bank0),
+                        "the lossy arm's bank did not drift")
+                del out, trace
+                # the card's busy share: the same 12 gossip rounds, then 4
+                # decode steps of the fleet (every slot active)
+                gossip_busy = busy_text(*device_busy(
+                    lambda: fleet.sim.run_schedule(
+                        state, world.compile(FLEET_ROUNDS, FLEET_SEED),
+                        engine=False)), f"{FLEET_ROUNDS} gossip rounds")
+                del state
+                caches = tree_map(lambda a: a.unsqueeze(0).repeat(
+                    (FLEET_REPLICAS,) + (1,) * a.dim()), fleet._caches0)
+                shape = (FLEET_REPLICAS, FLEET_KW["max_batch"])
+                toks = torch.ones(shape + (1,), dtype=torch.int32,
+                                  device=dev)
+                act = torch.ones(shape, dtype=torch.bool, device=dev)
+
+                def four_steps():
+                    c = caches
+                    for t in range(4):
+                        _, c = fleet._decode_step(
+                            rep.final_bank, c, toks,
+                            torch.full(shape, t, dtype=torch.int32,
+                                       device=dev), act)
+
+                decode_busy = busy_text(*device_busy(four_steps),
+                                        "4 fleet decode steps")
+                del caches
+                extra = ("; final bank and consensus prefix bit for bit "
+                         f"run_schedule(engine=False)'s; {gossip_busy}; "
+                         f"{decode_busy}")
+            elif arm == "churn":
+                require(rep.restarted >= 1, "the kill caught no request "
+                                            "in flight")
+                extra = f"; replica {FLEET_REPLICAS - 1} killed at round " \
+                        f"{FLEET_KILL}, {rep.restarted} restarted"
+            else:
+                require(rep.stall_skips > 0, "no stall happened")
+                require(torch.equal(rep.final_bank, fleet._bank0),
+                        "the drift-off bank moved")
+                for q in rep.completed:
+                    ref = generate(model, params, torch.from_numpy(
+                        q.prompt).to(dev)[None].long(), q.max_new)
+                    require(q.out == ref[0, len(q.prompt):].tolist(),
+                            f"request {q.uid}: the fleet's ids differ "
+                            f"from generate's")
+                extra = ("; the bank unchanged bit for bit and every "
+                         "request's ids generate's")
+            s = rep.summary()
+            print(f"[{card}] 24 fleet {arm}: {cfg.name} "
+                  f"({nbytes / 1e9:.3f} GB a replica, bank "
+                  f"({FLEET_REPLICAS}, {fleet.layout.d}) f32), "
+                  f"{rep.rounds} rounds + {rep.drain_rounds} drain, "
+                  f"{rep.requests_total} requests, lost {rep.lost}, "
+                  f"restarted {rep.restarted}, stall skips "
+                  f"{rep.stall_skips}, {rep.tokens_generated} tokens in "
+                  f"{rep.wall_seconds * 1e3:.1f} ms (host clock) = "
+                  f"{s['tokens_per_second']:.1f} tokens/s, latency p50 / "
+                  f"p95 {s['latency_p50']:.1f} / {s['latency_p95']:.1f} "
+                  f"rounds, consensus final {s['consensus_final']:.4e}; no "
+                  f"hand kernel{extra}")
+            print(f"[{card}] 24 fleet {arm}, a scheduled round: gossip "
+                  f"(_round_channel, CUDA events) "
+                  f"{[round(v, 2) for v in gossip]} ms, decode (CUDA "
+                  f"events) {[round(v, 2) for v in dec]} ms, host rest "
+                  f"{[round(v, 2) for v in rest]} ms; a drain round's "
+                  f"decode mean "
+                  f"{np.mean(drain_dec) if drain_dec else float('nan'):.2f}"
+                  f" ms")
+            del fleet, rep
+            torch.cuda.empty_cache()
+    finally:
+        Simulator._round_channel = orig
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3299,6 +3734,15 @@ def main() -> int:
     phase_sync_train(card, stream)
     del stream
     print(f"[{card}] phases 1-21 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    qwen, qwen_params = phase_decode(card, get_config("qwen3-0.6b"))
+    phase_batching(card, qwen, qwen_params)
+    del qwen, qwen_params
+    torch.cuda.empty_cache()
+    phase_fleet(card, get_config("nano-lm"))
+    print(f"[{card}] phases 1-24 done at {time.perf_counter() - t_start:.1f}"
           f" s")
 
     print(card)

@@ -1,5 +1,5 @@
-"""Carry parameter trees and trainer states between the JAX package and
-the port.
+"""Carry parameter trees, decode caches and trainer states between the JAX
+package and the port.
 
 The JAX side hands its tree over as numpy arrays (``jax.device_get``); this
 module never imports JAX.  Structure, shapes and dtypes are kept: dicts stay
@@ -44,6 +44,19 @@ def params_to_numpy(tree: PyTree) -> PyTree:
     """The port's tree of tensors -> numpy leaves (the inverse of
     ``params_from_jax``; bfloat16 leaves need the ``ml_dtypes`` package)."""
     return tree_map(_to_numpy, tree)
+
+
+def caches_from_jax(np_caches, device="cuda") -> list:
+    """JAX decode caches (``Model.init_cache``'s list of per-group
+    ``{"b{i}": {"k", "v", "slot_pos"}}``, numpy leaves) -> the port's, on
+    ``device``; ``slot_pos`` stays int32."""
+    return params_from_jax(np_caches, device)
+
+
+def caches_to_numpy(caches: list) -> list:
+    """The port's decode caches -> numpy leaves (the inverse of
+    ``caches_from_jax``)."""
+    return params_to_numpy(caches)
 
 
 def opt_state_from_jax(np_opt, device="cuda"):

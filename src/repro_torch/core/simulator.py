@@ -125,6 +125,11 @@ def _check_telemetry(telemetry) -> None:
                          f"got {type(telemetry).__name__}")
 
 
+# the runtime telemetry columns of ``_round_channel``'s metrics, in the
+# accumulator's order
+_TEL_COLUMNS = ("tel_applied", "tel_rejected", "tel_norm_sum", "tel_norm_sq")
+
+
 def _tel_zeros(shape, device):
     """A fresh telemetry accumulator: (applied, rejected, norm_sum,
     norm_sq_sum), f32 scalars serially or (B,) world-batched."""
@@ -368,69 +373,96 @@ class Simulator:
                 torch.as_tensor(corrupt, device=dev), grad_times,
                 grad_scale, alive, ring_pos), horizon
 
+    def _round_channel(self, horizon: int, carry, round_sched, tel=None,
+                       knobs=None):
+        """One round of the per-event channel replay: the round's comm
+        events (stale reads from the ring of per-round snapshots, corrupted
+        received values, the robust m-term), then the gradient tick and
+        the end-of-round snapshot.
+
+        ``carry`` is ``(x, x~, t_last, ring, generator)`` (``ring`` None at
+        horizon 0), followed by the defense state when defense ``knobs``
+        (``defense.knobs_single``) run the self-healing loop per event;
+        ``round_sched`` is one round of ``channel_reference_arrays``.
+        Returns ``(carry, metrics)``: ``loss``, ``consensus`` and
+        ``mean_param_norm``, the ``tel_*`` accumulator columns with a
+        telemetry spec ``tel``, and the ``DefenseTrace`` fields with
+        knobs.  The ring is written in place; nothing else is."""
+        x, xt, t_last, ring, generator = carry[:5]
+        ds = carry[5] if knobs is not None else None
+        (partners, times, mask, src_slots, corrupts, grad_times, grad_scale,
+         alive, ring_pos) = round_sched
+        ids = torch.arange(t_last.shape[0], device=t_last.device)
+        acc = None if tel is None else _tel_zeros((), t_last.device)
+        for k in range(partners.shape[0]):
+            partner, corrupt = partners[k], corrupts[k]
+            x, xt, t_last, involved = self._comm_mix(
+                x, xt, t_last, partner, times[k], mask[k], ids)
+            if horizon:
+                xp = tree_map(lambda a, ra: ring_read(
+                    ra, a, partner, src_slots[k]), x, ring)
+            else:
+                xp = tree_map(lambda a: a.index_select(0, partner), x)
+            if ds is None:
+                if acc is not None:
+                    nrm = self._delta_norms_tree(x, xp, corrupt)
+                    acc = _tel_step(acc, involved, self._tel_rej(nrm), nrm)
+                # idle/masked rows read themselves fresh with corrupt 0, so
+                # m = 0
+                x, xt = self._channel_p2p(x, xt, xp, corrupt)
+                continue
+            nrm = self._delta_norms_tree(x, xp, corrupt)
+            mscale, quar, ds = defense_comm(knobs, ds, partner, involved,
+                                            nrm)
+            x, xt = self._p2p_from(x, xt, xp, corrupt, mscale=mscale)
+            # the kernel's rejection output IS (mscale == 0)
+            rej = (mscale == 0.0).float()
+            ds = defense_absorb(ds, rej, quar, involved)
+            if acc is not None:
+                acc = _tel_step(acc, involved, rej, nrm)
+        x, xt, t_last, row = self._gradient_round(
+            x, xt, t_last, generator, grad_times, grad_scale, alive, ids)
+        metrics = dict(zip(SimTrace._fields[:3], row))
+        if acc is not None:
+            metrics.update(zip(_TEL_COLUMNS, acc))
+        if ds is not None:
+            ds, drow = defense_grad(knobs, ds)
+            metrics.update(zip(DefenseTrace._fields, drow))
+        if horizon:
+            # end-of-round snapshot: post-gradient, pre-trailing-mixing
+            tree_map(lambda ra, a: ring_push(ra, a, int(ring_pos)), ring, x)
+        carry = (x, xt, t_last, ring, generator)
+        return (carry if ds is None else carry + (ds,)), metrics
+
     def run_channel(self, state: SimState, schedule_arrays, horizon: int,
                     knobs=None, tel: Telemetry | None = None
                     ) -> tuple[SimState, SimTrace]:
-        """Per-event channel replay: stale reads from a ring of per-round
-        snapshots, corrupted received values, the robust m-term.  With
-        defense ``knobs`` (``defense.knobs_single``) the self-healing loop
-        runs per event and the trace carries a ``DefenseTrace``; with a
-        telemetry spec ``tel`` each round's accumulator rides along and the
-        trace carries its raw runtime columns."""
-        (partners, times, mask, src_slots, corrupts, grad_times, grad_scale,
-         alive, ring_pos) = schedule_arrays
-        x, xt, t_last = state.x, state.x_tilde, state.t_last
-        n = t_last.shape[0]
-        ids = torch.arange(n, device=t_last.device)
-        ring = tree_map(lambda a: ring_init(a, horizon), x) \
+        """Per-event channel replay: ``_round_channel`` over the rounds of
+        ``channel_reference_arrays``.  With defense ``knobs``
+        (``defense.knobs_single``) the self-healing loop runs per event and
+        the trace carries a ``DefenseTrace``; with a telemetry spec ``tel``
+        each round's accumulator rides along and the trace carries its raw
+        runtime columns."""
+        t_last = state.t_last
+        ring = tree_map(lambda a: ring_init(a, horizon), state.x) \
             if horizon else None
-        ds = None if knobs is None else defense_init(n, t_last.device)
+        carry = (state.x, state.x_tilde, t_last, ring, state.generator)
+        if knobs is not None:
+            carry += (defense_init(t_last.shape[0], t_last.device),)
         rows, drows = [], []
         trows = None if tel is None else []
-        for r in range(partners.shape[0]):
-            acc = None if tel is None else _tel_zeros((), t_last.device)
-            for k in range(partners.shape[1]):
-                partner, corrupt = partners[r, k], corrupts[r, k]
-                x, xt, t_last, involved = self._comm_mix(
-                    x, xt, t_last, partner, times[r, k], mask[r, k], ids)
-                if horizon:
-                    xp = tree_map(lambda a, ra: ring_read(
-                        ra, a, partner, src_slots[r, k]), x, ring)
-                else:
-                    xp = tree_map(lambda a: a.index_select(0, partner), x)
-                if ds is None:
-                    if acc is not None:
-                        nrm = self._delta_norms_tree(x, xp, corrupt)
-                        acc = _tel_step(acc, involved, self._tel_rej(nrm),
-                                        nrm)
-                    # idle/masked rows read themselves fresh with corrupt
-                    # 0, so m = 0
-                    x, xt = self._channel_p2p(x, xt, xp, corrupt)
-                    continue
-                nrm = self._delta_norms_tree(x, xp, corrupt)
-                mscale, quar, ds = defense_comm(knobs, ds, partner,
-                                                involved, nrm)
-                x, xt = self._p2p_from(x, xt, xp, corrupt, mscale=mscale)
-                # the kernel's rejection output IS (mscale == 0)
-                rej = (mscale == 0.0).float()
-                ds = defense_absorb(ds, rej, quar, involved)
-                if acc is not None:
-                    acc = _tel_step(acc, involved, rej, nrm)
-            x, xt, t_last, row = self._gradient_round(
-                x, xt, t_last, state.generator, grad_times[r],
-                grad_scale[r], alive[r], ids)
-            rows.append(row)
-            if acc is not None:
-                trows.append(acc)
-            if ds is not None:
-                ds, drow = defense_grad(knobs, ds)
-                drows.append(drow)
-            if horizon:
-                # end-of-round snapshot: post-gradient, pre-trailing-mixing
-                tree_map(lambda ra, a: ring_push(ra, a, int(ring_pos[r])),
-                         ring, x)
+        for r in range(schedule_arrays[0].shape[0]):
+            carry, m = self._round_channel(
+                horizon, carry, tuple(a[r] for a in schedule_arrays), tel,
+                knobs)
+            rows.append(tuple(m[f] for f in SimTrace._fields[:3]))
+            if trows is not None:
+                trows.append(tuple(m[f] for f in _TEL_COLUMNS))
+            if knobs is not None:
+                drows.append(tuple(m[f] for f in DefenseTrace._fields))
+        x, xt, t_last = carry[:3]
         trace = _finish(_stack_rows(rows, SimTrace), trows)
-        if ds is not None:
+        if knobs is not None:
             trace = trace._replace(defense=_stack_rows(drows, DefenseTrace))
         return SimState(x, xt, t_last, state.generator), trace
 

@@ -1,10 +1,18 @@
-"""Entry points: the gossip trainers, the LM prefill step and the training
-launcher."""
+"""Entry points: the gossip trainers, the LM train / prefill / serve steps,
+the training launcher (``launch.train``) and the serving path: the
+``generate`` CLI (``launch.serve``), continuous batching
+(``launch.batching.ContinuousBatcher`` over a host ``SlotScheduler``) and
+the gossip-serving fleet (``launch.fleet.GossipFleet``).  ``launch.serve``
+and ``launch.train`` are CLIs (``python -m``), imported by name only."""
+from .batching import ContinuousBatcher, Request, SlotScheduler
+from .fleet import FleetReport, GossipFleet
 from .gossip_train import (GossipDraws, GossipTrainer, GossipTrainState,
                            PairRingDraws, StackedDraws, StackedGossipState,
                            StackedGossipTrainer, stack_workers,
                            unstack_workers)
 
-__all__ = ["GossipDraws", "GossipTrainer", "GossipTrainState",
+__all__ = ["ContinuousBatcher", "Request", "SlotScheduler", "FleetReport",
+           "GossipFleet", "GossipDraws", "GossipTrainer", "GossipTrainState",
            "PairRingDraws", "StackedDraws", "StackedGossipState",
-           "StackedGossipTrainer", "stack_workers", "unstack_workers"]
+           "StackedGossipTrainer", "stack_workers",
+           "unstack_workers"]

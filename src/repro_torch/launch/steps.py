@@ -1,10 +1,10 @@
 """Step functions, ported from ``repro.launch.steps``: the synchronous train
-step and the prefill step.
+step, the prefill step and the serve (decode) step.
 
 The JAX package's steps are jit-able functions with sharding hints; here
 they are plain functions on tensors.  ``forward_only()`` becomes
 ``torch.no_grad()``, which keeps no graph (and lets the flash kernel, which
-has no backward, run).  The serve step waits for the decode path.
+has no backward, run).
 """
 from __future__ import annotations
 
@@ -94,3 +94,13 @@ def make_prefill_step(model: Model):
         return logits
 
     return prefill_step
+
+
+def make_serve_step(model: Model):
+    """``(params, caches, inputs, pos) -> (logits, new caches)``: one
+    ``Model.decode_step`` with no graph kept."""
+    def serve_step(params: dict, caches: list, inputs, pos):
+        with torch.no_grad():
+            return model.decode_step(params, inputs, pos, caches)
+
+    return serve_step

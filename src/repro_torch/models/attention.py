@@ -1,6 +1,9 @@
 """GQA attention (RoPE, qk-norm, sliding window), ported from
 ``repro.models.attention``: the full-sequence forward used by training and
-prefill.  Decode, the KV caches and MLA are not ported yet.
+prefill, and single-token decode against a KV cache.  A windowed layer's
+cache is a ring of ``window`` rows; every cache row records the absolute
+position it holds, per sequence, so the slots of a continuous batch decode
+at their own positions.  MLA (and its cache) is not ported yet.
 
 ``attention_impl == "pallas"`` routes the scores through the hand-written
 flash kernel on the card (its plain version on the CPU); "xla" is the plain
@@ -9,6 +12,7 @@ mesh.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -32,16 +36,24 @@ def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0
     return rot, inv
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freqs_on(head_dim: int, theta: float, fraction: float,
+                  device: torch.device) -> tuple[int, torch.Tensor]:
+    """``rope_freqs`` copied to ``device`` once: a copy from pageable host
+    memory waits for the card's queue to drain, which would happen twice a
+    layer in every forward and decode step."""
+    rot, inv = rope_freqs(head_dim, theta, fraction)
+    return rot, torch.as_tensor(inv, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                fraction: float = 1.0) -> torch.Tensor:
     """x: (..., S, n_heads, head_dim) or (..., S, head_dim); positions
     (..., S).  Angles and their cos/sin in f32, the rotation in x's
     dtype."""
-    hd = x.shape[-1]
-    rot, inv = rope_freqs(hd, theta, fraction)
+    rot, inv = _inv_freqs_on(x.shape[-1], theta, fraction, x.device)
     if rot == 0:
         return x
-    inv = torch.as_tensor(inv, device=x.device)
     ang = positions[..., None].float() * inv          # (..., S, rot/2)
     cos = torch.cos(ang).to(x.dtype)
     sin = torch.sin(ang).to(x.dtype)
@@ -139,3 +151,77 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     return out @ p["wo"]
+
+
+# ------------------------------------------------------------- GQA decoding
+
+def decode_positions(pos, batch: int, device=None) -> torch.Tensor:
+    """(B,) int32 per-slot positions from a Python int (made on
+    ``device``), a 0-d tensor or an already-(B,) tensor ``pos``."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((batch,), int(pos), dtype=torch.int32,
+                          device=device)
+    return torch.broadcast_to(pos.to(device=device, dtype=torch.int32),
+                              (batch,))
+
+
+def _cache_slots(pos_vec: torch.Tensor, size: int, window: int | None
+                 ) -> torch.Tensor:
+    """(B,) cache row per sequence: ``pos % size`` in a ring, else the
+    position clamped to the last row once past capacity (the JAX package's
+    ``dynamic_update_slice`` start clamping)."""
+    return pos_vec % size if window else torch.clamp(pos_vec, max=size - 1)
+
+
+def _update_slot(cache: torch.Tensor, update: torch.Tensor,
+                 slot: torch.Tensor) -> torch.Tensor:
+    """Write ``update[b]`` at row ``slot[b]`` of every sequence's cache:
+    cache (B, size, ...), update (B, 1, ...), slot (B,).  Out of place (a
+    select, not an indexed write), so the old cache stays intact for
+    ``gate_caches`` and the function runs under ``torch.func.vmap``."""
+    hit = torch.arange(cache.shape[1], device=cache.device)[None, :] \
+        == slot[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (cache.dim() - 2))
+    return torch.where(hit, update.to(cache.dtype), cache)
+
+
+def _slot_mask(spos: torch.Tensor, pos_vec: torch.Tensor,
+               window: int | None) -> torch.Tensor:
+    """(B, 1, size) visibility mask from per-sequence slot positions."""
+    mask = (spos >= 0) & (spos <= pos_vec[:, None])
+    if window:
+        mask = mask & (spos > pos_vec[:, None] - window)
+    return mask[:, None, :]
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, length: int,
+                    window: int | None, dtype, device=None) -> dict:
+    """A dense cache of ``length`` rows, or a ring of ``min(length,
+    window)`` rows for a windowed layer; ``slot_pos`` -1 marks an empty
+    row."""
+    size = min(length, window) if window else length
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, size, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, kv, hd), dtype=dtype, device=device),
+        # absolute position held by each sequence's rows (-1 = empty)
+        "slot_pos": torch.full((batch, size), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor, pos,
+                     cache: dict, window: int | None = None
+                     ) -> tuple[torch.Tensor, dict]:
+    """x (B, 1, D), ``pos`` a scalar or (B,) per-slot positions -> (out
+    (B, 1, D), new cache).  k is rotated at its absolute position before
+    it is cached."""
+    b = x.shape[0]
+    pos_vec = decode_positions(pos, b, x.device)
+    q, k, v = _qkv(p, cfg, x, pos_vec[:, None])
+    slot = _cache_slots(pos_vec, cache["k"].shape[1], window)
+    ck = _update_slot(cache["k"], k, slot)
+    cv = _update_slot(cache["v"], v, slot)
+    spos = _update_slot(cache["slot_pos"], pos_vec[:, None], slot)
+    out = _sdpa(q, ck, cv, _slot_mask(spos, pos_vec, window), cfg)
+    return out @ p["wo"], {"k": ck, "v": cv, "slot_pos": spos}

@@ -1,18 +1,22 @@
 """The dense decoder stack, ported from ``repro.models.transformer``: the
-training / prefill forward, the loss, and the batched ``grad_fn`` that
-``Simulator`` replays.
+training / prefill forward, the loss, the batched ``grad_fn`` that
+``Simulator`` replays, and single-token decode against per-layer KV caches
+(``init_cache``, ``decode_step``, ``prefill``).
 
 Parameters are nested dicts in the JAX package's layout: every layer
 group's params are stacked along a leading ``repeat`` axis, ``"head"`` is
 ``{}`` when the embeddings are tied, and the leaves flatten in JAX's sorted
-order (``core.tree``).  The forward pass is a Python loop over each group's
-``repeat`` axis where the JAX package runs ``lax.scan``.
+order (``core.tree``).  The caches keep the same layout: one entry per
+layer group of ``{"b{i}": {"k", "v", "slot_pos"}}``, each leaf stacked on
+the ``repeat`` axis, so batch is axis 1.  The forward and decode passes are
+Python loops over each group's ``repeat`` axis where the JAX package runs
+``lax.scan``, and ``prefill`` is a loop of ``decode_step``s.
 
 Ported: the ``attn`` mixer (GQA, RoPE, qk-norm, windows, both
 ``attention_impl`` values) with the ``dense`` or ``none`` mlp, token and
 embedding inputs, tied or separate heads, codebooks.  Not yet: the MLA,
-SSD and RG-LRU mixers, the MoE mlps, multi-token prediction, decode and the
-caches; ``Model`` raises ``NotImplementedError`` for them.
+SSD and RG-LRU mixers (and their caches), the MoE mlps and multi-token
+prediction; ``Model`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from torch.func import grad_and_value, vmap
 from torch.utils.checkpoint import checkpoint
 
 from ..core.tree import PyTree, tree_leaves, tree_map
+from ..device import resolve_device
 from . import attention
 from .config import Block, ModelConfig
 from .layers import (apply_lm_head, apply_mlp, dtype_of, embed_inputs,
@@ -74,6 +79,25 @@ def apply_block(p: dict, cfg: ModelConfig, block: Block, x: torch.Tensor,
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
         x = x + apply_mlp(p["mlp"], h, cfg.mlp_act)
     return x
+
+
+def init_block_cache(cfg: ModelConfig, block: Block, batch: int,
+                     length: int, dtype, device=None) -> dict:
+    return attention.init_attn_cache(cfg, batch, length, block.window,
+                                     dtype, device)
+
+
+def decode_block(p: dict, cfg: ModelConfig, block: Block, x: torch.Tensor,
+                 pos, cache: dict) -> tuple[torch.Tensor, dict]:
+    """``apply_block`` for one token against the layer's cache."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    h, cache = attention.decode_attention(p["mixer"], cfg, h, pos, cache,
+                                          block.window)
+    x = x + h
+    if block.mlp != "none":
+        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        x = x + apply_mlp(p["mlp"], h, cfg.mlp_act)
+    return x, cache
 
 
 # --------------------------------------------------------------------- model
@@ -153,6 +177,66 @@ class Model:
         ce = -torch.gather(lp, -1, labels[..., None].long())[..., 0]
         loss = ce.mean()
         return loss + aux, {"ce": loss, "aux": aux}
+
+    def init_cache(self, batch: int, length: int, dtype=None,
+                   device="cuda") -> list:
+        """Empty caches for ``batch`` sequences of up to ``length``
+        positions, in the compute dtype unless ``dtype`` is named, on the
+        card unless the caller names the CPU."""
+        cfg = self.cfg
+        dtype = dtype or dtype_of(cfg.compute_dtype)
+        dev = resolve_device(device)
+        caches = []
+        for unit, repeat in cfg.blocks:
+            one = {f"b{i}": init_block_cache(cfg, b, batch, length, dtype,
+                                             dev)
+                   for i, b in enumerate(unit)}
+            caches.append(tree_map(
+                lambda a: a.unsqueeze(0).repeat(
+                    (repeat,) + (1,) * a.dim()), one))
+        return caches
+
+    def decode_step(self, params: dict, inputs: torch.Tensor, pos,
+                    caches: list) -> tuple[torch.Tensor, list]:
+        """inputs: tokens (B, 1) or embeddings (B, 1, D); ``pos`` a Python
+        int, a 0-d tensor or (B,) per-sequence positions (continuous
+        batching: RoPE, cache row and visibility mask are per sequence).
+
+        Returns (logits (B, 1, V*C), new caches); the caches passed in are
+        left as they were."""
+        cfg = self.cfg
+        x = embed_inputs(params["embed"], cfg, inputs)
+        new_caches = []
+        for (unit, repeat), group_p, cache in zip(cfg.blocks,
+                                                  params["groups"], caches):
+            layers = []
+            for r in range(repeat):
+                layer_p = tree_map(lambda a, r=r: a[r], group_p)
+                new_c = {}
+                for i, blk in enumerate(unit):
+                    x, new_c[f"b{i}"] = decode_block(
+                        layer_p[f"b{i}"], cfg, blk, x, pos,
+                        tree_map(lambda a, r=r: a[r], cache[f"b{i}"]))
+                layers.append(new_c)
+            new_caches.append(tree_map(lambda *xs: torch.stack(xs),
+                                       *layers))
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = apply_lm_head(params["head"], params["embed"], cfg, x)
+        return logits, new_caches
+
+    def prefill(self, params: dict, inputs: torch.Tensor, caches: list,
+                pos0=0) -> tuple[torch.Tensor, list]:
+        """Chunked prefill: the (B, P) prompt (or (B, P, D) embeddings)
+        fed through ``decode_step`` at positions ``pos0 .. pos0 + P - 1``,
+        one token a step (the JAX package scans the same steps).  Returns
+        (logits (B, 1, V*C) at the LAST position, filled caches): exactly
+        what step ``P - 1`` of the token-by-token loop returns."""
+        p_len = inputs.shape[1]
+        for t in range(p_len - 1):
+            _, caches = self.decode_step(params, inputs[:, t:t + 1],
+                                         pos0 + t, caches)
+        return self.decode_step(params, inputs[:, p_len - 1:p_len],
+                                pos0 + p_len - 1, caches)
 
     @staticmethod
     def param_count(params: dict) -> int:

@@ -4,7 +4,9 @@ bank builds and a ``GossipTrainer`` step runs there, a ``World`` and a
 ``WorldSweep`` build and compile there, a reduced transformer builds and
 runs its forward on both attention paths, a telemetry replay runs through
 ``run_world``, and a ``make_train_step`` step and a checkpoint round trip
-run there), the entry points refuse to run on a machine without a card
+run there, and the serving path runs there: ``generate`` on a reduced
+Qwen3, a ``ContinuousBatcher`` drained, a 3-replica ``train_bench`` fleet
+for 4 rounds), the entry points refuse to run on a machine without a card
 unless the caller names the CPU, and the part not ported yet (the sharded
 replay) raises instead of taking another path."""
 import os
@@ -105,6 +107,36 @@ PROBE = textwrap.dedent("""
         except RuntimeError:
             refused += 1
     print("CUDA", torch.cuda.is_available(), "REFUSED", refused)
+    import numpy as np
+    from repro_torch.configs.nano_lm import train_bench
+    from repro_torch.core import ServeLoad
+    from repro_torch.launch import serve
+    from repro_torch.launch.batching import ContinuousBatcher, Request
+    from repro_torch.launch.fleet import GossipFleet
+    qm = Model(cfg)
+    qp = qm.init(torch.Generator().manual_seed(0))
+    ids = serve.generate(qm, qp, torch.zeros((1, 3), dtype=torch.long), 4)
+    print("SERVE", tuple(ids.shape))
+    batcher = ContinuousBatcher(qm, qp, max_batch=2, max_len=16)
+    for uid in range(3):
+        batcher.submit(Request(uid, np.arange(1, 3 + uid, dtype=np.int32),
+                               3))
+    print("BATCH", sorted(len(r.out) for r in batcher.run_until_drained()))
+    tb = Model(train_bench())
+    fleet = GossipFleet(tb, tb.init(torch.Generator().manual_seed(0)),
+                        World(ring_graph(3), serve=ServeLoad(
+                            rate=1.0, prompt_len=(2, 3), gen_len=(2, 3))),
+                        max_batch=2, max_len=8)
+    rep = fleet.run(rounds=4, seed=0)
+    print("FLEET", rep.rounds, rep.requests_total > 0,
+          rep.lost + len(rep.completed) == rep.requests_total)
+    refused = 0
+    for make in (lambda: qm.init_cache(1, 4), lambda: serve.main([])):
+        try:
+            make()
+        except RuntimeError:
+            refused += 1
+    print("SERVE_REFUSED", refused)
 """)
 
 
@@ -115,7 +147,8 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
                  if line.startswith(("LEAKED", "WORLDS", "CUDA", "BANK",
-                                     "STEP", "TELEMETRY", "TRAIN")))
+                                     "STEP", "TELEMETRY", "TRAIN", "SERVE",
+                                     "BATCH", "FLEET")))
     models = [line for line in out.stdout.splitlines()
               if line.startswith("MODEL")]
     assert models == ["MODEL xla (1, 8, 512)", "MODEL pallas (1, 8, 512)"]
@@ -125,9 +158,13 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     assert lines["WORLDS"] == "4 True"
     assert lines["TELEMETRY"] == "(3,) 24 True"
     assert lines["TRAIN"] == "True 1 TrainState True"
+    assert lines["SERVE"] == "(1, 7)"
+    assert lines["BATCH"] == "[3, 3, 3]"
+    assert lines["FLEET"] == "4 True True"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CPU-refusal half does not apply")
     assert lines["CUDA"] == "False REFUSED 3"
+    assert lines["SERVE_REFUSED"] == "2"
 
 
 def test_explicit_cpu_is_accepted():
