@@ -74,7 +74,10 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      version at the prefill shapes of nano-lm (96, 1024, 64) and Qwen3-0.6B
      (32, 4096, 128) causal f32, (96, 1000, 64) causal with a window of
      256, (2, 130, 64) against 384 keys without the mask, and (96, 1024,
-     64) and (32, 4096, 128) bf16, on live rows (atol 2e-5, rtol 1e-4 at
+     64) and (32, 4096, 128) bf16, RecurrentGemma-9B's local attention
+     (16, 2048, 256) with a window of 2048, and the padded head dims of
+     DeepSeek-V3's MTP block (256, 511, 56) and (96, 1024, 32), causal,
+     each at f32 and bf16, on live rows (atol 2e-5, rtol 1e-4 at
      f32, the JAX package's tolerance; atol 3e-2 at bf16, the JAX
      package's, and each element within 2^-7 |ref| + 2^-8 sum_c p_c |v_c|,
      which the kernel with the last 64 keys of head 0 dropped must break);
@@ -203,8 +206,37 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      with a stall of 1.0 an event whose bank stays bit for bit and whose
      every request's ids are ``generate``'s; per round the gossip
      (``_round_channel``, the host waiting for its end) and decode times
-     by CUDA events and the host rest, tokens/s.  Phases 22-24 launch no hand kernel (the JAX serving
-     path reaches none), and each requires the counts to stay 0.
+     by CUDA events and the host rest, tokens/s.  Phases 22-24 launch no
+     hand kernel (the JAX serving path reaches none), and each requires the
+     counts to stay 0;
+ 25. DeepSeek-V3 at published widths (d_model 7168, 128 heads, q / kv
+     ranks 1536 / 512, 256 experts of 2048 at top-8 with a shared expert,
+     vocab 129,280, MTP), its 61 layers cut to 2 (MLA + dense, MLA + MoE),
+     bf16 (14,648,806,400 parameters): ``loss`` on 2 x 512 tokens (ce, aux,
+     mtp finite, aux > 0), the share of token-expert picks dropped at
+     capacity 1.25 and the forward's time split into MoE dispatch and
+     combine, expert products and the rest (CUDA events); ``generate``
+     (batch 4, prompt 32, gen 32) equal to the token loop's ids, no pick
+     dropped in decode, the MLA cache's 576 values a token a layer beside
+     expanded K / V's 40,960, the decode step beside its weight-read bound;
+     no hand kernel;
+ 26. mamba2-780m (780,382,464 parameters) and recurrentgemma-9b
+     (9,396,408,320) at full size, f32: decode against ``forward`` within
+     2e-4 (B = 2, S = 256 and 64), Mamba-2's ``generate`` equal to the token
+     loop's and its cache one size at lengths 32 and 4096, a 2 x 2048
+     Mamba-2 forward timed; RecurrentGemma's forward with
+     ``attention_impl="pallas"`` on 1 x 2048 tokens within 2e-4 of the xla
+     path's, flash launched once per local-attention layer (12) at (16,
+     2048, 256), nothing else launched; each decode step beside its
+     weight-read bound;
+ 27. the four families reduced, f32: decode against forward within 2e-4
+     (MoE capacity 8), RecurrentGemma's ``windowed(8)`` ring caches, 8
+     ``make_train_step`` steps of ``sgd(momentum=0.0)`` at lr 0.05 lowering
+     the loss, ``lm_grad_fn``'s vmapped gradients for 2 workers within 1e-6
+     of the largest gradient from separate ``grad_and_value`` calls in f64
+     (1e-4 in f32: cuBLAS's batched GEMMs sum in another order), and a
+     2-round ``run_sim`` on reduced DeepSeek-V3 (finite losses,
+     ``mixing_gossip_stacked`` once a comm step, nothing else launched).
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -1370,10 +1402,13 @@ def live_pairs(s_len, t_len, causal, window, dev) -> int:
 def library_attention(q, k, v, causal, window):
     """One PyTorch call computing the same function (timed, never used by
     the port): SDPA on the (1, BH, S, hd) view, causal or with the boolean
-    mask of a window."""
+    mask of a window (a causal window no shorter than S masks nothing
+    more: causal)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ref import attention_mask
     mask = None
+    if causal and window is not None and window >= q.shape[1]:
+        window = None
     if window is not None:
         mask = attention_mask(q.shape[1], k.shape[1], causal=causal,
                               window=window, device=q.device)
@@ -1429,6 +1464,19 @@ def phase_flash_kernel(card):
          None),
         ("Qwen3-0.6B prefill bf16", 32, 4096, 4096, 128, torch.bfloat16,
          True, None),
+        # RecurrentGemma-9B's local attention (16 query heads, window 2048)
+        ("RecurrentGemma hd 256", 16, 2048, 2048, 256, torch.float32, True,
+         2048),
+        ("RecurrentGemma hd 256 bf16", 16, 2048, 2048, 256, torch.bfloat16,
+         True, 2048),
+        # head dims padded to the next instantiation: DeepSeek-V3's MTP
+        # block (128 heads of 56, B = 2, S = 511) and reduced nano-lm's 32
+        ("DeepSeek-V3 MTP hd 56", 256, 511, 511, 56, torch.float32, True,
+         None),
+        ("DeepSeek-V3 MTP hd 56 bf16", 256, 511, 511, 56, torch.bfloat16,
+         True, None),
+        ("hd 32", 96, 1024, 1024, 32, torch.float32, True, None),
+        ("hd 32 bf16", 96, 1024, 1024, 32, torch.bfloat16, True, None),
     ]
     lib = lib_path("flash_attention_bhsd")
     sass = tensor_core_instructions(lib)
@@ -3276,14 +3324,38 @@ def weights_bytes(params) -> int:
     return sum(a.numel() * a.element_size() for a in tree_leaves(params))
 
 
+def timed_generate(model, params, prompts, gen):
+    """``serve.generate`` with each ``decode_step`` timed by CUDA events:
+    (ids, prefill ms, the decode steps' ms, host seconds)."""
+    from repro_torch.launch.serve import generate
+    timer = ReplayTimer()
+    timer.arm = "generate"
+    object.__setattr__(model, "decode_step",
+                       timer.wrap("decode", model.decode_step))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        ids = generate(model, params, prompts, gen)
+        torch.cuda.synchronize()
+    finally:
+        object.__delattr__(model, "decode_step")
+    wall = time.perf_counter() - t0
+    events = timer.events[("generate", "decode")]
+    p_len = prompts.shape[1]
+    require(len(events) == p_len + gen - 1,
+            f"generate took {len(events)} decode steps")
+    prefill_ms = events[0][0].elapsed_time(events[p_len - 1][1])
+    return ids, prefill_ms, [s.elapsed_time(e) for s, e in
+                             events[p_len:]], wall
+
+
 def phase_decode(card, cfg, dev=None):
     """22: ``serve.generate`` on ``cfg`` (Qwen3-0.6B at full width) at the
     CLI's defaults, greedy: the decode logits of the prompt positions
     against ``Model.forward`` (xla) within DECODE_TOL, ``generate``'s ids
     the token-by-token loop's, a (B,) position vector bit for bit the
     duplicated-row references; prefill and decode timed by CUDA events.
-    Returns (model, params)."""
-    from repro_torch.launch.serve import generate
+    Returns (model, params, a decode step's mean ms)."""
     from repro_torch.models.transformer import Model
     dev = dev or torch.device("cuda")
     model = Model(cfg)
@@ -3294,30 +3366,15 @@ def phase_decode(card, cfg, dev=None):
                             generator=gen, device=dev)
     vocab = cfg.vocab_size
 
-    # the timed run: generate with decode_step wrapped (prefill's steps
-    # are the first SERVE_PROMPT of them)
-    timer = ReplayTimer()
-    timer.arm = "generate"
-    object.__setattr__(model, "decode_step",
-                       timer.wrap("decode", model.decode_step))
+    # the timed run: generate with decode_step timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_launches()
-    t0 = time.perf_counter()
-    try:
-        ids = generate(model, params, prompts, SERVE_GEN)
-        torch.cuda.synchronize()
-    finally:
-        object.__delattr__(model, "decode_step")
-    wall = time.perf_counter() - t0
+    ids, prefill_ms, steps, wall = timed_generate(model, params, prompts,
+                                                  SERVE_GEN)
     require_no_hand_kernel("generate")
     peak = torch.cuda.max_memory_allocated() - base
-    events = timer.events[("generate", "decode")]
-    require(len(events) == SERVE_PROMPT + SERVE_GEN - 1,
-            f"generate took {len(events)} decode steps")
-    prefill_ms = events[0][0].elapsed_time(events[SERVE_PROMPT - 1][1])
-    steps = [s.elapsed_time(e) for s, e in events[SERVE_PROMPT:]]
     require(tuple(ids.shape) == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
             and torch.equal(ids[:, :SERVE_PROMPT], prompts)
             and int(ids.min()) >= 0 and int(ids.max()) < vocab,
@@ -3394,7 +3451,7 @@ def phase_decode(card, cfg, dev=None):
           f"{n_new / wall:.1f} tokens/s; peak memory "
           f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
           f"allocated at its start; {busy}")
-    return model, params
+    return model, params, float(np.mean(steps))
 
 
 def phase_batching(card, model, params, dev=None):
@@ -3627,6 +3684,507 @@ def phase_fleet(card, cfg, dev=None):
         Simulator._round_channel = orig
 
 
+# ---------------------------- 25-27: the rest of the model zoo on the card
+# 25: DeepSeek-V3 at published widths, cut from 61 layers to 2 (one MLA +
+# dense layer, one MLA + MoE layer), MTP on, bf16 (jax.eval_shape count of
+# the same cut)
+DEEPSEEK_PARAMS = 14_648_806_400
+ZOO_BATCH, ZOO_SEQ = 2, 512         # the loss's batch
+# 26: the full configs, f32 (jax.eval_shape counts)
+MAMBA_PARAMS, RGEMMA_PARAMS = 780_382_464, 9_396_408_320
+MAMBA_DECODE_SEQ, MAMBA_PROMPT, MAMBA_GEN = 256, 16, 16
+RGEMMA_DECODE_SEQ, RGEMMA_PREFILL = 64, 2048
+# 27: the four families reduced, f32
+ZOO_ARCHS = ("deepseek-v3-671b", "arctic-480b", "mamba2-780m",
+             "recurrentgemma-9b")
+ZOO_TRAIN_STEPS, ZOO_LR = 8, 0.05
+# lm_grad_fn's vmapped gradients against separate grad_and_value calls,
+# max|d| / max|grad| over the tree: 1e-6 in f64, where only a wrong
+# function could part them; in f32 the repo's LM gradient tolerance
+# (ROADMAP's parity contract), since vmap batches every matmul into
+# cuBLAS's batched GEMMs, which sum in another order (1.296e-06 on
+# reduced DeepSeek-V3 on an H100, PERF.md section 6)
+ZOO_GRAD_TOL = {torch.float64: 1e-6, torch.float32: 1e-4}
+
+
+class MoEProbe:
+    """Inside ``with``: the MoE's dispatch, expert products and combine
+    (``models.layers``) timed by CUDA events under ``timer.arm``, and each
+    dispatch's keep mask kept (drops are its False entries)."""
+
+    NAMES = {"_dispatch_group": "dispatch", "_expert_products": "experts",
+             "_combine_group": "combine"}
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.timer, self.keeps = layers, ReplayTimer(), []
+        self.orig = {n: getattr(layers, n) for n in self.NAMES}
+
+    def __enter__(self):
+        for name, kind in self.NAMES.items():
+            setattr(self.layers, name, self.timer.wrap(kind,
+                                                       self.orig[name]))
+        timed = self.layers._dispatch_group
+
+        def dispatch(*args):
+            out = timed(*args)
+            self.keeps.append(out[2])
+            return out
+
+        self.layers._dispatch_group = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.layers, name, fn)
+
+    def dropped(self) -> tuple[int, int]:
+        """(picks dropped at capacity, picks) over the kept masks."""
+        total = sum(k.numel() for k in self.keeps)
+        return total - sum(int(k.sum()) for k in self.keeps), total
+
+    def ms(self, kind) -> float:
+        return sum(self.timer.ms(self.timer.arm, kind))
+
+
+def token_loop(model, params, prompts, gen):
+    """Greedy ids from a plain loop of ``decode_step``s, the reference of
+    ``generate``."""
+    b, p_len = prompts.shape
+    vocab = model.cfg.vocab_size
+    with torch.no_grad():
+        caches = model.init_cache(b, p_len + gen)
+        for t in range(p_len):
+            lg, caches = model.decode_step(params, prompts[:, t:t + 1], t,
+                                           caches)
+        out = [prompts]
+        for t in range(p_len, p_len + gen):
+            cur = lg[:, 0, :vocab].argmax(-1)[:, None].to(prompts.dtype)
+            out.append(cur)
+            if t < p_len + gen - 1:
+                lg, caches = model.decode_step(params, cur, t, caches)
+    return torch.cat(out, dim=1)
+
+
+def decode_vs_forward(model, params, tokens):
+    """max|decode - forward| / max|forward| of the logits at every position
+    of ``tokens`` (B, S), each decode step timed by CUDA events; returns
+    (that ratio, the steps' ms, the final caches)."""
+    timer = ReplayTimer()
+    step = timer.wrap("decode", model.decode_step)
+    b, s = tokens.shape
+    with torch.no_grad():
+        full, _, _ = model.forward(params, tokens)
+        caches = model.init_cache(b, s)
+        outs = []
+        for t in range(s):
+            lg, caches = step(params, tokens[:, t:t + 1], t, caches)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, dim=1).float()
+        full = full.float()
+        rel = ((dec - full).abs().max() / full.abs().max()).item()
+    return rel, timer.ms("warm-up", "decode"), caches
+
+
+def phase_deepseek(card):
+    """25: DeepSeek-V3 at published widths, cut to 2 layers, bf16: ``loss``
+    (ce, aux, mtp) with the MoE's drops and its time split, then
+    ``generate`` against the token loop, the MLA cache's size and the
+    decode step beside its weight-read bound.  No hand kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Block
+    from repro_torch.models.layers import moe_capacity
+    from repro_torch.models.transformer import Model
+    dev = torch.device("cuda")
+    cfg = get_config("deepseek-v3-671b").with_updates(
+        blocks=(((Block("mla", "dense"),), 1), ((Block("mla", "moe"),), 1)),
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = model.param_count(params)
+    require(n_params == DEEPSEEK_PARAMS, f"DeepSeek-V3 (2 layers) has "
+                                         f"{n_params} parameters, JAX's "
+                                         f"{DEEPSEEK_PARAMS}")
+    nbytes = weights_bytes(params)
+    moe_p = params["groups"][1]["b0"]["mlp"]
+    expert_bytes = sum(moe_p[k].numel() * moe_p[k].element_size()
+                       for k in ("moe_up", "moe_gate", "moe_down"))
+    # a decode step reads every weight but the embedding table and the MTP
+    # block (the JAX package's design: the experts' products run on the
+    # whole (E, C, D) buffer)
+    step_bytes = (nbytes - weights_bytes(params["embed"])
+                  - weights_bytes(params["mtp"]))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    toks = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, ZOO_SEQ + 1),
+                         generator=gen, device=dev)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.no_grad(), MoEProbe() as probe:
+        loss, met = model.loss(params, batch)
+        torch.cuda.synchronize()
+        probe.keeps.clear()
+        probe.timer.arm = "forward"
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.forward(params, batch["inputs"])
+        end.record()
+        torch.cuda.synchronize()
+        fwd_ms = start.elapsed_time(end)
+        dropped, picks = probe.dropped()
+        split = {kind: probe.ms(kind)
+                 for kind in ("dispatch", "experts", "combine")}
+    loss_peak = torch.cuda.max_memory_allocated()
+    require_no_hand_kernel("DeepSeek-V3's loss")
+    ce, aux, mtp = (met[k].item() for k in ("ce", "aux", "mtp"))
+    require(all(np.isfinite((ce, aux, mtp, loss.item()))) and aux > 0,
+            f"DeepSeek-V3 loss: ce {ce}, aux {aux}, mtp {mtp}")
+    require(picks == ZOO_BATCH * ZOO_SEQ * cfg.moe.top_k,
+            f"the forward dispatched {picks} picks")
+    print(f"[{card}] 25 DeepSeek-V3 at published widths (d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads, q/kv ranks "
+          f"{cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}, "
+          f"{cfg.moe.num_experts} experts x {cfg.moe.d_expert} top-"
+          f"{cfg.moe.top_k} + shared, vocab {cfg.vocab_size}, MTP), 61 "
+          f"layers cut to 2 (MLA + dense, MLA + MoE), bf16: {n_params} "
+          f"parameters, {nbytes / 1e9:.3f} GB ({expert_bytes / 1e9:.3f} GB "
+          f"of experts), built in {init_s:.1f} s, peak memory "
+          f"{init_peak / 2**30:.2f} GiB while building")
+    print(f"[{card}] 25 loss (B={ZOO_BATCH}, S={ZOO_SEQ}): ce {ce:.4f}, aux "
+          f"{aux:.6f}, mtp {mtp:.4f}, total {loss.item():.4f}; the "
+          f"forward dropped {dropped} of {picks} token-expert picks "
+          f"({dropped / picks:.2%}) at capacity {cfg.moe.capacity_factor}; "
+          f"forward {fwd_ms:.2f} ms (CUDA events): MoE dispatch + combine "
+          f"{split['dispatch'] + split['combine']:.2f} ms (dispatch "
+          f"{split['dispatch']:.2f}, combine {split['combine']:.2f}), expert "
+          f"products {split['experts']:.2f} ms (the expert weights "
+          f"{expert_bytes / 1e9:.3f} GB read at 3.35 TB/s: "
+          f"{expert_bytes / PEAK_BYTES_PER_S * 1e3:.2f} ms), rest "
+          f"{fwd_ms - sum(split.values()):.2f} ms; peak memory "
+          f"{(loss_peak - nbytes) / 2**30:.2f} GiB above the weights; no "
+          f"hand kernel")
+    del loss, met, batch, toks
+    torch.cuda.empty_cache()
+
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with MoEProbe() as probe:
+        ids, prefill_ms, steps, wall = timed_generate(model, params,
+                                                      prompts, SERVE_GEN)
+        dec_dropped, dec_picks = probe.dropped()
+    require_no_hand_kernel("DeepSeek-V3's generate")
+    require(dec_picks == (SERVE_PROMPT + SERVE_GEN - 1) * SERVE_BATCH
+            * cfg.moe.top_k and dec_dropped == 0,
+            f"decode dropped {dec_dropped} of {dec_picks} picks")
+    loop = token_loop(model, params, prompts, SERVE_GEN)
+    require(torch.equal(ids, loop), f"generate's ids differ from the token "
+                                    f"loop's in {int((ids != loop).sum())} "
+                                    f"places")
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)[0]["b0"]
+    per_token = cache["c"].shape[-1] + cache["k_rope"].shape[-1]
+    require(per_token == cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+            and set(cache) == {"c", "k_rope", "slot_pos"},
+            f"the MLA cache holds {per_token} values a token")
+    # per-head K (qk_nope + rope) and V: what the latents stand in for
+    expanded = cfg.num_heads * (cfg.mla.qk_nope_head_dim
+                                + cfg.mla.qk_rope_head_dim
+                                + cfg.mla.v_head_dim)
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    n_new = SERVE_BATCH * SERVE_GEN
+    print(f"[{card}] 25 generate (batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, gen {SERVE_GEN}, greedy): ids the token loop's "
+          f"bit for bit; decode dropped {dec_dropped} of {dec_picks} picks "
+          f"(capacity {moe_capacity(1, cfg.moe)} at S = 1, the top-"
+          f"{cfg.moe.top_k} distinct); the MLA cache "
+          f"{per_token} values a token a layer against {expanded} for "
+          f"expanded K / V ({expanded / per_token:.1f}x smaller); prefill "
+          f"{prefill_ms:.2f} ms; decode a step (CUDA events, {len(steps)} "
+          f"steps) mean {np.mean(steps):.3f} ms, min {min(steps):.3f}, max "
+          f"{max(steps):.3f} beside the weight-read bound {bound_ms:.3f} ms "
+          f"({step_bytes / 1e9:.3f} GB / 3.35 TB/s, all weights but the "
+          f"embedding table and the MTP block), "
+          f"{bound_ms / np.mean(steps):.1%} of it; {n_new} tokens in "
+          f"{wall * 1e3:.1f} ms (host clock) = "
+          f"{n_new / wall:.1f} tokens/s; peak memory "
+          f"{(torch.cuda.max_memory_allocated() - nbytes) / 2**30:.2f} GiB "
+          f"above the weights; the phase's peak {init_peak / 2**30:.2f} GiB,"
+          f" while building")
+    del model, params, cache
+    torch.cuda.empty_cache()
+
+
+def phase_ssm_hybrid(card, qwen_step_ms):
+    """26: mamba2-780m and recurrentgemma-9b at full size, f32: decode
+    against forward, Mamba-2's ``generate`` against the token loop and its
+    constant-size cache, RecurrentGemma's flash forward (hd 256, one KV
+    head) against the xla path.  Returns the flash launches of that
+    forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.transformer import Model
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+
+    cfg = get_config("mamba2-780m")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    n_params, nbytes = model.param_count(params), weights_bytes(params)
+    require(n_params == MAMBA_PARAMS, f"mamba2-780m has {n_params} "
+                                      f"parameters, JAX's {MAMBA_PARAMS}")
+    toks = torch.randint(0, cfg.vocab_size, (2, MAMBA_DECODE_SEQ),
+                         generator=gen, device=dev)
+    reset_launches()
+    rel, steps, _ = decode_vs_forward(model, params, toks)
+    require(rel < DECODE_TOL, f"mamba2-780m decode vs forward {rel:.3e}")
+    prompts = toks[:, :MAMBA_PROMPT]
+    ids, _, gen_steps, wall = timed_generate(model, params, prompts,
+                                             MAMBA_GEN)
+    require(torch.equal(ids, token_loop(model, params, prompts, MAMBA_GEN)),
+            "mamba2-780m: generate's ids differ from the token loop's")
+    small, large = (model.init_cache(2, n) for n in (32, 4096))
+    from repro_torch.core.tree import tree_leaves
+    require(all(a.shape == b.shape for a, b in zip(tree_leaves(small),
+                                                   tree_leaves(large))),
+            "the SSD cache grows with the context")
+    cache_bytes = weights_bytes(small)
+    del small, large
+    long_toks = torch.randint(0, cfg.vocab_size, (2, 2048), generator=gen,
+                              device=dev)
+    with torch.no_grad():
+        model.forward(params, long_toks)
+        fwd_ms = cuda_ms(lambda: model.forward(params, long_toks), reps=3,
+                         warmup=0)
+    require_no_hand_kernel("mamba2-780m")
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"[{card}] 26 mamba2-780m full ({cfg.num_layers} SSD layers, "
+          f"d_model {cfg.d_model}, f32): {n_params} parameters, "
+          f"{nbytes / 1e9:.3f} GB; decode vs "
+          f"forward (B=2, S={MAMBA_DECODE_SEQ}, two chunks of "
+          f"{cfg.ssm.chunk}) {rel:.3e} (tolerance {DECODE_TOL:g}); "
+          f"generate (batch 2, prompt {MAMBA_PROMPT}, gen {MAMBA_GEN}) ids "
+          f"the token loop's; the cache {cache_bytes / 2**20:.2f} MiB at "
+          f"length 32 and at 4096; decode a step (CUDA events, "
+          f"{len(steps)} steps at batch 2) mean {np.mean(steps):.3f} ms, "
+          f"min {min(steps):.3f} (generate's {np.mean(gen_steps):.3f}) "
+          f"beside the weight-read bound {bound_ms:.3f} ms "
+          f"({nbytes / 1e9:.3f} GB / 3.35 TB/s) and Qwen3-0.6B's "
+          f"{qwen_step_ms:.3f} ms (phase 22, batch 4); a 2 x 2048 forward "
+          f"{fwd_ms:.2f} ms (CUDA events, mean of 3); no hand kernel; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, params, toks, long_toks
+    torch.cuda.empty_cache()
+
+    cfg = get_config("recurrentgemma-9b")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    n_params, nbytes = model.param_count(params), weights_bytes(params)
+    require(n_params == RGEMMA_PARAMS, f"recurrentgemma-9b has {n_params} "
+                                       f"parameters, JAX's {RGEMMA_PARAMS}")
+    toks = torch.randint(0, cfg.vocab_size, (2, RGEMMA_DECODE_SEQ),
+                         generator=gen, device=dev)
+    reset_launches()
+    rel, steps, _ = decode_vs_forward(model, params, toks)
+    require_no_hand_kernel("recurrentgemma-9b's decode")
+    require(rel < DECODE_TOL, f"recurrentgemma-9b decode vs forward "
+                              f"{rel:.3e}")
+    attn = [b for b in cfg.all_blocks() if b.mixer == "attn"]
+    n_attn = len(attn)
+    shapes = []
+    kernel = flash_ops.flash_attention_bhsd
+
+    def recording(q, k, v, **kw):
+        shapes.append((tuple(q.shape), tuple(k.shape), kw.get("window")))
+        return kernel(q, k, v, **kw)
+
+    flash_ops.flash_attention_bhsd = recording
+    try:
+        tokens = torch.randint(0, cfg.vocab_size, (1, RGEMMA_PREFILL + 1),
+                               generator=gen, device=dev)
+        launches = check_prefill(card, "RecurrentGemma-9B", cfg, params,
+                                 tokens, n_attn)
+    finally:
+        flash_ops.flash_attention_bhsd = kernel
+    # the KV head repeated for each query head, hd as the config has it
+    bhsd = (cfg.num_heads, RGEMMA_PREFILL, cfg.resolved_head_dim)
+    want = (bhsd, bhsd, attn[0].window)
+    require(launches == n_attn and set(shapes) == {want},
+            f"RecurrentGemma's flash calls: {launches} for {n_attn} "
+            f"attention layers, shapes {sorted(set(shapes))}")
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"[{card}] 26 recurrentgemma-9b full ({cfg.num_layers} layers: "
+          f"(rglru, rglru, local attn) x 12 + (rglru, rglru), d_model "
+          f"{cfg.d_model}, f32): {n_params} parameters, "
+          f"{nbytes / 1e9:.3f} GB; decode vs forward (B=2, "
+          f"S={RGEMMA_DECODE_SEQ}) {rel:.3e} (tolerance {DECODE_TOL:g}), no "
+          f"hand kernel; decode a step (CUDA events, {len(steps)} steps at "
+          f"batch 2) mean {np.mean(steps):.3f} ms, min {min(steps):.3f} "
+          f"beside the weight-read bound {bound_ms:.3f} ms "
+          f"({nbytes / 1e9:.3f} GB / 3.35 TB/s); the flash forward's "
+          f"{launches} launches, one per local-attention layer, at (BH, S, "
+          f"hd) = {bhsd} ({cfg.num_heads} query heads on "
+          f"{cfg.num_kv_heads} KV head, window {want[2]}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, params, toks, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vmapped_grad_gap(model, params, stream) -> float:
+    """max |d| / max |grad| over the tree (and the losses' relative gap)
+    between ``lm_grad_fn``'s vmapped call for 2 workers (``params`` and
+    1.01 x ``params``) and two separate ``grad_and_value`` calls on the
+    same batches."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models.transformer import lm_grad_fn
+    dev = next(iter(tree_leaves(params))).device
+    xs = tree_map(lambda a: torch.stack([a, 1.01 * a]), params)
+    v_loss, v_grads = lm_grad_fn(model, stream)(
+        xs, torch.Generator(device=dev).manual_seed(3),
+        torch.arange(2, device=dev))
+    b = stream.sample_workers(torch.Generator(device=dev).manual_seed(3), 2)
+    worst = 0.0
+    for w in range(2):
+        g, loss = torch.func.grad_and_value(
+            lambda p: model.loss(p, {"inputs": b["inputs"][w],
+                                     "labels": b["labels"][w]})[0]
+        )(tree_map(lambda a: a[w], xs))
+        top = max(a.abs().max().item() for a in tree_leaves(g))
+        diff = max((a[w] - c).abs().max().item() for a, c in
+                   zip(tree_leaves(v_grads), tree_leaves(g)))
+        worst = max(worst, diff / top,
+                    abs(v_loss[w].item() - loss.item()) / abs(loss.item()))
+    return worst
+
+
+def phase_zoo_reduced(card):
+    """27: the four families reduced, f32: decode against forward (MoE
+    capacity 8), RecurrentGemma's ``windowed(8)`` rings, 8 SGD steps
+    lowering the loss, ``lm_grad_fn``'s vmapped gradients against
+    separate calls, and a 2-round ``run_sim`` on DeepSeek-V3.  Returns the
+    clean kernel's launches of that replay."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import (build_graph, coalesce_schedule,
+                                  coalesced_stream, make_schedule)
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import LMTaskStream
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import sgd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for arch in ZOO_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        s = cfg.ssm.chunk if cfg.ssm else 32
+        toks = torch.randint(0, cfg.vocab_size, (2, s + 1), generator=gen,
+                             device=dev)
+        uncapped = cfg if cfg.moe is None else cfg.with_updates(
+            moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+        rel, _, _ = decode_vs_forward(Model(uncapped), params, toks[:, :-1])
+        require(rel < DECODE_TOL, f"{arch} decode vs forward {rel:.3e}")
+        notes = [f"decode vs forward {rel:.3e}"]
+        if cfg.rglru is not None:
+            ring = cfg.windowed(8)
+            rel_w, _, caches = decode_vs_forward(Model(ring), params,
+                                                 toks[:, :-1])
+            k = caches[0]["b2"]["k"]
+            require(rel_w < DECODE_TOL and k.shape[2] == 8,
+                    f"{arch} windowed(8): {rel_w:.3e}, ring {k.shape}")
+            notes.append(f"windowed(8) rings {rel_w:.3e}")
+        step, opt = make_train_step(model, sgd(momentum=0.0), lr=ZOO_LR,
+                                    remat=False)
+        p0 = tree_map(torch.clone, params)
+        state = TrainState(p0, opt.init(p0))
+        batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        losses = []
+        for _ in range(ZOO_TRAIN_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+        require(np.isfinite(losses).all() and losses[-1] < losses[0],
+                f"{arch}: {ZOO_TRAIN_STEPS} SGD steps {losses}")
+        notes.append(f"{ZOO_TRAIN_STEPS} SGD steps (lr {ZOO_LR}) loss "
+                     f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        del state, p0
+        stream = LMTaskStream(vocab_size=cfg.vocab_size, seq_len=s,
+                              batch_size=2, seed=SEED)
+        gaps = []
+        for dtype, tol in ZOO_GRAD_TOL.items():
+            name = str(dtype)[6:]
+            m = Model(cfg.with_updates(param_dtype=name, compute_dtype=name))
+            gap = vmapped_grad_gap(m, tree_map(lambda a: a.to(dtype),
+                                               params), stream)
+            require(gap <= tol, f"{arch}: vmapped {name} gradients {gap:.3e}"
+                                f" of the largest from separate calls, "
+                                f"limit {tol:g}")
+            gaps.append(f"{gap:.3e} in {name} (limit {tol:g})")
+        notes.append("lm_grad_fn's vmapped gradients and losses for 2 "
+                     "workers against separate calls, max|d| / max|grad|: "
+                     + ", ".join(gaps))
+        print(f"[{card}] 27 {arch} reduced ({model.param_count(params)} "
+              f"parameters, f32): " + "; ".join(notes))
+        del model, params
+    require_no_hand_kernel("the reduced families")
+    args = train.build_parser().parse_args(
+        ["--arch", "deepseek-v3-671b", "--workers", "4", "--steps", "2",
+         "--seq-len", "32", "--batch-size", "2", "--acid", "--no-bayes-ce"])
+    sched = make_schedule(build_graph(args.graph, args.workers), rounds=2,
+                          comms_per_grad=args.comms_per_grad,
+                          seed=args.seed)
+    comm_steps = int((~coalesced_stream(
+        coalesce_schedule(sched), np.zeros(args.workers, np.float32)
+    ).is_grad).sum())
+    run = train.run_sim(args)
+    launches = read_launches()
+    require(bool(torch.isfinite(run.trace.loss).all())
+            and run.trace.loss.shape == (2,),
+            f"run_sim on reduced DeepSeek-V3: losses {run.trace.loss}")
+    require(launches["mixing_gossip_stacked"] == comm_steps
+            and only_launched(launches, "mixing_gossip_stacked"),
+            f"run_sim launched {launches}, {comm_steps} comm steps")
+    print(f"[{card}] 27 run_sim reduced DeepSeek-V3 (4 workers, ring, "
+          f"A2CiD2, 2 rounds): losses {run.trace.loss.tolist()}; "
+          f"mixing_gossip_stacked launches "
+          f"{launches['mixing_gossip_stacked']} == {comm_steps} comm "
+          f"steps, every other kernel 0; the phase's peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches["mixing_gossip_stacked"]
+
+
+def phase_zoo(card, qwen_step_ms: float) -> dict:
+    """25-27, each from an emptied cache (each prints its peak memory),
+    timed; returns the hand-kernel launches of their main paths."""
+    launches = {}
+    for n, phase, args in ((25, phase_deepseek, ()),
+                           (26, phase_ssm_hybrid, (qwen_step_ms,)),
+                           (27, phase_zoo_reduced, ())):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = phase(card, *args)
+        if n == 26:
+            launches["flash_attention_bhsd"] = out
+        elif n == 27:
+            launches["mixing_gossip_stacked"] = out
+        print(f"[{card}] phase {n}: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3737,12 +4295,18 @@ def main() -> int:
           f" s")
     torch.cuda.empty_cache()
     from repro_torch.configs import get_config
-    qwen, qwen_params = phase_decode(card, get_config("qwen3-0.6b"))
+    qwen, qwen_params, qwen_step_ms = phase_decode(
+        card, get_config("qwen3-0.6b"))
     phase_batching(card, qwen, qwen_params)
     del qwen, qwen_params
     torch.cuda.empty_cache()
     phase_fleet(card, get_config("nano-lm"))
     print(f"[{card}] phases 1-24 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    zoo = phase_zoo(card, qwen_step_ms)
+    launches["flash_attention_bhsd"] += zoo["flash_attention_bhsd"]
+    launches["mixing_gossip_stacked"] += zoo["mixing_gossip_stacked"]
+    print(f"[{card}] phases 1-27 done at {time.perf_counter() - t_start:.1f}"
           f" s")
 
     print(card)

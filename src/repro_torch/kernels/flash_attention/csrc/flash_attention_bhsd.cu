@@ -48,13 +48,13 @@
 // Q and K read from shared memory, both K-major in the layout TMA writes
 // (16-byte chunk c of row r at chunk c ^ (r % 8), one 64-column block per
 // 128-byte row).  P is rounded to bf16 in registers and fed to O += P V
-// (wgmma.m64n{hd}k16) as the register A operand, whose fragment layout is
-// the accumulator's; V is the shared-memory B operand, read transposed
-// (MN-major) from the same layout.  As in FlashAttention-3, a warpgroup
-// starts S_j = Q K_j^T and O += P_{j-1} V_{j-1} together and runs the
-// softmax of S_j while P V is still on the tensor cores.  The rounding of P
-// to bf16 is the one rounding the plain version does not do; l sums the
-// unrounded f32 p.
+// (wgmma.m64n{hd}k16; two of m64n128k16 at hd 256) as the register A
+// operand, whose fragment layout is the accumulator's; V is the
+// shared-memory B operand, read transposed (MN-major) from the same
+// layout.  As in FlashAttention-3, a warpgroup starts S_j = Q K_j^T and
+// O += P_{j-1} V_{j-1} together and runs the softmax of S_j while P V is
+// still on the tensor cores.  The rounding of P to bf16 is the one rounding
+// the plain version does not do; l sums the unrounded f32 p.
 //
 // f32: 3xTF32.  Each operand x is split into hi = tf32(x) and
 // lo = tf32(x - hi) (cvt.rna), and a.b is taken as lo.hi + hi.lo + hi.hi
@@ -451,13 +451,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
         : WG_F32(d, 0)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
-                                         const uint32_t (&a)[4], uint64_t db) {
+// the same at N = 128 into the 16 blocks d[OFF ..  OFF + 15]: hd 256 takes
+// its 256 output columns as two of these
+template <int NO, int OFF>
+__device__ __forceinline__ void wgmma_rs128(float (&d)[NO][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
         ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : WG_F32(d, 0), WG_F32(d, 8)
+        : WG_F32(d, OFF), WG_F32(d, OFF + 8)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -479,14 +483,25 @@ __device__ __forceinline__ void mma_qk(float (&s)[BK / 8][4], uint32_t qa,
                             1024),
                  kk > 0);
 }
-// O += P V: rows 16kk.. of v; its 64-column blocks lie BK * 128 bytes apart
+// O += P V: rows 16kk.. of v; its 64-column blocks lie BK * 128 bytes apart.
+// A wgmma takes at most 128 columns here: hd 256 is two, the second starting
+// two blocks on.
 template <int HD, int BK>
 __device__ __forceinline__ void mma_pv(float (&o)[HD / 8][4],
                                          const uint32_t (&p)[BK / 16][4],
                                          uint32_t vt) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs(o, p[kk], sw128_desc(vt + kk * 16 * 128, BK * 128, 1024));
+    for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t vk = vt + kk * 16 * 128;
+        if constexpr (HD == 64) {
+            wgmma_rs(o, p[kk], sw128_desc(vk, BK * 128, 1024));
+        } else {
+            wgmma_rs128<HD / 8, 0>(o, p[kk], sw128_desc(vk, BK * 128, 1024));
+            if constexpr (HD == 256)
+                wgmma_rs128<HD / 8, 16>(
+                    o, p[kk], sw128_desc(vk + 2 * BK * 128, BK * 128, 1024));
+        }
+    }
 }
 
 // ======================================================= f32 consumer
@@ -880,9 +895,9 @@ int launch(const void *q, const void *k, const void *v, void *out, int bh,
 
 // dtype_code: 0 = float32 (3xTF32), 1 = bfloat16 (wgmma).
 // q (bh, s_len, hd), k and v (bh, t_len, hd), out like q, all contiguous
-// and 16-byte aligned; hd is 64 or 128.  The caller checks shapes, dtypes,
-// contiguity, alignment, 1 <= bh <= 65535 and 1 <= s_len, t_len.  Returns
-// the CUDA error of the launch (0 = launched).
+// and 16-byte aligned; hd is 64, 128 or 256.  The caller checks shapes,
+// dtypes, contiguity, alignment, 1 <= bh <= 65535 and 1 <= s_len, t_len.
+// Returns the CUDA error of the launch (0 = launched).
 extern "C" int flash_attention_bhsd_launch(
     int dtype_code, const void *q, const void *k, const void *v, void *out,
     int bh, int s_len, int t_len, int hd, int causal, int has_window,
@@ -891,8 +906,14 @@ extern "C" int flash_attention_bhsd_launch(
     using bf16 = __nv_bfloat16;
     // <dtype, hd, k tile, stages, consumer warpgroups>: at f32 the split q
     // (hi and lo) takes half of shared memory, so hd 128 takes 32-column k
-    // tiles in 2 stages; bf16 hd 64 has the registers for a third
-    // warpgroup (192 q rows), hd 128 has not.
+    // tiles in 2 stages, and hd 256 one warpgroup (q and q lo 128 KB) and
+    // one stage of 32 columns (96 KB); bf16 hd 64 has the registers for a
+    // third warpgroup (192 q rows), hd 128 has not.  hd 256 (an output
+    // accumulator of 128 registers a thread) takes one warpgroup: beside
+    // the producer warp, two are budgeted as 384 threads, 168 registers a
+    // thread, and the accumulator spills; one may hold 255, and its 64 q
+    // rows leave room for 3 stages of 64 columns (224 KB).  Measured by
+    // tools/kernel_sweep.py (PERF.md, section 6).
     if (dtype_code == 0 && hd == 64)
         return launch<float, 64, 64, 3, 2>(q, k, v, out, bh, s_len, t_len,
                                            causal, has_window, window, scale,
@@ -907,6 +928,14 @@ extern "C" int flash_attention_bhsd_launch(
                                           s);
     if (dtype_code == 1 && hd == 128)
         return launch<bf16, 128, 64, 3, 2>(q, k, v, out, bh, s_len, t_len,
+                                           causal, has_window, window, scale,
+                                           s);
+    if (dtype_code == 0 && hd == 256)
+        return launch<float, 256, 32, 1, 1>(q, k, v, out, bh, s_len, t_len,
+                                            causal, has_window, window,
+                                            scale, s);
+    if (dtype_code == 1 && hd == 256)
+        return launch<bf16, 256, 64, 3, 1>(q, k, v, out, bh, s_len, t_len,
                                            causal, has_window, window, scale,
                                            s);
     return (int)cudaErrorInvalidValue;

@@ -26,9 +26,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = k.repeat_interleave(h // kv, dim=2)
         v = v.repeat_interleave(h // kv, dim=2)
     t_len = k.shape[1]
-    qf = q.transpose(1, 2).reshape(b * h, s_len, hd)
-    kf = k.transpose(1, 2).reshape(b * h, t_len, hd)
-    vf = v.transpose(1, 2).reshape(b * h, t_len, hd)
+    # contiguous: at B == 1 the reshape is a strided view, not a copy
+    qf = q.transpose(1, 2).reshape(b * h, s_len, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(b * h, t_len, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(b * h, t_len, hd).contiguous()
     if resolve_backend(backend, q) == "ref":
         out = attention_ref(qf, kf, vf, causal=causal, window=window)
     else:

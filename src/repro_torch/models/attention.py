@@ -1,9 +1,12 @@
-"""GQA attention (RoPE, qk-norm, sliding window), ported from
-``repro.models.attention``: the full-sequence forward used by training and
-prefill, and single-token decode against a KV cache.  A windowed layer's
-cache is a ring of ``window`` rows; every cache row records the absolute
-position it holds, per sequence, so the slots of a continuous batch decode
-at their own positions.  MLA (and its cache) is not ported yet.
+"""Attention mixers, ported from ``repro.models.attention``: GQA (RoPE,
+qk-norm, sliding window) and DeepSeek-V3's multi-head latent attention
+(MLA), each with the full-sequence forward used by training and prefill and
+single-token decode against a cache.  A windowed layer's cache is a ring of
+``window`` rows; every cache row records the absolute position it holds,
+per sequence, so the slots of a continuous batch decode at their own
+positions.  MLA caches the compressed latents and the shared RoPE key, and
+expands K and V from the whole cache at every step, as the JAX package
+does (no weight absorption).
 
 ``attention_impl == "pallas"`` routes the scores through the hand-written
 flash kernel on the card (its plain version on the CPU); "xla" is the plain
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention
-from .config import ModelConfig
+from .config import MLAConfig, ModelConfig
 from .layers import dense_init, init_rmsnorm, rmsnorm
 
 NEG_INF = -1e30
@@ -225,3 +228,103 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor, pos,
     spos = _update_slot(cache["slot_pos"], pos_vec[:, None], slot)
     out = _sdpa(q, ck, cv, _slot_mask(spos, pos_vec, window), cfg)
     return out @ p["wo"], {"k": ck, "v": cv, "slot_pos": spos}
+
+
+# ---------------------------------------------------------------------- MLA
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = generator.device
+    return {
+        "w_dq": dense_init(generator, d, (d, m.q_lora_rank), dtype),
+        "q_norm": init_rmsnorm(m.q_lora_rank, dtype, dev),
+        "w_uq": dense_init(generator, m.q_lora_rank,
+                           (m.q_lora_rank, h * qk), dtype),
+        "w_dkv": dense_init(generator, d,
+                            (d, m.kv_lora_rank + m.qk_rope_head_dim), dtype),
+        "kv_norm": init_rmsnorm(m.kv_lora_rank, dtype, dev),
+        "w_uk": dense_init(generator, m.kv_lora_rank,
+                           (m.kv_lora_rank, h * m.qk_nope_head_dim), dtype),
+        "w_uv": dense_init(generator, m.kv_lora_rank,
+                           (m.kv_lora_rank, h * m.v_head_dim), dtype),
+        "wo": dense_init(generator, h * m.v_head_dim,
+                         (h * m.v_head_dim, d), dtype),
+    }
+
+
+def _mla_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    """Returns q (B,S,H,qk), the latent c (B,S,rank), k_rope (B,S,rope)."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    cq = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(b, s, cfg.num_heads, qk)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)],
+                  dim=-1)
+    dkv = x @ p["w_dkv"]
+    c = rmsnorm(dkv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., m.kv_lora_rank:], positions, cfg.rope_theta)
+    return q, c, k_rope
+
+
+def _mla_expand_kv(p: dict, cfg: ModelConfig, c: torch.Tensor,
+                   k_rope: torch.Tensor):
+    """Up-project the latents to per-head K (the RoPE key shared by every
+    head) and V."""
+    m: MLAConfig = cfg.mla
+    b, t, _ = c.shape
+    h = cfg.num_heads
+    k_nope = (c @ p["w_uk"]).reshape(b, t, h, m.qk_nope_head_dim)
+    v = (c @ p["w_uv"]).reshape(b, t, h, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, t, h, m.qk_rope_head_dim)], dim=-1)
+    return k, v
+
+
+def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, window: int | None = None
+              ) -> torch.Tensor:
+    """The full-sequence forward; always the plain ``_sdpa`` (the JAX
+    package's MLA has no kernel path either)."""
+    q, c, k_rope = _mla_qkv(p, cfg, x, positions)
+    k, v = _mla_expand_kv(p, cfg, c, k_rope)
+    out = _sdpa(q, k, v, causal_mask(x.shape[1], window, x.device), cfg)
+    return out @ p["wo"]
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, length: int,
+                   window: int | None, dtype, device=None) -> dict:
+    """The compressed cache: ``kv_lora_rank + qk_rope_head_dim`` values a
+    token, beside ``slot_pos``."""
+    m: MLAConfig = cfg.mla
+    size = min(length, window) if window else length
+    return {
+        "c": torch.zeros((batch, size, m.kv_lora_rank), dtype=dtype,
+                         device=device),
+        "k_rope": torch.zeros((batch, size, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "slot_pos": torch.full((batch, size), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def decode_mla(p: dict, cfg: ModelConfig, x: torch.Tensor, pos,
+               cache: dict, window: int | None = None
+               ) -> tuple[torch.Tensor, dict]:
+    """x (B, 1, D), ``pos`` a scalar or (B,) -> (out (B, 1, D), new
+    cache): the latents written at each sequence's slot, then K and V
+    expanded from the whole cache."""
+    b = x.shape[0]
+    pos_vec = decode_positions(pos, b, x.device)
+    q, c, k_rope = _mla_qkv(p, cfg, x, pos_vec[:, None])
+    slot = _cache_slots(pos_vec, cache["c"].shape[1], window)
+    cc = _update_slot(cache["c"], c, slot)
+    cr = _update_slot(cache["k_rope"], k_rope, slot)
+    spos = _update_slot(cache["slot_pos"], pos_vec[:, None], slot)
+    k, v = _mla_expand_kv(p, cfg, cc, cr)
+    out = _sdpa(q, k, v, _slot_mask(spos, pos_vec, window), cfg)
+    return out @ p["wo"], {"c": cc, "k_rope": cr, "slot_pos": spos}

@@ -1,5 +1,5 @@
-"""Common layers: norms, MLPs, embeddings, ported from
-``repro.models.layers`` (MoE is not ported yet).
+"""Common layers: norms, MLPs, embeddings and the capacity-based top-k MoE,
+ported from ``repro.models.layers``.
 
 Parameters are plain dicts of tensors with the JAX package's keys, shapes
 and dtypes; initialisers draw from a ``torch.Generator`` on its device, so
@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .config import ModelConfig
+from .config import ModelConfig, MoEConfig
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -32,7 +33,9 @@ def dense_init(generator: torch.Generator, fan_in: int, shape, dtype
     f32 and cast to ``dtype``."""
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+    # scaled in place: one f32 temporary, not two, for a 7.5 GB (bf16)
+    # expert tensor
+    return w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
 
 
 def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
@@ -83,6 +86,141 @@ def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         raise ValueError(act)
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------- MoE
+
+def init_moe(generator: torch.Generator, d_model: int, cfg: MoEConfig,
+             dtype, act: str = "silu") -> dict:
+    """Stacked experts ``(E, d, f)`` / ``(E, f, d)``, the router in f32 (for
+    a stable softmax), and the optional shared expert and parallel dense
+    mlp."""
+    d_e = cfg.d_expert or d_model * 4
+    e = cfg.num_experts
+    p = {
+        "router": dense_init(generator, d_model, (d_model, e),
+                             torch.float32),
+        "moe_up": dense_init(generator, d_model, (e, d_model, d_e), dtype),
+        "moe_down": dense_init(generator, d_e, (e, d_e, d_model), dtype),
+    }
+    if act == "silu":
+        p["moe_gate"] = dense_init(generator, d_model, (e, d_model, d_e),
+                                   dtype)
+    if cfg.shared_expert:
+        p["shared"] = init_mlp(generator, d_model, cfg.d_shared or d_e,
+                               dtype, act)
+    if cfg.dense_d_ff:
+        p["dense"] = init_mlp(generator, d_model, cfg.dense_d_ff, dtype, act)
+    return p
+
+
+def moe_capacity(s: int, cfg: MoEConfig) -> int:
+    """Rows a group (one batch row of S tokens) keeps for each expert."""
+    return max(1, int(np.ceil(s * cfg.top_k / cfg.num_experts
+                              * cfg.capacity_factor)))
+
+
+def moe_route(p: dict, x: torch.Tensor, cfg: MoEConfig):
+    """x (B, S, D) -> (probs (B, S, E) f32, topw (B, S, K) in x's dtype,
+    topi (B, S, K)).  The router product runs in x's dtype, the softmax in
+    f32.  The top k come from a stable descending sort, so that equal
+    probabilities keep the lower expert first, as ``lax.top_k`` does; the
+    weights are renormalised over the k, then cast to x's dtype."""
+    logits = (x @ p["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[..., :cfg.top_k], topi[..., :cfg.top_k]
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+    return probs, topw.to(x.dtype), topi
+
+
+def _expert_mask(flat_e: torch.Tensor, e: int) -> torch.Tensor:
+    """(..., N) expert ids -> (..., N, E) bool, True at each id's expert:
+    the one-hot that ``F.one_hot`` would give, without its host-side range
+    check (so it runs under ``torch.func.vmap``)."""
+    return flat_e[..., None] == torch.arange(e, device=flat_e.device)
+
+
+def _dispatch_group(xt: torch.Tensor, topi: torch.Tensor, e: int, c: int):
+    """Per-group dispatch, on an explicit group axis: xt (G, T, D), topi
+    (G, T, K) -> buffer (G, E, C, D), dest (G, T, K), keep (G, T, K).
+
+    The rank of each (token, k) within its expert is the running count of
+    earlier picks of that expert in (token, k) order, which is the rank a
+    stable sort by expert gives (the JAX package's ``argsort`` and
+    ``searchsorted``).  A pick past capacity is dropped: it is written to a
+    spare row E * C, cut off at the end.  K scatters of (T, D), k = 0 .. K
+    - 1, out of place; kept destinations are unique."""
+    g, t, d = xt.shape
+    k = topi.shape[-1]
+    flat_e = topi.reshape(g, t * k)
+    onehot = _expert_mask(flat_e, e)
+    slot = (torch.cumsum(onehot.int(), dim=1) * onehot).sum(-1) - 1
+    keep = (slot < c).reshape(g, t, k)
+    dest = (flat_e * c + slot).reshape(g, t, k)
+    buf = xt.new_zeros((g, e * c + 1, d))
+    for j in range(k):
+        sdest = torch.where(keep[..., j], dest[..., j], e * c)
+        buf = buf.scatter(1, sdest[..., None].expand(g, t, d), xt)
+    return buf[:, :e * c].reshape(g, e, c, d), dest, keep
+
+
+def _combine_group(out_e: torch.Tensor, dest: torch.Tensor,
+                   keep: torch.Tensor, topw: torch.Tensor) -> torch.Tensor:
+    """K gathers of (T, D), weighted and summed in the activation dtype, k
+    = 0 .. K - 1: out_e (G, E, C, D), dest / keep / topw (G, T, K) -> (G,
+    T, D).  A dropped pick gathers an appended zero row."""
+    g, e, c, d = out_e.shape
+    t, k = dest.shape[1:]
+    flat = torch.cat([out_e.reshape(g, e * c, d),
+                      out_e.new_zeros((g, 1, d))], dim=1)
+    out = out_e.new_zeros((g, t, d))
+    for j in range(k):
+        sdest = torch.where(keep[..., j], dest[..., j], e * c)
+        rows = torch.gather(flat, 1, sdest[..., None].expand(g, t, d))
+        out = out + rows * (topw[..., j:j + 1]
+                            * keep[..., j:j + 1]).to(out.dtype)
+    return out
+
+
+def _expert_products(p: dict, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """The experts on the dispatched buffer (G, E, C, D) -> (G, E, C, D):
+    one ``bmm`` a weight, on the buffer laid out as (E, G * C, D) against
+    the stacked weights as they are (no copy of a weight)."""
+    g, e, c, d = buf.shape
+    xe = buf.transpose(0, 1).reshape(e, g * c, d)
+    up = torch.bmm(xe, p["moe_up"])
+    if act == "silu":
+        h = F.silu(torch.bmm(xe, p["moe_gate"])) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    out = torch.bmm(h, p["moe_down"])
+    return out.reshape(e, g, c, d).transpose(0, 1)
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str = "silu"
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group-wise capacity-based top-k MoE (GShard-style dispatch), the
+    groups the batch rows: x (B, S, D) -> (out, aux_loss f32).
+
+    aux is the Switch load-balance loss over the whole batch,
+    ``router_aux_weight * E * sum_e mean_prob_e * count_e / (B * S * K)``,
+    the counts taken from the expert mask (no ``bincount``)."""
+    b, s, _ = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    c = moe_capacity(s, cfg)
+    probs, topw, topi = moe_route(p, x, cfg)
+    me = probs.mean(dim=(0, 1))
+    counts = _expert_mask(topi.reshape(-1), e).float().sum(0)
+    aux = cfg.router_aux_weight * e * torch.sum(me * counts / (b * s * k))
+    buf, dest, keep = _dispatch_group(x, topi, e, c)
+    out_e = _expert_products(p, buf, act)
+    out = _combine_group(out_e, dest, keep, topw)
+    if "shared" in p:
+        out = out + apply_mlp(p["shared"], x, act)
+    if "dense" in p:
+        out = out + apply_mlp(p["dense"], x, act)
+    return out, aux
 
 
 # --------------------------------------------------------------- embeddings

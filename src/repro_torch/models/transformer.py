@@ -1,22 +1,22 @@
-"""The dense decoder stack, ported from ``repro.models.transformer``: the
-training / prefill forward, the loss, the batched ``grad_fn`` that
-``Simulator`` replays, and single-token decode against per-layer KV caches
+"""The composable decoder stack, ported from ``repro.models.transformer``:
+the training / prefill forward, the loss (with the MoE aux loss and
+DeepSeek-V3's multi-token prediction), the batched ``grad_fn`` that
+``Simulator`` replays, and single-token decode against per-layer caches
 (``init_cache``, ``decode_step``, ``prefill``).
+
+Every mixer and mlp of the JAX package is here: the ``attn`` (GQA, RoPE,
+qk-norm, windows, both ``attention_impl`` values), ``mla``, ``ssd`` and
+``rglru`` mixers, the ``dense``, ``moe``, ``moe+dense`` and ``none``
+mlps, token and embedding inputs, tied or separate heads, codebooks.
 
 Parameters are nested dicts in the JAX package's layout: every layer
 group's params are stacked along a leading ``repeat`` axis, ``"head"`` is
 ``{}`` when the embeddings are tied, and the leaves flatten in JAX's sorted
 order (``core.tree``).  The caches keep the same layout: one entry per
-layer group of ``{"b{i}": {"k", "v", "slot_pos"}}``, each leaf stacked on
-the ``repeat`` axis, so batch is axis 1.  The forward and decode passes are
+layer group of ``{"b{i}": <the mixer's cache>}``, each leaf stacked on the
+``repeat`` axis, so batch is axis 1.  The forward and decode passes are
 Python loops over each group's ``repeat`` axis where the JAX package runs
 ``lax.scan``, and ``prefill`` is a loop of ``decode_step``s.
-
-Ported: the ``attn`` mixer (GQA, RoPE, qk-norm, windows, both
-``attention_impl`` values) with the ``dense`` or ``none`` mlp, token and
-embedding inputs, tied or separate heads, codebooks.  Not yet: the MLA,
-SSD and RG-LRU mixers (and their caches), the MoE mlps and multi-token
-prediction; ``Model`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -29,29 +29,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.tree import PyTree, tree_leaves, tree_map
 from ..device import resolve_device
-from . import attention
+from . import attention, rglru, ssm
 from .config import Block, ModelConfig
-from .layers import (apply_lm_head, apply_mlp, dtype_of, embed_inputs,
-                     init_embedding, init_lm_head, init_mlp, init_rmsnorm,
-                     rmsnorm)
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a part of ``cfg`` the port does not
-    have yet."""
-    for b in cfg.all_blocks():
-        if b.mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: the {b.mixer!r} mixer is not ported to PyTorch "
-                f"yet (only 'attn')")
-        if b.mlp not in ("dense", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {b.mlp!r} mlp is not ported to PyTorch yet "
-                f"(only 'dense' and 'none')")
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction is not ported to PyTorch "
-            f"yet")
+from .layers import (apply_lm_head, apply_mlp, apply_moe, dense_init,
+                     dtype_of, embed_inputs, init_embedding, init_lm_head,
+                     init_mlp, init_moe, init_rmsnorm, rmsnorm)
 
 
 # ----------------------------------------------------------------- per block
@@ -60,44 +42,100 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, block: Block
                ) -> dict:
     dtype = dtype_of(cfg.param_dtype)
     dev = generator.device
-    p: dict = {"norm1": init_rmsnorm(cfg.d_model, dtype, dev),
-               "mixer": attention.init_attention(generator, cfg, dtype)}
+    p: dict = {"norm1": init_rmsnorm(cfg.d_model, dtype, dev)}
+    if block.mixer == "attn":
+        p["mixer"] = attention.init_attention(generator, cfg, dtype)
+    elif block.mixer == "mla":
+        p["mixer"] = attention.init_mla(generator, cfg, dtype)
+    elif block.mixer == "ssd":
+        p["mixer"] = ssm.init_ssd(generator, cfg, dtype)
+    elif block.mixer == "rglru":
+        p["mixer"] = rglru.init_rglru(generator, cfg, dtype)
+    else:
+        raise ValueError(block.mixer)
     if block.mlp != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, dtype, dev)
-        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
-                            cfg.mlp_act)
+        if block.mlp == "dense":
+            p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
+                                cfg.mlp_act)
+        else:  # moe / moe+dense
+            p["mlp"] = init_moe(generator, cfg.d_model, cfg.moe, dtype,
+                                cfg.mlp_act)
     return p
 
 
 def apply_block(p: dict, cfg: ModelConfig, block: Block, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Residual block (attention, then the mlp if any)."""
+                positions: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Residual block (the mixer, then the mlp if any); returns (x,
+    aux_loss), aux 0 without MoE."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    x = x + attention.apply_attention(p["mixer"], cfg, h, positions,
+    if block.mixer == "attn":
+        h = attention.apply_attention(p["mixer"], cfg, h, positions,
                                       block.window)
+    elif block.mixer == "mla":
+        h = attention.apply_mla(p["mixer"], cfg, h, positions, block.window)
+    elif block.mixer == "ssd":
+        h = ssm.apply_ssd(p["mixer"], cfg, h)
+    elif block.mixer == "rglru":
+        h = rglru.apply_rglru(p["mixer"], cfg, h)
+    x = x + h
     if block.mlp != "none":
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], h, cfg.mlp_act)
-    return x
+        if block.mlp == "dense":
+            h = apply_mlp(p["mlp"], h, cfg.mlp_act)
+        else:
+            h, aux = apply_moe(p["mlp"], h, cfg.moe, cfg.mlp_act)
+        x = x + h
+    return x, aux
 
 
 def init_block_cache(cfg: ModelConfig, block: Block, batch: int,
                      length: int, dtype, device=None) -> dict:
-    return attention.init_attn_cache(cfg, batch, length, block.window,
-                                     dtype, device)
+    if block.mixer == "attn":
+        return attention.init_attn_cache(cfg, batch, length, block.window,
+                                         dtype, device)
+    if block.mixer == "mla":
+        return attention.init_mla_cache(cfg, batch, length, block.window,
+                                        dtype, device)
+    if block.mixer == "ssd":
+        return ssm.init_ssd_cache(cfg, batch, dtype, device)
+    if block.mixer == "rglru":
+        return rglru.init_rglru_cache(cfg, batch, dtype, device)
+    raise ValueError(block.mixer)
 
 
 def decode_block(p: dict, cfg: ModelConfig, block: Block, x: torch.Tensor,
                  pos, cache: dict) -> tuple[torch.Tensor, dict]:
-    """``apply_block`` for one token against the layer's cache."""
+    """``apply_block`` for one token against the layer's cache (a MoE's
+    aux is dropped, as the JAX package drops it)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    h, cache = attention.decode_attention(p["mixer"], cfg, h, pos, cache,
-                                          block.window)
+    if block.mixer == "attn":
+        h, cache = attention.decode_attention(p["mixer"], cfg, h, pos, cache,
+                                              block.window)
+    elif block.mixer == "mla":
+        h, cache = attention.decode_mla(p["mixer"], cfg, h, pos, cache,
+                                        block.window)
+    elif block.mixer == "ssd":
+        h, cache = ssm.decode_ssd(p["mixer"], cfg, h, pos, cache)
+    elif block.mixer == "rglru":
+        h, cache = rglru.decode_rglru(p["mixer"], cfg, h, pos, cache)
     x = x + h
     if block.mlp != "none":
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], h, cfg.mlp_act)
+        if block.mlp == "dense":
+            h = apply_mlp(p["mlp"], h, cfg.mlp_act)
+        else:
+            h, _ = apply_moe(p["mlp"], h, cfg.moe, cfg.mlp_act)
+        x = x + h
     return x, cache
+
+
+def mtp_block(cfg: ModelConfig) -> Block:
+    """The multi-token prediction block: a GQA + dense block where the
+    config has a d_ff, else the model's first block."""
+    return Block("attn", "dense") if cfg.d_ff else cfg.all_blocks()[0]
 
 
 # --------------------------------------------------------------------- model
@@ -105,9 +143,6 @@ def decode_block(p: dict, cfg: ModelConfig, block: Block, x: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        check_ported(self.cfg)
 
     def init(self, generator: torch.Generator) -> dict:
         """Random weights on the generator's device.  Structure, shapes and
@@ -127,6 +162,15 @@ class Model:
                        for i, b in enumerate(unit)} for _ in range(repeat)]
             params["groups"].append(
                 tree_map(lambda *xs: torch.stack(xs), *layers))
+            del layers
+        if cfg.mtp:
+            params["mtp"] = {
+                "proj": dense_init(generator, 2 * cfg.d_model,
+                                   (2 * cfg.d_model, cfg.d_model), dtype),
+                "norm": init_rmsnorm(2 * cfg.d_model, dtype,
+                                     generator.device),
+                "block": init_block(generator, cfg, mtp_block(cfg)),
+            }
         return params
 
     def forward(self, params: dict, inputs: torch.Tensor, *,
@@ -134,49 +178,82 @@ class Model:
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """inputs: tokens (B,S) int or embeddings (B,S,D).
 
-        Returns (logits, aux_loss, final_hidden); aux is 0 without MoE.
-        With ``remat`` each unit (one step of a group's ``repeat`` loop,
-        the blocks JAX checkpoints together) runs under
-        ``torch.utils.checkpoint``: the backward keeps only the unit's
-        inputs and runs the unit's forward again."""
+        Returns (logits, aux_loss, final_hidden); aux is the MoE layers'
+        summed aux loss, 0 without MoE.  With ``remat`` each unit (one
+        step of a group's ``repeat`` loop, the blocks JAX checkpoints
+        together) runs under ``torch.utils.checkpoint``: the backward
+        keeps only the unit's inputs and runs the unit's forward again."""
         cfg = self.cfg
         x = embed_inputs(params["embed"], cfg, inputs)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for (unit, repeat), group_p in zip(cfg.blocks, params["groups"]):
 
             def unit_fn(x, layer_p, unit=unit):
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
                 for i, blk in enumerate(unit):
-                    x = apply_block(layer_p[f"b{i}"], cfg, blk, x, positions)
-                return x
+                    x, a = apply_block(layer_p[f"b{i}"], cfg, blk, x,
+                                       positions)
+                    aux = aux + a
+                return x, aux
 
+            auxs = []
             for r in range(repeat):
                 layer_p = tree_map(lambda a, r=r: a[r], group_p)
                 if remat:
-                    x = checkpoint(unit_fn, x, layer_p, use_reentrant=False)
+                    x, aux = checkpoint(unit_fn, x, layer_p,
+                                        use_reentrant=False)
                 else:
-                    x = unit_fn(x, layer_p)
+                    x, aux = unit_fn(x, layer_p)
+                auxs.append(aux)
+            aux_total = aux_total + torch.stack(auxs).sum()
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = apply_lm_head(params["head"], params["embed"], cfg, x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return logits, aux, x
+        return logits, aux_total, x
 
     def loss(self, params: dict, batch: dict, *, remat: bool = False
              ) -> tuple[torch.Tensor, dict]:
         """batch: {"inputs": tokens/embeddings, "labels": (B,S) or
-        (B,S,C)}; CE in f32 over the ``padded_vocab`` logits."""
+        (B,S,C)}; CE in f32 over the ``padded_vocab`` logits, plus the MoE
+        aux loss and, for token inputs of an ``mtp`` config, 0.3 times the
+        multi-token prediction loss.  Returns (loss, {"ce", "aux"[,
+        "mtp"]})."""
         cfg = self.cfg
-        logits, aux, _ = self.forward(params, batch["inputs"], remat=remat)
+        logits, aux, h = self.forward(params, batch["inputs"], remat=remat)
         labels = batch["labels"]
         b, s = labels.shape[:2]
         logits = logits.reshape(b, s, cfg.num_codebooks, cfg.padded_vocab)
-        if labels.dim() == 2:
-            labels = labels[..., None]
-        lp = F.log_softmax(logits.float(), dim=-1)
-        ce = -torch.gather(lp, -1, labels[..., None].long())[..., 0]
-        loss = ce.mean()
-        return loss + aux, {"ce": loss, "aux": aux}
+        loss = _ce(logits, labels)
+        metrics = {"ce": loss, "aux": aux}
+        if cfg.mtp and cfg.input_mode == "tokens":
+            mtp = self._mtp_loss(params, batch, h)
+            metrics["mtp"] = mtp
+            loss = loss + 0.3 * mtp
+        return loss + aux, metrics
+
+    def _mtp_loss(self, params: dict, batch: dict, h: torch.Tensor
+                  ) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction: one extra block predicting
+        token t + 2 from [h_t ; emb(tok_{t+1})]."""
+        cfg = self.cfg
+        tok = batch["inputs"]
+        b, s = tok.shape
+        emb_next = params["embed"]["tok"][tok[:, 1:]]
+        hh = torch.cat([h[:, :-1], emb_next.to(h.dtype)], dim=-1)
+        hh = rmsnorm(hh, params["mtp"]["norm"], cfg.norm_eps)
+        hh = hh @ params["mtp"]["proj"]
+        positions = torch.arange(s - 1, dtype=torch.int32,
+                                 device=hh.device).expand(b, s - 1)
+        hh, _ = apply_block(params["mtp"]["block"], cfg, mtp_block(cfg), hh,
+                            positions)
+        logits = apply_lm_head(params["head"], params["embed"], cfg, hh)
+        logits = logits.reshape(b, s - 1, cfg.num_codebooks,
+                                cfg.padded_vocab)
+        # labels are the inputs shifted by 1: the targets are them shifted
+        # by 1 more
+        return _ce(logits, batch["labels"][:, 1:])
 
     def init_cache(self, batch: int, length: int, dtype=None,
                    device="cuda") -> list:
@@ -241,6 +318,15 @@ class Model:
     @staticmethod
     def param_count(params: dict) -> int:
         return sum(a.numel() for a in tree_leaves(params))
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean f32 cross-entropy of (B, S, C, V) logits against (B, S) or (B,
+    S, C) labels."""
+    if labels.dim() == 2:
+        labels = labels[..., None]
+    lp = F.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(lp, -1, labels[..., None].long())[..., 0].mean()
 
 
 def lm_grad_fn(model: Model, stream):

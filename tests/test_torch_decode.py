@@ -1,8 +1,14 @@
-"""Port parity for decode against the KV caches: the port's decode loop
-against its own full-sequence forward (every ported family, dense and ring
-caches), each ``decode_step`` against the JAX package's on carried weights
-and a carried mid-stream cache whose slots sit at staggered positions,
-``prefill`` against JAX's, and the cache helpers exactly JAX's.
+"""Port parity for decode against the caches: the port's decode loop
+against its own full-sequence forward (every mixer family: GQA, MLA, SSD,
+RG-LRU beside local attention, dense and ring caches), each
+``decode_step`` against the JAX package's on carried weights and a carried
+mid-stream cache whose slots sit at staggered positions, ``prefill``
+against JAX's, the cache helpers exactly JAX's, MLA's cache compressed and
+SSD's of constant size.
+
+A MoE's capacity is raised to 8 for decode against the forward, as the JAX
+package's ``test_decode.py`` raises it: at capacity 1.25 the forward drops
+picks that a one-token step keeps.
 
 Tolerances, relative to the largest magnitude of the tensor compared
 (max|port - ref| <= tol * max|ref|):
@@ -16,6 +22,8 @@ bf16 is held bit for bit where the computation is a copy or a select
 (``_update_slot``, the caches' dtypes, ``convert``), as the LM tests hold
 no bf16 model output bit for bit.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -36,7 +44,16 @@ from repro_torch.models.transformer import Model
 B, S = 2, 32
 DECODE_TOL = 2e-4   # decode vs forward (the JAX package's)
 STEP_TOL = 1e-5     # port vs JAX, logits and k / v
-ARCHS = ["nano-lm", "qwen3-0.6b", "glm4-9b", "musicgen-medium"]
+ARCHS = ["nano-lm", "qwen3-0.6b", "glm4-9b", "musicgen-medium",
+         "deepseek-v3-671b", "arctic-480b", "mamba2-780m",
+         "recurrentgemma-9b"]
+
+
+def _uncapped(cfg):
+    if cfg.moe is not None:
+        return cfg.with_updates(
+            moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    return cfg
 
 
 def _close(port, want, tol):
@@ -88,24 +105,29 @@ def _decode_vs_forward(tc, seed=0):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
-    _decode_vs_forward(get_config(arch, reduced=True))
+    _decode_vs_forward(_uncapped(get_config(arch, reduced=True)))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "nano-lm"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "nano-lm",
+                                  "recurrentgemma-9b"])
 def test_windowed_ring_buffer_decode(arch):
     """A windowed layer's cache is a ring of ``window`` rows, and decoding
-    through it equals the windowed forward."""
+    through it equals the windowed forward (RecurrentGemma: its local
+    attention, the third block; the RG-LRU blocks keep no window)."""
     cfg = get_config(arch, reduced=True).windowed(8)
     caches = _decode_vs_forward(cfg)
-    assert caches[0]["b0"]["k"].shape[2] == 8
+    blk = next(f"b{i}" for i, b in enumerate(cfg.blocks[0][0])
+               if b.mixer == "attn")
+    assert caches[0][blk]["k"].shape[2] == 8
     # the ring holds the last 8 positions of each sequence
-    assert sorted(caches[0]["b0"]["slot_pos"][0, 0].tolist()) \
+    assert sorted(caches[0][blk]["slot_pos"][0, 0].tolist()) \
         == list(range(S - 8, S))
 
 
 STEP_CASES = [(a, None, 12) for a in ARCHS] + [
     ("qwen3-0.6b", 4, 12),     # a ring that wraps at staggered positions
     ("nano-lm", None, 5),      # a dense cache clamped past capacity
+    ("deepseek-v3-671b", 4, 12),   # an MLA latent ring
 ]
 
 
@@ -179,7 +201,10 @@ def test_prefill_is_the_token_loop_bitwise():
 
 @pytest.mark.parametrize("arch,dtype", [("qwen3-0.6b", "float32"),
                                         ("qwen3-0.6b", "bfloat16"),
-                                        ("musicgen-medium", "float32")])
+                                        ("musicgen-medium", "float32"),
+                                        ("deepseek-v3-671b", "float32"),
+                                        ("mamba2-780m", "bfloat16"),
+                                        ("recurrentgemma-9b", "float32")])
 def test_init_cache_matches_jax(arch, dtype):
     jc, tc = _configs(arch)
     jc, tc = (jc.with_updates(compute_dtype=dtype),
@@ -195,6 +220,58 @@ def test_init_cache_matches_jax(arch, dtype):
             np.testing.assert_array_equal(
                 b.view(np.uint16) if b.dtype == ml_dtypes.bfloat16 else b,
                 a.view(np.uint16) if a.dtype == ml_dtypes.bfloat16 else a)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "arctic-480b",
+                                  "mamba2-780m", "recurrentgemma-9b"])
+def test_decode_step_runs_under_vmap(arch):
+    """The fleet vmaps the decode step over replicas: for every new mixer
+    and mlp, a ``torch.func.vmap`` of ``decode_step`` over 2 replicas'
+    parameters and caches equals each replica's own step (logits and
+    caches within 1e-5 of their largest magnitude, ``slot_pos``
+    exactly)."""
+    cfg = get_config(arch, reduced=True)
+    model = Model(cfg)
+    reps = [model.init(torch.Generator().manual_seed(s)) for s in (0, 1)]
+    stacked = tree_map(lambda *xs: torch.stack(xs), *reps)
+    inputs = _torch_inputs(_inputs(cfg, (B, 4), seed=2))
+    caches = [model.init_cache(B, 8, device="cpu") for _ in reps]
+    for t in range(3):
+        want = [model.decode_step(p, inputs[:, t:t + 1], t, c)
+                for p, c in zip(reps, caches)]
+        got, vcache = torch.func.vmap(
+            lambda p, c: model.decode_step(p, inputs[:, t:t + 1], t, c))(
+                stacked, tree_map(lambda *xs: torch.stack(xs), *caches))
+        for r, (lg, c) in enumerate(want):
+            _close(got[r], lg, STEP_TOL)
+            for a, b in zip(tree_leaves(vcache), tree_leaves(c)):
+                if b.dtype == torch.int32:
+                    assert torch.equal(a[r], b)
+                else:
+                    _close(a[r], b, STEP_TOL)
+        caches = [c for _, c in want]
+
+
+def test_mla_cache_is_compressed():
+    """MLA's cache holds the latents and the shared RoPE key, not per-head
+    K and V (the JAX package's ``test_mla_cache_is_compressed``)."""
+    cfg = get_config("deepseek-v3-671b", reduced=True)
+    caches = Model(cfg).init_cache(B, S, device="cpu")
+    for group in caches:
+        cache = group["b0"]
+        assert set(cache) == {"c", "k_rope", "slot_pos"}
+        assert cache["c"].shape[-1] == cfg.mla.kv_lora_rank
+        assert cache["k_rope"].shape[-1] == cfg.mla.qk_rope_head_dim
+
+
+def test_ssm_cache_is_constant_size():
+    """Mamba-2's cache has one size at every context length (the JAX
+    package's ``test_ssm_cache_is_constant_size``)."""
+    model = Model(get_config("mamba2-780m", reduced=True))
+    small = model.init_cache(B, 32, device="cpu")
+    large = model.init_cache(B, 4096, device="cpu")
+    for a, b in zip(tree_leaves(small), tree_leaves(large)):
+        assert a.shape == b.shape
 
 
 @pytest.mark.parametrize("pos", [5, np.int32(5), np.array([4, 0, 9],

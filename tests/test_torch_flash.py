@@ -149,6 +149,60 @@ def test_kernel_refuses_gradients_and_cpu_tensors():
     assert qg.grad is not None
 
 
+@pytest.mark.parametrize("hd", [32, 56, 100, 200])
+def test_head_dim_padding_is_exact_on_the_plain_version(hd):
+    """The wrapper's padding: zero columns up to the next instantiation,
+    the real hd's scale, the output cut back, equal to attention on the
+    inputs as they are (within 1e-6: only the order of the sums moves)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 70, 70, hd, seed=hd))
+    qp, kp, vp = t_kernel.pad_head_dim(q, k, v)
+    hp = t_kernel.padded_head_dim(hd)
+    assert hp in t_kernel.HEAD_DIMS and hp > hd
+    assert qp.shape == (3, 70, hp) and kp.shape == vp.shape == (3, 70, hp)
+    assert all(torch.equal(a[..., :hd], b) and torch.all(a[..., hd:] == 0)
+               for a, b in ((qp, q), (kp, k), (vp, v)))
+    for causal, window in ((True, None), (True, 48), (False, None)):
+        got = attention_ref(qp, kp, vp, causal=causal, window=window,
+                            scale=hd ** -0.5)[..., :hd]
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,kv", [(1, 16, 1), (1, 4, 4), (2, 4, 2)])
+def test_op_hands_the_kernel_contiguous_inputs(monkeypatch, b, h, kv):
+    """The (B, S, H, hd) op flattens heads for the kernel: at B == 1 the
+    transposed reshape is a strided view, which the kernel refuses; the
+    op hands it contiguous (BH, S, hd) tensors at every B."""
+    from repro_torch.kernels.flash_attention import ops
+    seen = []
+
+    def kernel(q, k, v, **kw):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        return attention_ref(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention_bhsd", kernel)
+    monkeypatch.setattr(ops, "resolve_backend", lambda backend, x: "cuda")
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(b, 40, h, 32)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(b, 40, kv, 32))
+                             .astype(np.float32)) for _ in range(2))
+    out = ops.flash_attention(q, k, v, causal=True, window=16)
+    assert seen == [True]
+    want = flash_attention(q, k, v, causal=True, window=16, backend="ref")
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+
+
+def test_head_dims_of_the_kernel():
+    """64, 128 and 256 run as they are (no copy); above 256 raises."""
+    q = torch.zeros(1, 4, 128)
+    assert t_kernel.pad_head_dim(q, q, q)[0] is q
+    assert [t_kernel.padded_head_dim(h) for h in (1, 64, 65, 128, 129,
+                                                  256)] \
+        == [64, 64, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="257 > 256"):
+        t_kernel.padded_head_dim(257)
+
+
 # ------------------------------------------- the card kernel's arithmetic
 KBK = 64  # the kernel's k tile
 
@@ -267,8 +321,8 @@ def test_bf16_emulation_meets_the_bf16_gate(s, t, hd, causal, window):
     assert np.all(out.float().numpy()[:, ~live] == 0)
 
 
-# shapes that cross the kernel's q tile (128 or 192 rows), k tile (32 or
-# 64 columns) and ring edges: (BH, S, T, hd, causal, window)
+# shapes that cross the kernel's q tile (64, 128 or 192 rows), k tile (32
+# or 64 columns) and ring edges: (BH, S, T, hd, causal, window)
 EDGE_SHAPES = [
     (3, 1, 1, 64, True, None),
     (3, 65, 65, 128, True, None),
@@ -280,6 +334,15 @@ EDGE_SHAPES = [
     (3, 1000, 1000, 64, True, 16),       # window shorter than a tile
     (3, 1000, 65, 128, False, 16),       # rows 80.. see no column
     (96, 1024, 1024, 64, True, None),    # BH 96
+    # hd 256 (RecurrentGemma's local attention) and head dims padded to
+    # the next instantiation: 32 (reduced nano-lm), 56 (DeepSeek-V3's MTP
+    # block at full width)
+    (3, 1000, 1000, 256, True, None),
+    (3, 300, 300, 256, True, 128),
+    (3, 65, 1000, 256, False, None),
+    (3, 200, 200, 32, True, None),
+    (3, 511, 511, 56, True, None),
+    (2, 130, 384, 56, False, None),
 ]
 
 

@@ -8,7 +8,10 @@ run there, and the serving path runs there: ``generate`` on a reduced
 Qwen3, a ``ContinuousBatcher`` drained, a 3-replica ``train_bench`` fleet
 for 4 rounds), the entry points refuse to run on a machine without a card
 unless the caller names the CPU, and the part not ported yet (the sharded
-replay) raises instead of taking another path."""
+replay) raises instead of taking another path.  The rest of the model zoo
+runs there too: reduced DeepSeek-V3 (MLA, MoE, MTP), Arctic, Mamba-2 and
+RecurrentGemma each build and take a forward and a decode step, and
+``lm_grad_fn`` takes one vmapped call on reduced DeepSeek-V3."""
 import os
 import subprocess
 import sys
@@ -89,7 +92,7 @@ PROBE = textwrap.dedent("""
                    {"inputs": toks[:, :-1], "labels": toks[:, 1:]})
     import tempfile
     from repro_torch.checkpoint import restore, save
-    from repro_torch.core.tree import tree_leaves
+    from repro_torch.core.tree import tree_leaves, tree_map
     with tempfile.TemporaryDirectory() as d:
         save(d, 1, st)
         n, back = restore(d, st)
@@ -130,6 +133,28 @@ PROBE = textwrap.dedent("""
     rep = fleet.run(rounds=4, seed=0)
     print("FLEET", rep.rounds, rep.requests_total > 0,
           rep.lost + len(rep.completed) == rep.requests_total)
+    from repro_torch.data import LMTaskStream
+    from repro_torch.models.transformer import lm_grad_fn
+    for arch in ("deepseek-v3-671b", "arctic-480b", "mamba2-780m",
+                 "recurrentgemma-9b"):
+        zc = get_config(arch, reduced=True)
+        zm = Model(zc)
+        zp = zm.init(torch.Generator().manual_seed(0))
+        ztok = torch.zeros((1, 32), dtype=torch.long)
+        zl, _, _ = zm.forward(zp, ztok)
+        zd, _ = zm.decode_step(zp, ztok[:, :1], 0,
+                               zm.init_cache(1, 4, device="cpu"))
+        print("ZOO", arch, tuple(zl.shape), tuple(zd.shape),
+              bool(torch.isfinite(zl).all() and torch.isfinite(zd).all()))
+        if arch == "deepseek-v3-671b":
+            zs = LMTaskStream(vocab_size=zc.vocab_size, seq_len=8,
+                              batch_size=1, seed=0, device="cpu")
+            zx = tree_map(lambda a: torch.stack([a, a]), zp)
+            zloss, zg = lm_grad_fn(zm, zs)(zx, torch.Generator(),
+                                           torch.arange(2))
+            print("ZOO_GRAD", tuple(zloss.shape),
+                  tuple(zg["mtp"]["proj"].shape),
+                  bool(torch.isfinite(zloss).all()))
     refused = 0
     for make in (lambda: qm.init_cache(1, 4), lambda: serve.main([])):
         try:
@@ -148,7 +173,7 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
                  if line.startswith(("LEAKED", "WORLDS", "CUDA", "BANK",
                                      "STEP", "TELEMETRY", "TRAIN", "SERVE",
-                                     "BATCH", "FLEET")))
+                                     "BATCH", "FLEET", "ZOO_GRAD")))
     models = [line for line in out.stdout.splitlines()
               if line.startswith("MODEL")]
     assert models == ["MODEL xla (1, 8, 512)", "MODEL pallas (1, 8, 512)"]
@@ -161,6 +186,12 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     assert lines["SERVE"] == "(1, 7)"
     assert lines["BATCH"] == "[3, 3, 3]"
     assert lines["FLEET"] == "4 True True"
+    zoo = [line for line in out.stdout.splitlines()
+           if line.startswith("ZOO ")]
+    assert zoo == [f"ZOO {arch} (1, 32, 512) (1, 1, 512) True"
+                   for arch in ("deepseek-v3-671b", "arctic-480b",
+                                "mamba2-780m", "recurrentgemma-9b")]
+    assert lines["ZOO_GRAD"] == "(2,) (2, 512, 256) True"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CPU-refusal half does not apply")
     assert lines["CUDA"] == "False REFUSED 3"

@@ -70,7 +70,7 @@ def test_another_root_takes_its_own_key(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["mixing_gossip_stacked", "rmsnorm_2d",
-                                  "mixing_p2p"])
+                                  "mixing_p2p", "flash_attention_bhsd"])
 def test_sweep_variants_edit_the_sources(monkeypatch, tmp_path, name):
     """Every edit of ``tools/kernel_sweep.py`` still finds its text once in
     the kernel's source, so each variant builds from its own key."""

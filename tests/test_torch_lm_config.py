@@ -2,8 +2,10 @@
 ``get_config(name, reduced)`` equals the JAX package's field for field, and
 ``Model.init`` builds the JAX tree (structure, shapes, dtypes, leaf order:
 a list of groups, stacked leaves, an empty ``"head"`` when tied), which
-``convert`` and ``FlatLayout`` carry as the JAX package does.  The parts
-not ported yet raise ``NotImplementedError``."""
+``convert`` and ``FlatLayout`` carry as the JAX package does.  Every
+config builds, the four that once raised (MLA, SSD, RG-LRU, MoE + dense)
+and a MoE block or multi-token prediction on nano-lm included, and runs a
+finite reduced forward of the right shapes."""
 import dataclasses
 
 import jax
@@ -20,7 +22,7 @@ from repro_torch.configs import ARCHITECTURES, get_config
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core.flatbuf import FlatLayout
 from repro_torch.core.tree import tree_flatten, tree_leaves
-from repro_torch.models.config import Block, uniform_blocks
+from repro_torch.models.config import Block, MoEConfig, uniform_blocks
 from repro_torch.models.transformer import Model
 
 
@@ -45,7 +47,9 @@ def test_train_bench_config_equals_jax():
     assert dataclasses.asdict(train_bench()) == dataclasses.asdict(j_bench())
 
 
-@pytest.mark.parametrize("name", ["nano-lm", "qwen3-0.6b"])
+@pytest.mark.parametrize("name", ["nano-lm", "qwen3-0.6b",
+                                  "deepseek-v3-671b", "arctic-480b",
+                                  "mamba2-780m", "recurrentgemma-9b"])
 def test_init_tree_matches_jax(name):
     jm = JModel(j_get_config(name, reduced=True))
     tm = Model(get_config(name, reduced=True))
@@ -55,7 +59,8 @@ def test_init_tree_matches_jax(name):
     tl, tdef = tree_flatten(tp)
     assert [(a.shape, np.dtype(a.dtype)) for a in jl] == \
         [(tuple(b.shape), b.numpy().dtype) for b in tl]
-    assert isinstance(tp["groups"], list) and tp["head"] == {}
+    assert isinstance(tp["groups"], list)
+    assert (tp["head"] == {}) == tm.cfg.tie_embeddings
     assert tm.param_count(tp) == sum(int(np.prod(a.shape)) for a in jl)
     # the same weights through convert: the port's tree, value for value
     jw = jax.device_get(jm.init(jax.random.PRNGKey(1)))
@@ -93,22 +98,43 @@ def test_init_draws_from_the_generator():
                for x in (a["final_norm"], a["groups"][0]["b0"]["norm1"]))
 
 
+def _forward_runs(cfg, s=8):
+    """``cfg`` builds, and its forward on 2 x ``s`` tokens is finite with
+    the right shapes; the loss has the JAX package's metrics."""
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, s + 1),
+                         generator=torch.Generator().manual_seed(1))
+    logits, aux, h = model.forward(params, toks[:, :-1])
+    assert tuple(logits.shape) == (2, s, cfg.padded_vocab)
+    assert tuple(h.shape) == (2, s, cfg.d_model)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+    assert (aux.item() > 0) == any(b.mlp.startswith("moe")
+                                   for b in cfg.all_blocks())
+    loss, metrics = model.loss(params, {"inputs": toks[:, :-1],
+                                        "labels": toks[:, 1:]})
+    assert bool(torch.isfinite(loss))
+    assert set(metrics) == ({"ce", "aux", "mtp"} if cfg.mtp
+                            else {"ce", "aux"})
+
+
 @pytest.mark.parametrize("name,what", [
     ("deepseek-v3-671b", "mla"), ("mamba2-780m", "ssd"),
-    ("recurrentgemma-9b", "rglru"), ("arctic-480b", r"moe\+dense"),
+    ("recurrentgemma-9b", "rglru"), ("arctic-480b", "moe+dense"),
 ])
-def test_unported_parts_raise(name, what):
-    with pytest.raises(NotImplementedError, match=what):
-        Model(get_config(name, reduced=True))
+def test_former_refusals_build_and_run(name, what):
+    """The parts the port once refused (``check_ported``) build and run."""
+    cfg = get_config(name, reduced=True)
+    assert any(what in (b.mixer, b.mlp) for b in cfg.all_blocks())
+    _forward_runs(cfg, s=cfg.ssm.chunk if cfg.ssm else 8)
 
 
-def test_unported_moe_and_mtp_raise():
+def test_moe_and_mtp_on_nano_lm_build_and_run():
     cfg = get_config("nano-lm", reduced=True)
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        Model(cfg.with_updates(blocks=uniform_blocks(Block("attn", "moe"),
-                                                     2)))
-    with pytest.raises(NotImplementedError, match="multi-token"):
-        Model(cfg.with_updates(mtp=True))
+    _forward_runs(cfg.with_updates(
+        blocks=uniform_blocks(Block("attn", "moe"), 2),
+        moe=MoEConfig(num_experts=4, top_k=2, d_expert=64)))
+    _forward_runs(cfg.with_updates(mtp=True))
 
 
 def test_validate_raises():

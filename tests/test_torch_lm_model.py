@@ -1,12 +1,14 @@
-"""Port parity for the dense transformer on the xla attention path, f32: the
-JAX package's weights carried with ``convert``; the port's logits, loss and
-per-leaf gradients equal ``jax.value_and_grad(model.loss)``; the pieces
-(RoPE at a fraction, the ``_sdpa`` decode branch) equal their JAX twins.
+"""Port parity for the transformer family on the xla attention path, f32:
+the JAX package's weights carried with ``convert``; the port's logits, MoE
+aux, loss (ce, aux, mtp) and per-leaf gradients equal
+``jax.value_and_grad(model.loss)`` on the dense archs and on reduced
+DeepSeek-V3, Arctic, Mamba-2 and RecurrentGemma; the pieces (RoPE at a
+fraction, the ``_sdpa`` decode branch) equal their JAX twins.
 
 Tolerances, each relative to the largest magnitude of the tensor compared
 (max|port - JAX| <= tol * max|JAX|): logits, final hidden state and loss
 1e-5, gradients 1e-4 — the same f32 einsums, matmuls and reductions,
-summed in another order by XLA and PyTorch.
+summed in another order by XLA and PyTorch; the MoE aux 1e-6 relative.
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +32,10 @@ CASES = [  # (arch, window): nano-lm, qwen3 (qk-norm, rope 1e6), windowed,
     ("qwen3-0.6b", 32),
     ("glm4-9b", None),
     ("musicgen-medium", None),
+    ("deepseek-v3-671b", None),  # MLA, MoE with a shared expert, MTP
+    ("arctic-480b", None),       # GQA with a MoE beside a dense mlp
+    ("mamba2-780m", None),       # Mamba-2 SSD
+    ("recurrentgemma-9b", None),  # RG-LRU beside local attention
 ]
 
 
@@ -49,11 +55,12 @@ def _configs(arch, window):
 
 def _batch(cfg, seed):
     rng = np.random.default_rng(seed)
+    s = S if cfg.ssm is None else 2 * cfg.ssm.chunk   # whole SSD chunks
     if cfg.input_mode == "tokens":
-        inputs = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        inputs = rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
     else:
-        inputs = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
-    shape = (B, S) if cfg.num_codebooks == 1 else (B, S, cfg.num_codebooks)
+        inputs = rng.normal(size=(B, s, cfg.d_model)).astype(np.float32)
+    shape = (B, s) if cfg.num_codebooks == 1 else (B, s, cfg.num_codebooks)
     labels = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
     return inputs, labels
 
@@ -71,9 +78,14 @@ def test_logits_loss_grads_match_jax(arch, window):
     if jc.input_mode == "tokens":
         tb["inputs"] = tb["inputs"].long()
 
-    jl, _, jh = jm.forward(jp, jb["inputs"])
+    jl, jaux, jh = jm.forward(jp, jb["inputs"])
     tl, aux, th = tm.forward(tp, tb["inputs"])
-    assert tl.shape == jl.shape and aux.item() == 0.0
+    assert tl.shape == jl.shape
+    if jc.moe is None:
+        assert aux.item() == 0.0
+    else:
+        assert aux.item() > 0.0
+        np.testing.assert_allclose(aux.item(), float(jaux), rtol=1e-6)
     _close(tl.numpy(), jl, 1e-5)
     _close(th.numpy(), jh, 1e-5)
 
@@ -81,8 +93,11 @@ def test_logits_loss_grads_match_jax(arch, window):
     tg, tloss = torch.func.grad_and_value(
         lambda p: tm.loss(p, tb)[0])(tp)
     np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-5)
-    np.testing.assert_allclose(tm.loss(tp, tb)[1]["ce"].item(),
-                               float(jmet["ce"]), rtol=1e-5)
+    tmet = tm.loss(tp, tb)[1]
+    assert set(tmet) == set(jmet)
+    for key in jmet:   # ce, aux and, with MTP, mtp
+        np.testing.assert_allclose(tmet[key].item(), float(jmet[key]),
+                                   rtol=1e-5)
     jleaves, tleaves = jax.tree.leaves(jg), tree_leaves(tg)
     assert len(jleaves) == len(tleaves)
     for a, b in zip(jleaves, tleaves):
@@ -134,3 +149,34 @@ def test_causal_mask_matches_jax():
         np.testing.assert_array_equal(
             tatt.causal_mask(12, window).numpy(),
             np.asarray(jatt.causal_mask(12, window)))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mamba2-780m"])
+def test_lm_grad_fn_vmaps_over_workers(arch):
+    """``lm_grad_fn`` runs the MoE, MLA, MTP and SSD paths under
+    ``torch.func.vmap`` over 2 workers' parameters; each worker's loss and
+    gradients equal a separate ``grad_and_value`` call within 1e-6 of the
+    largest gradient (vmap batches the matmuls, which sum in another
+    order)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import LMTaskStream
+    from repro_torch.models.transformer import lm_grad_fn
+    cfg = get_config(arch, reduced=True)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    s = cfg.ssm.chunk if cfg.ssm else 16
+    stream = LMTaskStream(vocab_size=cfg.vocab_size, seq_len=s,
+                          batch_size=2, seed=0, device="cpu")
+    xs = tree_map(lambda a: torch.stack([a, 1.01 * a]), params)
+    losses, grads = lm_grad_fn(model, stream)(
+        xs, torch.Generator().manual_seed(3), torch.arange(2))
+    batch = stream.sample_workers(torch.Generator().manual_seed(3), 2)
+    for w in range(2):
+        g, loss = torch.func.grad_and_value(
+            lambda p: model.loss(p, {"inputs": batch["inputs"][w],
+                                     "labels": batch["labels"][w]})[0]
+        )(tree_map(lambda a: a[w], xs))
+        np.testing.assert_allclose(losses[w].item(), loss.item(), rtol=1e-6)
+        top = max(a.abs().max().item() for a in tree_leaves(g))
+        for a, b in zip(tree_leaves(grads), tree_leaves(g)):
+            assert (a[w] - b).abs().max().item() <= 1e-6 * top

@@ -1,6 +1,7 @@
-"""Time the ``mixing_gossip_stacked``, ``rmsnorm_2d`` and ``mixing_p2p``
-CUDA kernels against edited copies of their own sources and, with
-``--baseline``, an earlier version of them, in one process on one card.
+"""Time the ``mixing_gossip_stacked``, ``rmsnorm_2d``, ``mixing_p2p`` and
+``flash_attention_bhsd`` CUDA kernels against edited copies of their own
+sources and, with ``--baseline``, an earlier version of them, in one
+process on one card.
 
     python3 tools/kernel_sweep.py [--baseline KERNELS_DIR] [--only NAME ...]
 
@@ -10,10 +11,11 @@ in its ``.cu`` (each text must occur exactly once), built by
 ``kernels/build.py`` with the port's flags; all builds start together.
 ``--baseline`` names the ``src/repro_torch/kernels`` directory of another
 commit (unpacked with ``git archive``), whose sources build unchanged
-as the variant "baseline"; ``--only`` names the kernels to sweep (all three
+as the variant "baseline"; ``--only`` names the kernels to sweep (all four
 by default).  Each variant is held against the plain version
 (the gossip kernel bit for bit, rmsnorm within 1e-5 at f32 and 2e-2 at
-bf16) and timed with ``chip_smoke.py``'s ``cuda_ms`` and ``graph_ms``, in
+bf16, flash at ``chip_smoke.py`` phase 11's gates) and timed with
+``chip_smoke.py``'s ``cuda_ms`` and ``graph_ms``, in
 the order v1 .. vn, then vn .. v1:
 
 - ``mixing_gossip_stacked``: 10 back-to-back launches, at 16
@@ -30,7 +32,11 @@ the order v1 .. vn, then vn .. v1:
   variant with the launch table (``kMaxSegments`` in its source) takes the
   tree in one launch, planned once by ``kernel.plan_launches`` with its own
   ``kChunk``; a baseline without one (the per-leaf kernel) takes 56 launches
-  of its 12-argument entry point.
+  of its 12-argument entry point;
+- ``flash_attention_bhsd``: RecurrentGemma-9B's local attention, (16,
+  2048, 256) causal with a window of 2048, f32 and bf16, 20 launches back
+  to back, beside ``scaled_dot_product_attention``; the variants change
+  the bf16 hd 256 instantiation's stages and consumer warpgroups.
 
 Every variant launches through the same bare ctypes call (a fresh output,
 the current stream), so eager times compare kernels, not wrappers.  Prints
@@ -60,12 +66,16 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.a2cid2_mixing import kernel as gk  # noqa: E402
 from repro_torch.kernels.a2cid2_mixing.ref import (  # noqa: E402
     dtype_scalar, mixing_gossip_stacked_ref, mixing_p2p_ref)
+from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_mask, attention_ref)
 from repro_torch.kernels.rmsnorm import kernel as rk  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 
 GOSSIP, RMSNORM, P2P = "mixing_gossip_stacked", "rmsnorm_2d", "mixing_p2p"
+FLASH = "flash_attention_bhsd"
 ARGTYPES = {GOSSIP: gk._ARGTYPES[GOSSIP], RMSNORM: rk._ARGTYPES,
-            P2P: gk._ARGTYPES[P2P]}
+            P2P: gk._ARGTYPES[P2P], FLASH: fk._ARGTYPES}
 _P, _LL, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                    ctypes.c_int)
 # the per-leaf mixing_p2p_launch, before the launch table: dtype, x,
@@ -91,6 +101,16 @@ VARIANTS = {
         **{f"{v} values": (("kValues = 16;", f"kValues = {v};"),)
            for v in (4, 8)},
     },
+    # <dtype, hd, k tile, stages, consumer warpgroups> of bf16 hd 256 (one
+    # warpgroup and 3 stages as is): 2 warpgroups beside the producer warp
+    # are budgeted as 384 threads, 168 registers a thread, and the
+    # accumulator spills
+    FLASH: {
+        "bf16 2 warpgroups, 2 stages": (
+            ("launch<bf16, 256, 64, 3, 1>", "launch<bf16, 256, 64, 2, 2>"),),
+        "bf16 1 warpgroup, 2 stages": (
+            ("launch<bf16, 256, 64, 3, 1>", "launch<bf16, 256, 64, 2, 1>"),),
+    },
 }
 DYN = dict(eta=0.5, alpha=0.5, alpha_t=1.5)
 RESNET_D, NANO_D = 11_171_328, 128_404_224
@@ -100,6 +120,8 @@ GOSSIP_SHAPES = (("resnet f32, 4 idle", 16, RESNET_D, torch.float32, 4),
                  ("resnet bf16, 4 idle", 16, RESNET_D, torch.bfloat16, 4),
                  ("nano-lm f32, 0 idle", 8, NANO_D, torch.float32, 0))
 RMSNORM_SHAPES = ((8192, 768), (8192, 1024), (64, 8192), (16, 16384))
+# (BH, S, hd, window): RecurrentGemma-9B's local attention, causal
+FLASH_SHAPE = (16, 2048, 256, 2048)
 
 
 def variant_roots(name: str, baseline: Path | None) -> dict:
@@ -366,6 +388,63 @@ def sweep_p2p(card: str, fns: dict) -> list:
     return rows
 
 
+def flash_launch(fn, q, k, v, window):
+    out = torch.empty_like(q)
+    bh, s_len, hd = q.shape
+    err = fn(build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), out.data_ptr(), bh, s_len, s_len, hd, 1, 1,
+             window, hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+    cs.require(err == 0, f"launch failed: CUDA error {err}")
+    return out
+
+
+def sweep_flash(card: str, fns: dict) -> list:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bh, s_len, hd, window = FLASH_SHAPE
+    kw = dict(causal=True, window=window)
+    pairs = bh * int(attention_mask(s_len, s_len, device=dev, **kw).sum())
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(bh, s_len, hd, generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        ref = attention_ref(q, k, v, **kw)
+        live = torch.ones(s_len, dtype=torch.bool, device=dev)
+        ok = {}
+        for label, fn in fns.items():
+            out = flash_launch(fn, q, k, v, window)
+            if dtype == torch.float32:
+                ok[label] = bool(torch.allclose(out, ref, **cs.FLASH_F32_TOL))
+            else:
+                err = (out.float() - ref.float()).abs().max().item()
+                ok[label] = (err <= cs.FLASH_BF16_ATOL and cs.bf16_reading(
+                    out, ref, q, k, v, live, **kw) <= 1.0)
+        calls = {label: (lambda fn=fn: flash_launch(fn, q, k, v, window))
+                 for label, fn in fns.items()}
+        calls["sdpa"] = lambda: cs.library_attention(q, k, v, True, window)
+        times = both_ways(list(calls), lambda label: cs.cuda_ms(
+            calls[label], reps=20))
+        if dtype == torch.float32:
+            flops, peak = 3 * 4 * hd * pairs, cs.PEAK_TF32_FLOPS
+        else:
+            flops, peak = 4 * hd * pairs, cs.PEAK_BF16_FLOPS
+        bound_ms = cs.bound(4 * bh * s_len * hd * q.element_size(), flops,
+                            peak)["bound_ms"]
+        shape = f"({bh}, {s_len}, {hd}) window {window} {str(dtype)[6:]}"
+        for label, ts in times.items():
+            ms = float(np.mean(ts))
+            rows.append({"card": card, "kernel": FLASH, "shape": shape,
+                         "variant": label, "ms": ts, "bound_ms": bound_ms,
+                         "within_tol": ok.get(label)})
+            print(f"[{card}] {FLASH} {shape} {label}: "
+                  f"{' / '.join(f'{t:.4f}' for t in ts)} ms "
+                  f"({bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms); "
+                  f"within phase 11's gates: {ok.get(label, 'n/a')}")
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -379,7 +458,8 @@ def main() -> int:
     card = cs.card_line()
     fns = build_variants({name: variant_roots(name, args.baseline)
                           for name in args.only})
-    sweeps = {RMSNORM: sweep_rmsnorm, GOSSIP: sweep_gossip, P2P: sweep_p2p}
+    sweeps = {RMSNORM: sweep_rmsnorm, GOSSIP: sweep_gossip, P2P: sweep_p2p,
+              FLASH: sweep_flash}
     rows = [row for name in args.only
             for row in sweeps[name](card, fns[name])]
     out = ROOT / "chiprun_out"
