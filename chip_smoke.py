@@ -236,7 +236,35 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      of the largest gradient from separate ``grad_and_value`` calls in f64
      (1e-4 in f32: cuBLAS's batched GEMMs sum in another order), and a
      2-round ``run_sim`` on reduced DeepSeek-V3 (finite losses,
-     ``mixing_gossip_stacked`` once a comm step, nothing else launched).
+     ``mixing_gossip_stacked`` once a comm step, nothing else launched);
+ 28. the sharded replay (``run_worlds(mesh=MeshReplay(...))``): first
+     ``channel_gossip_worlds`` against its plain version at every shard
+     shape the phase launches it at ((4, 4, D), (1, 4, D), (1, 8, D) f32;
+     (4, Ws, 4224 / 1024) f32 and bf16, Ws 1 to 16); (a) phase
+     9's worlds on a noisy row-local quadratic at D = 11,171,328 (B = 4 x
+     16 workers, ``Telemetry()``) on one device and on 4 local shards of
+     the card: x, x~, clocks, generators, the defense trace and the
+     telemetry counts bit for bit, the traces within 1e-6; the comm step
+     split by CUDA events (gather, publish, exchange, merge, norms,
+     kernel, rest), the median of 3 runs an arm in alternating order
+     after a warm-up, and the peak memory of each; the replay's delta
+     norms (blocks of 8 rows) beside each row alone and one sum, row
+     count independence and times at (4, 16), (4, 4) and (1, 64) rows;
+     lags 1 and 2 on a clean ring bit for bit the
+     single-device replay of ``shard_lag_schedule``; (b)
+     ``channel_gossip_worlds`` launches == comm steps x 4 and nothing
+     else; (c) NS = 1, 2, 4, 8, 16 at D = 4224 and 1001 (padded), f32 and
+     bf16, channel and defense flavours, bit for bit, and the ragged
+     fallback (n = 15 on 2 shards warns and replays on one device); (d) 64
+     workers on a ring, 8 shards, full width, bit for bit; (e)
+     ResNet-18-CIFAR through ``resnet_grad_fn``'s draw / apply split on 4
+     shards, bit for bit the single-device replay whose gradient is
+     applied in the shards' row groups, and within 1e-4 of max|x| of the
+     default single-device replay (a sound control, gradients in 8-row
+     groups, must stay under that and a fault control, lag 2, must break
+     it); one tick's gradients timed and compared under ``vmap`` and
+     ``vmap(chunk_size=1)``, in one call and in the shards' groups; (f) ``make_rank_mesh()`` under NCCL at
+     world size 1, bit for bit.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -827,6 +855,18 @@ def hostile_channel(graph):
         drop_prob=0.1)
 
 
+def hostile_worlds(graph):
+    """Phase 9's batch: the hostile channel, {static trim, the self-healing
+    defense} x {adpsgd, a2cid2}.  Returns (worlds, defenses, scheds)."""
+    from repro_torch.core import AdaptiveDefense, Algorithm, World
+    base = World(topology=graph, channel=hostile_channel(graph))
+    worlds = [dataclasses.replace(base, algorithm=Algorithm(kind))
+              for _ in range(2) for kind in ("adpsgd", "a2cid2")]
+    defenses = [None, None, AdaptiveDefense(), AdaptiveDefense()]
+    return worlds, defenses, [w.compile(CHANNEL_ROUNDS, seed=CHANNEL_SEED)
+                              for w in worlds]
+
+
 def phase_channel_slice(card, params0, cfg, stream_cls, grad_fn_for):
     from repro_torch.core import (AdaptiveDefense, FlatGossipEngine,
                                   Simulator, coalesce_schedule,
@@ -1247,17 +1287,12 @@ def phase_worlds_slice(card, params0, cfg, stream_cls, grad_fn_for):
 
 
 def phase_channel_worlds_slice(card, params0, cfg, stream_cls, grad_fn_for):
-    from repro_torch.core import (AdaptiveDefense, Algorithm,
-                                  FlatGossipEngine, Simulator, World,
+    from repro_torch.core import (FlatGossipEngine, Simulator,
                                   params_from_graph, ring_graph)
     from repro_torch.core import engine as engine_mod
     graph = ring_graph(N_WORKERS)
-    base = World(topology=graph, channel=hostile_channel(graph))
     # arms: {static trim, self-healing defense} x {adpsgd, a2cid2}
-    worlds = [dataclasses.replace(base, algorithm=Algorithm(kind))
-              for _ in range(2) for kind in ("adpsgd", "a2cid2")]
-    defenses = [None, None, AdaptiveDefense(), AdaptiveDefense()]
-    scheds = [w.compile(CHANNEL_ROUNDS, seed=CHANNEL_SEED) for w in worlds]
+    worlds, defenses, scheds = hostile_worlds(graph)
     comm_steps = worlds_comm_steps(scheds)
     timer = ReplayTimer()
     timer.arm = "channel worlds"
@@ -2928,11 +2963,7 @@ def phase_telemetry(card, params0, cfg, stream_cls, grad_fn_for) -> dict:
               f"max rel err {err:.3e} (tolerance {ENGINE_TOL:g})")
 
     # (d) phase 9's channel + defense worlds batch in one call
-    base = World(topology=graph, channel=hostile)
-    worlds = [dataclasses.replace(base, algorithm=Algorithm(kind))
-              for _ in range(2) for kind in ("adpsgd", "a2cid2")]
-    defenses = [None, None, AdaptiveDefense(), AdaptiveDefense()]
-    scheds = [w.compile(CHANNEL_ROUNDS, seed=CHANNEL_SEED) for w in worlds]
+    worlds, defenses, scheds = hostile_worlds(graph)
     comm_steps = worlds_comm_steps(scheds)
     sim = Simulator(grad, params, GAMMA)
     runs = twin_replays(
@@ -4185,6 +4216,672 @@ def phase_zoo(card, qwen_step_ms: float) -> dict:
     return launches
 
 
+# ------------------------------------------------- 28: the sharded replay
+# local shards on the one card; the lags held against shard_lag_schedule
+SHARDS, SHARD_LAGS = 4, (1, 2)
+# (c): every shard count down to one worker a shard, at a small and an odd
+# (padded) width, both dtypes
+EDGE_SHARDS, EDGE_WIDTHS, EDGE_ROUNDS = (1, 2, 4, 8, 16), (4224, 1001), 4
+# (d): the paper's scale, 64 workers on a ring
+PAPER_WORKERS, PAPER_SHARDS, PAPER_ROUNDS = 64, 8, 2
+# comm-step times: runs of each arm in alternating order, the median kept
+SHARD_TIMING_ORDER = ("sharded", "single", "single", "sharded", "sharded",
+                      "single")
+# (e): ResNet-18 on 4 shards against the default single-device replay, as a
+# share of max|x|.  A vmap over 4 rows and one over 16 part by ~1.6e-6 of
+# the largest gradient a tick and 6 rounds carry that to 4.09e-05 (on an
+# H100 80GB HBM3 at 700 W); the limit leaves 2.4x of that, a sound control
+# (gradients in 8-row groups) must stay under it, and a fault control (the
+# cross-shard reads two rounds stale, lag 2) must break it
+RESNET_SHARD_GAP = 1e-4
+# traces are sums of per-shard partials (reassociated, never fed back):
+# the JAX package's sharded pin holds them at rtol 1e-6; the telemetry
+# moments at the engine tolerance
+SHARD_TRACE_RTOL = 1e-6
+# at bf16 the traces are rounded to bf16 after the sum: two roundings
+SHARD_TRACE_RTOL_BF16 = 2.0 ** -6
+
+
+def noisy_quadratic(n: int, d: int, seed: int):
+    """A row-local noisy quadratic split into its draw and its use
+    (``SplitGradFn``): worker w pulls toward ``amp[w] * base`` (base ~
+    0.01 N(0, 1) over d, amp in [0.5, 1.5)), and the gradient carries 0.05
+    N(0, 1) noise drawn for the whole world from the world's generator.
+    Optima at 0.01 keep honest delta norms under tau (phase 6)."""
+    from repro_torch.core import SplitGradFn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = 0.01 * torch.randn(d, generator=gen, device=dev)
+    amp = 0.5 + torch.rand(n, generator=gen, device=dev)
+
+    def draw(generator, rows):
+        return torch.randn(rows, d, generator=generator, device=dev)
+
+    def apply(x, noise, ids):
+        g = (x - (amp[ids][:, None] * base).to(x.dtype)) \
+            + (0.05 * noise).to(x.dtype)
+        return 0.5 * (g.float() ** 2).sum(dim=1), g
+
+    return SplitGradFn(draw, apply)
+
+
+def quadratic_states(sim, b: int, n: int, d: int, seed: int,
+                     dtype=torch.float32):
+    """B worlds of n workers at 0, world w's generator seeded seed + w."""
+    dev = torch.device("cuda")
+    return sim.batch_states(
+        sim.init(torch.zeros(d, dtype=dtype, device=dev), n,
+                 torch.Generator(device=dev).manual_seed(seed + w))
+        for w in range(b))
+
+
+def shard_kernel_checks(card, graph, d: int) -> float:
+    """``channel_gossip_worlds`` against its plain version at every shard
+    shape phase 28 launches it at: (4, 4, d) on the main path, (1, 4, d)
+    in the lags, (1, 8, d) for 64 workers on 8 shards, f32; and (4, Ws,
+    width) for every edge shard count and width, f32 and bf16.  Returns
+    the max abs err at f32."""
+    from repro_torch.core import params_from_graph
+    dev = torch.device("cuda")
+    dyn_p = params_from_graph(graph, True)
+    pw = worlds_dyn(dict(eta=dyn_p.eta, alpha=dyn_p.alpha,
+                         alpha_t=dyn_p.alpha_tilde), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    full = {shape: check_shard_kernel(pw, *shape, d, d, torch.float32,
+                                      F32_TOL, gen)
+            for shape in ((N_WORLDS, N_WORKERS // SHARDS),
+                          (1, N_WORKERS // SHARDS),
+                          (1, PAPER_WORKERS // PAPER_SHARDS))}
+    torch.cuda.empty_cache()
+    edge = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for width in EDGE_WIDTHS:
+        padded = -(-width // 128) * 128
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            for ns in EDGE_SHARDS:
+                edge[dtype] = max(edge[dtype], check_shard_kernel(
+                    pw, N_WORLDS, N_WORKERS // ns, padded, width, dtype, tol,
+                    gen))
+    print(f"[{card}] 28 channel_gossip_worlds vs plain on shard rows "
+          f"(clip none / 2.5, with the mask): max abs err "
+          + ", ".join(f"({b}, {ws}, {d}) {e:.3e}" for (b, ws), e in
+                      full.items())
+          + f" f32 (tolerance {F32_TOL:g}); (4, Ws, D) for Ws = "
+          f"{[N_WORKERS // ns for ns in EDGE_SHARDS]}, D = {EDGE_WIDTHS} "
+          f"(padded to 128): f32 {edge[torch.float32]:.3e}, bf16 "
+          f"{edge[torch.bfloat16]:.3e} (tolerance {BF16_TOL:g}); masks "
+          f"exactly mscale == 0, padding 0")
+    return max(max(full.values()), edge[torch.float32])
+
+
+def check_shard_kernel(pw, b: int, ws: int, d: int, d_real: int, dtype,
+                       tol: float, gen) -> float:
+    """``channel_gossip_worlds`` against its plain version on one shard's
+    (b, ws, d) rows, the shape the sharded replay launches it at: honest,
+    1e3-scale and sign-flip reads, rejected and norm-clipped rows, clip
+    none and 2.5, with the rejection mask (exactly mscale == 0) and the
+    padding columns left 0.  Returns the max abs err."""
+    from repro_torch.kernels.a2cid2_mixing import kernel as k
+    from repro_torch.kernels.a2cid2_mixing.ops import channel_event_worlds
+    dev = torch.device("cuda")
+    x, xt, xp = (torch.randn(b, ws, d, generator=gen, device=dev).to(dtype)
+                 for _ in range(3))
+    for a in (x, xt, xp):
+        a[:, :, d_real:] = 0
+    dt = torch.rand(b, ws, generator=gen, device=dev) * 1.5
+    corrupt = torch.zeros(b, ws, device=dev)
+    mscale = torch.ones(b, ws, device=dev)
+    for w in range(b):
+        corrupt[w, w % ws] = 999.0 if w % 2 else -2.0
+        mscale[w, (w + 1) % ws] = 0.0 if w % 2 else 0.3
+    pwb = tuple(p[N_WORLDS - b:].contiguous() for p in pw)   # A2CiD2 last
+    err = 0.0
+    for clip in (None, 2.5):
+        kw = dict(clip=clip, want_rej=True)
+        ref = channel_event_worlds(x, xt, xp, corrupt, mscale, dt, *pwb,
+                                   backend="ref", **kw)
+        out = k.channel_gossip_worlds(x, xt.clone(), xp, corrupt, mscale,
+                                      dt, *pwb, **kw)
+        torch.cuda.synchronize()
+        for a, r in zip(out[:2], ref[:2]):
+            err = max(err, (a.float() - r.float()).abs().max().item())
+        require(torch.equal(out[2], ref[2])
+                and torch.equal(out[2], (mscale == 0).float()),
+                f"shard ({b}, {ws}, {d}) {dtype}: the rejection mask is not "
+                f"exactly mscale == 0")
+        require(bool((out[0][:, :, d_real:] == 0).all()
+                     and (out[1][:, :, d_real:] == 0).all()),
+                f"shard ({b}, {ws}, {d}) {dtype}: padding columns not 0")
+    require(err <= tol, f"channel_gossip_worlds on shard rows ({b}, {ws}, "
+                        f"{d}) {dtype}: max abs err {err} (tolerance {tol})")
+    return err
+
+
+def require_pinned(ref, got, what: str, rtol: float = SHARD_TRACE_RTOL
+                   ) -> float:
+    """The sharded replay ``got`` against the single-device ``ref``: x,
+    x~, the clocks and every generator bit for bit, the defense trace and
+    the telemetry counts bit for bit, the loss / consensus / mean-norm
+    traces within ``rtol`` and the telemetry moments within ENGINE_TOL.
+    Returns the largest trace error."""
+    (f0, t0), (f1, t1) = ref, got
+    require(tree_equal(f0.x, f1.x) and tree_equal(f0.x_tilde, f1.x_tilde)
+            and torch.equal(f0.t_last, f1.t_last),
+            f"{what}: x / x~ not bit for bit the single-device replay")
+    require(all(torch.equal(a.get_state(), c.get_state())
+                for a, c in zip(f0.generator, f1.generator)),
+            f"{what}: a generator did not end where the single-device "
+            f"replay leaves it")
+    if t0.defense is not None:
+        require(all(torch.equal(a, c) for a, c in zip(t0.defense,
+                                                        t1.defense)),
+                f"{what}: the defense trace differs")
+    if t0.telemetry is not None:
+        require(torch.equal(t0.telemetry.applied, t1.telemetry.applied)
+                and torch.equal(t0.telemetry.rejected, t1.telemetry.rejected),
+                f"{what}: telemetry counts differ")
+        for k in ("norm_sum", "norm_sq_sum"):
+            torch.testing.assert_close(getattr(t1.telemetry, k),
+                                       getattr(t0.telemetry, k),
+                                       rtol=ENGINE_TOL, atol=0)
+    err = 0.0
+    for k in ("loss", "consensus", "mean_param_norm"):
+        a, c = getattr(t0, k), getattr(t1, k)
+        err = max(err, ((a - c).abs() / a.abs().clamp_min(1e-30)).max()
+                  .item())
+    require(err <= rtol, f"{what}: traces differ by {err:.3e} (tolerance "
+                         f"{rtol:g})")
+    return err
+
+
+class ShardTimer(ReplayTimer):
+    """CUDA-event spans around the replay's comm-step parts and its ticks,
+    patched in for one replay at a time."""
+
+    PARTS = ("gather", "publish", "exchange", "merge", "norms", "kernel")
+
+    def patched(self):
+        import contextlib
+        from repro_torch.core import FlatGossipEngine
+        from repro_torch.core import engine as engine_mod
+        from repro_torch.core import simulator as sim_mod
+        from repro_torch.launch import mesh_replay
+        targets = [
+            (FlatGossipEngine, "partner_values_worlds", "gather", True),
+            (FlatGossipEngine, "publish_rows", "publish", True),
+            (FlatGossipEngine, "pool_partner_values", "merge", True),
+            (FlatGossipEngine, "delta_norms", "norms", True),
+            (mesh_replay, "ring_pool_exchange", "exchange", False),
+            (engine_mod, "channel_event_worlds", "kernel", False),
+            # the gradient tick: gradients, defense update, ring, mixing
+            (sim_mod.Simulator, "_grad_worlds", "tick", False),
+            (mesh_replay, "_grad_worlds_sharded", "tick", False),
+            (sim_mod, "defense_grad", "tick", False),
+            (mesh_replay, "defense_grad", "tick", False),
+            (sim_mod, "ring_push_worlds", "tick", False),
+            (mesh_replay, "ring_push_worlds", "tick", False),
+            (FlatGossipEngine, "mix_batch", "tick", False),
+        ]
+
+        @contextlib.contextmanager
+        def ctx():
+            saved = [(obj, name, obj.__dict__[name])
+                     for obj, name, _, _ in targets]
+            try:
+                for obj, name, kind, static in targets:
+                    fn = getattr(obj, name)
+                    wrapped = self.wrap(kind, fn)
+                    setattr(obj, name, staticmethod(wrapped) if static
+                            else wrapped)
+                yield
+            finally:
+                for obj, name, fn in saved:
+                    setattr(obj, name, fn)
+        return ctx()
+
+    def comm_split(self, arm: str, wall: float, comm_steps: int) -> dict:
+        """Per comm step: each part's summed spans, and the rest (the
+        replay's wall less its ticks and every part, over the comm
+        steps)."""
+        parts = {k: sum(self.ms(arm, k)) / comm_steps for k in self.PARTS
+                 if self.ms(arm, k)}
+        total = (wall - sum(self.ms(arm, "tick"))) / comm_steps
+        parts["rest"] = total - sum(parts.values())
+        parts["step"] = total
+        return parts
+
+
+def timed_replay(timer: ShardTimer, arm: str, run):
+    """``run()`` under the timer's patches from an emptied peak: (final,
+    trace, wall ms, peak GiB, launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer.arm = arm
+    reset_launches()
+    with timer.patched():
+        t0 = time.perf_counter()
+        final, trace = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return (final, trace, wall, torch.cuda.max_memory_allocated() / 2**30,
+            read_launches())
+
+
+def phase_sharded(card, d: int, params0, cfg, stream_cls, grad_fn_for
+                  ) -> int:
+    """28: the sharded replay (``run_worlds(mesh=)``) on local shards of
+    the one card, bit for bit the single-device replay: (a) phase 9's
+    worlds on the noisy quadratic at full width, NS = 4 (the main path:
+    its launches are counted), then lags 1 and 2 against
+    ``shard_lag_schedule``; (b) ``channel_gossip_worlds`` once a comm step
+    a shard and nothing else; (c) every shard count at small and odd
+    widths, f32 and bf16, channel and defense, and the ragged fallback;
+    (d) 64 workers on 8 shards; (e) ResNet-18-CIFAR, bit for bit the
+    single-device replay with the shards' gradient groups and within
+    ``RESNET_SHARD_GAP`` of the default single-device replay; (f) one NCCL
+    rank.  The kernel is first held against its plain version at every
+    shard shape.  Returns the main path's ``channel_gossip_worlds``
+    launches and the kernel's max abs err at f32."""
+    import warnings
+    from repro_torch.core import (Simulator, Telemetry, World,
+                                  params_from_graph, ring_graph,
+                                  shard_lag_schedule)
+    from repro_torch.launch import MeshReplay, make_replay_mesh
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+
+    def mesh(ns, lag=0):
+        return MeshReplay(make_replay_mesh(ns, devices=[dev] * ns), lag=lag)
+
+    # (a) + (b): phase 9's worlds, full width, with the flight recorder
+    graph = ring_graph(N_WORKERS)
+    worlds, defenses, scheds = hostile_worlds(graph)
+    comm_steps = worlds_comm_steps(scheds)
+    sim = Simulator(noisy_quadratic(N_WORKERS, d, SEED + 28),
+                    params_from_graph(graph, True), GAMMA)
+
+    def replay(ns=None):
+        states = quadratic_states(sim, N_WORLDS, N_WORKERS, d, SEED + 28)
+        return lambda: sim.run_worlds(
+            states, scheds, worlds=worlds,
+            robust_clips=[ROBUST_CLIP] * N_WORLDS, defenses=defenses,
+            telemetry=Telemetry(), mesh=None if ns is None else mesh(ns))
+
+    kerr = shard_kernel_checks(card, graph, d)
+    timer = ShardTimer()
+    f0, t0, _, _, _ = timed_replay(timer, "single", replay())
+    f1, t1, _, _, launched = timed_replay(timer, "sharded", replay(SHARDS))
+    err = require_pinned((f0, t0), (f1, t1), "28a phase 9's worlds")
+    require(launched["channel_gossip_worlds"] == comm_steps * SHARDS,
+            f"28b: channel_gossip_worlds launched "
+            f"{launched['channel_gossip_worlds']} times, expected "
+            f"{comm_steps} comm steps x {SHARDS} shards")
+    require(only_launched(launched, "channel_gossip_worlds"),
+            f"28b: another kernel launched on the sharded path: {launched}")
+    require(bool(t1.telemetry.cross_reads.sum() > 0),
+            "28a: no read crossed a shard boundary")
+    dtr = t1.defense
+    acted = float(dtr.rejections[2:].sum() + dtr.quarantined[2:].sum())
+    require(acted >= 1, "28a: the defense arms rejected nothing")
+    print(f"[{card}] 28a sharded replay, phase 9's worlds (B={N_WORLDS} x "
+          f"{N_WORKERS} workers, noisy quadratic at D = {d}, "
+          f"{CHANNEL_ROUNDS} rounds, static trim + defense, Telemetry()) "
+          f"on {SHARDS} local shards of the card: x, x~, clocks, generators, "
+          f"defense trace and telemetry counts bit for bit the "
+          f"single-device replay; traces max rel err {err:.3e} "
+          f"(tolerance {SHARD_TRACE_RTOL:g}); {int(t1.telemetry.cross_reads.sum())} "
+          f"cross-shard reads, {int(t1.telemetry.bytes_cross.sum())} bytes "
+          f"across, {int(t1.telemetry.bytes_intra.sum())} within; defense "
+          f"acts {acted:.0f}")
+    print(f"[{card}] 28b channel_gossip_worlds launches "
+          f"{launched['channel_gossip_worlds']} == {comm_steps} comm steps "
+          f"x {SHARDS} shards, other kernels 0")
+    del f0, f1, t0, t1
+    # both arms warmed up by the pinned runs above; then alternating runs
+    splits = {"single": [], "sharded": []}
+    peaks = {"single": 0.0, "sharded": 0.0}
+    for i, arm in enumerate(SHARD_TIMING_ORDER):
+        label = f"{arm} {i}"
+        _, _, wall, peak, _ = timed_replay(
+            timer, label, replay(SHARDS if arm == "sharded" else None))
+        split = timer.comm_split(label, wall, comm_steps)
+        split["tick"] = sum(timer.ms(label, "tick")) / CHANNEL_ROUNDS
+        splits[arm].append(split)
+        peaks[arm] = max(peaks[arm], peak)
+    for arm, runs in splits.items():
+        med = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+        desc = ", ".join(f"{k} {v:.4f}" for k, v in med.items()
+                         if k not in ("step", "tick"))
+        print(f"[{card}] 28 {arm} replay, median of {len(runs)} runs "
+              f"(order {'/'.join(SHARD_TIMING_ORDER)}, after a warm-up of "
+              f"each): per comm step {med['step']:.4f} ms = {desc} (ms, "
+              f"CUDA events; rest = host clock less the spans); each run's "
+              f"step {[round(r['step'], 4) for r in runs]}; ticks "
+              f"{med['tick']:.2f} ms a round; peak memory {peaks[arm]:.2f} "
+              f"GiB")
+    torch.cuda.empty_cache()
+    shard_norms(card, d)
+
+    # (a) lags 1 and 2 on a clean ring world (B = 1), full width
+    clean = [World(topology=graph).compile(CHANNEL_ROUNDS, seed=SEED)]
+    for lag in SHARD_LAGS:
+        ref = sim.run_worlds(quadratic_states(sim, 1, N_WORKERS, d, SEED),
+                             [shard_lag_schedule(clean[0], SHARDS, lag)])
+        got = sim.run_worlds(quadratic_states(sim, 1, N_WORKERS, d, SEED),
+                             clean, mesh=mesh(SHARDS, lag))
+        err = require_pinned(ref, got, f"28a lag {lag}")
+        print(f"[{card}] 28a lag {lag} ({SHARDS} shards, clean ring, "
+              f"D = {d}): bit for bit the single-device replay of "
+              f"shard_lag_schedule(sched, {SHARDS}, {lag}); traces max rel "
+              f"err {err:.3e}")
+        del ref, got
+
+    # (c) every shard count at small and odd widths, both dtypes
+    t_edge, cases = time.perf_counter(), 0
+    for width in EDGE_WIDTHS:
+        qsim = Simulator(noisy_quadratic(N_WORKERS, width, SEED + 29),
+                         params_from_graph(graph, True), GAMMA)
+        for dtype in (torch.float32, torch.bfloat16):
+            for flavour, dfs in (("channel", None), ("defense", defenses)):
+                def run(ns):
+                    return qsim.run_worlds(
+                        quadratic_states(qsim, N_WORLDS, N_WORKERS, width,
+                                         SEED + 29, dtype), scheds,
+                        worlds=worlds, defenses=dfs,
+                        robust_clips=[ROBUST_CLIP] * N_WORLDS,
+                        mesh=None if ns is None else mesh(ns))
+                ref = run(None)
+                rtol = SHARD_TRACE_RTOL if dtype == torch.float32 \
+                    else SHARD_TRACE_RTOL_BF16
+                for ns in EDGE_SHARDS:
+                    require_pinned(ref, run(ns), f"28c D={width} {dtype} "
+                                   f"{flavour} NS={ns}", rtol)
+                    cases += 1
+        n_odd = N_WORKERS - 1
+        osim = Simulator(noisy_quadratic(n_odd, width, SEED + 30),
+                         params_from_graph(ring_graph(n_odd), True), GAMMA)
+        osched = [World(topology=ring_graph(n_odd)).compile(EDGE_ROUNDS)]
+        ref = osim.run_worlds(quadratic_states(osim, 1, n_odd, width, SEED),
+                              osched)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = osim.run_worlds(quadratic_states(osim, 1, n_odd, width,
+                                                   SEED), osched, mesh=mesh(2))
+        require(any(issubclass(w.category, RuntimeWarning)
+                    and "not divisible" in str(w.message) for w in caught),
+                "28c: a ragged worker axis did not warn")
+        require_pinned(ref, got, f"28c ragged n={n_odd} D={width}")
+    print(f"[{card}] 28c {cases} sharded replays bit for bit single-device: "
+          f"D = {EDGE_WIDTHS} (1001 padded to 1024), f32 and bf16, channel "
+          f"and defense flavours, NS = {EDGE_SHARDS} (down to 1 worker a "
+          f"shard); n = 15 on 2 shards warned 'not divisible' and replayed "
+          f"on one device bit for bit; {time.perf_counter() - t_edge:.1f} s")
+
+    # (d) the paper's scale: 64 workers on a ring, 8 shards, full width
+    big = ring_graph(PAPER_WORKERS)
+    bsim = Simulator(noisy_quadratic(PAPER_WORKERS, d, SEED + 31),
+                     params_from_graph(big, True), GAMMA)
+    bsched = [World(topology=big).compile(PAPER_ROUNDS, seed=SEED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_big = time.perf_counter()
+    ref = bsim.run_worlds(quadratic_states(bsim, 1, PAPER_WORKERS, d, SEED),
+                          bsched)
+    got = bsim.run_worlds(quadratic_states(bsim, 1, PAPER_WORKERS, d, SEED),
+                          bsched, mesh=mesh(PAPER_SHARDS))
+    torch.cuda.synchronize()
+    err = require_pinned(ref, got, "28d 64 workers")
+    print(f"[{card}] 28d {PAPER_WORKERS} workers on a ring, "
+          f"{PAPER_SHARDS} shards, D = {d} ({PAPER_WORKERS * d * 4:,} bytes "
+          f"a bank), {PAPER_ROUNDS} rounds: bit for bit the single-device "
+          f"replay, traces max rel err {err:.3e}; both replays "
+          f"{time.perf_counter() - t_big:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del ref, got, bsim
+    torch.cuda.empty_cache()
+
+    # (e) ResNet-18-CIFAR, the whole model, through the draw / apply split
+    t_res = time.perf_counter()
+    res = sharded_resnet(card, mesh, grad_fn_for(cfg, stream_cls(
+        batch_size=BATCH)), cfg, params0, worlds, defenses, scheds)
+    err = require_pinned(res["grouped"], res["sharded"],
+                         "28e ResNet-18 against the shards' gradient groups")
+    require(bool(torch.isfinite(res["sharded"][1].loss).all()),
+            "28e: non-finite loss")
+    from repro_torch.core.tree import tree_leaves
+    x_ref = tree_leaves(res["default"][0].x)
+    big_x = max(a.abs().max().item() for a in x_ref)
+
+    def gap(arm):
+        return max((a - c).abs().max().item() for a, c in
+                   zip(x_ref, tree_leaves(res[arm][0].x))) / big_x
+
+    gaps = {arm: gap(arm) for arm in ("sharded", "groups of 8", "lag 2")}
+    require(gaps["sharded"] <= RESNET_SHARD_GAP,
+            f"28e: the sharded ResNet-18 replay is {gaps['sharded']:.3e} of "
+            f"max|x| from the default single-device replay (limit "
+            f"{RESNET_SHARD_GAP:g})")
+    require(gaps["groups of 8"] <= RESNET_SHARD_GAP,
+            f"28e: the sound control (8-row gradient groups) is "
+            f"{gaps['groups of 8']:.3e} of max|x| from the default replay")
+    require(gaps["lag 2"] > RESNET_SHARD_GAP,
+            f"28e: the fault control (lag 2) is only {gaps['lag 2']:.3e} of "
+            f"max|x| from the default replay: the limit cannot see a fault")
+    print(f"[{card}] 28e ResNet-18-CIFAR, phase 9's worlds, {SHARDS} "
+          f"shards: bit for bit the single-device replay whose gradient is "
+          f"applied in the shards' {N_WORKERS // SHARDS}-row groups (traces "
+          f"max rel err {err:.3e}); from the default single-device replay "
+          f"(one vmapped gradient of 16 rows), max |dx| / max|x| "
+          f"({big_x:.4f}): sharded {gaps['sharded']:.3e} (limit "
+          f"{RESNET_SHARD_GAP:g}), sound control, gradients in 8-row groups, "
+          f"{gaps['groups of 8']:.3e}, fault control, {SHARDS} shards at lag "
+          f"2, {gaps['lag 2']:.3e}; loss "
+          f"{res['sharded'][1].loss[:, -1].tolist()} against "
+          f"{res['default'][1].loss[:, -1].tolist()}; five replays "
+          f"{time.perf_counter() - t_res:.1f} s")
+    del res
+    torch.cuda.empty_cache()
+
+    # (f) the rank path: one NCCL rank, every collective still called
+    phase_rank(card, d, sim, worlds, defenses, scheds)
+    print(f"[{card}] phase 28: {time.perf_counter() - t_phase:.1f} s")
+    return launched["channel_gossip_worlds"], kerr
+
+
+def shard_norms(card, d: int) -> None:
+    """The delta norms three ways, each after the same element-wise part:
+    the replay's (``FlatGossipEngine.delta_norms``, sums on blocks of
+    ``NORM_GROUP`` rows), each row summed alone and one sum over all
+    rows.  At D = 4224 and at
+    ``d``: how many norms of a shard's (4, Ws, D) rows differ from the
+    same rows' norms among 16 for Ws = 1, 2, 4, 8 (PyTorch picks a
+    reduction's split from the row count as well as the length; the
+    replay's may differ in none).  Each form, and the element-wise part
+    alone, timed (CUDA events) at (4, 16, D), (4, 4, D) and (1, 64, D)."""
+    from repro_torch.core import FlatGossipEngine
+    from repro_torch.core.engine import NORM_GROUP, _delta_f32
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+
+    def blocks(a, b, c):
+        return FlatGossipEngine.delta_norms(a, b, c, axes=2)
+
+    def squares(a, b, c):   # delta_norms' element-wise part
+        m = _delta_f32(a, (1.0 + c.float()).to(a.dtype).unsqueeze(-1) * b)
+        return m * m
+
+    def rows_alone(a, b, c):
+        sq = squares(a, b, c).reshape(-1, a.shape[-1])
+        return torch.sqrt(torch.stack([r.sum() for r in sq])
+                          .reshape(a.shape[:-1]))
+
+    def one_sum(a, b, c):
+        return torch.sqrt(squares(a, b, c).sum(dim=2))
+
+    forms = {f"blocks of {NORM_GROUP}": blocks, "each row alone": rows_alone,
+             "one sum": one_sum, "the element-wise part alone": squares}
+    for width in (EDGE_WIDTHS[0], d):
+        bx = torch.randn(N_WORLDS, N_WORKERS, width, generator=gen,
+                         device=dev)
+        xp = torch.randn(N_WORLDS, N_WORKERS, width, generator=gen,
+                         device=dev)
+        cor = torch.zeros(N_WORLDS, N_WORKERS, device=dev)
+        differ = {}
+        for label, fn in list(forms.items())[:3]:
+            whole = fn(bx, xp, cor)
+            differ[label] = [int((fn(bx[:, :ws].contiguous(),
+                                     xp[:, :ws].contiguous(),
+                                     cor[:, :ws].contiguous())
+                                  != whole[:, :ws]).sum())
+                             for ws in (1, 2, 4, 8)]
+        require(not any(differ[f"blocks of {NORM_GROUP}"]),
+                f"28a: the replay's delta norms depend on the rows at "
+                f"D = {width}")
+        reps = 5 if width == d else 20
+        times = []
+        for shape in ((N_WORLDS, N_WORKERS), (N_WORLDS, N_WORKERS // SHARDS),
+                      (1, PAPER_WORKERS)):
+            # the first rows of the (4, 16) bank: 64 rows at most
+            a, b = (t.reshape(-1, width)[:shape[0] * shape[1]]
+                    .reshape(*shape, width) for t in (bx, xp))
+            c = torch.zeros(shape, device=dev)
+            times.append(f"{shape}: " + ", ".join(
+                f"{label} {cuda_ms(lambda: fn(a, b, c), reps=reps):.4f}"
+                for label, fn in forms.items()))
+        print(f"[{card}] 28a delta norms at D = {width}: of a shard's "
+              f"(4, Ws) norms for Ws = 1, 2, 4, 8, differing from the same "
+              f"rows' norms among 16: "
+              + ", ".join(f"{k} {v}" for k, v in differ.items())
+              + f"; ms (CUDA events, mean of {reps}) at "
+              + "; ".join(times))
+        del bx, xp
+        torch.cuda.empty_cache()
+
+
+def sharded_resnet(card, mesh, gfn, cfg, params0, worlds, defenses,
+                   scheds) -> dict:
+    """28e: phase 9's worlds on the whole model five ways, keyed: the
+    "default" single-device replay (``gfn`` vmapped over all 16 rows),
+    the single-device replay whose gradient is applied in the shards' row
+    groups ("grouped", one vmapped call a group, as each shard makes it),
+    the "sharded" replay on ``mesh(SHARDS)``, and two controls: the
+    single-device replay with gradients in "groups of 8" rows, and the
+    sharded replay at "lag 2".  A vmap over 4 rows and one over 16 may sum
+    in another order (cuDNN picks a grouped convolution's algorithm from
+    the group count), so the sharded replay is held bit for bit against
+    "grouped".  Before the replays, one tick's gradients from the start
+    are timed and compared: vmapped over 16 rows in one call and in the
+    shards' groups, and the same with ``vmap(chunk_size=1)``."""
+    from torch.func import grad_and_value, vmap
+    from repro_torch.core import Simulator, SplitGradFn, params_from_graph
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models.resnet import resnet_loss
+
+    def row_groups(ws):
+        return [slice(u, u + ws) for u in range(0, N_WORKERS, ws)]
+
+    def grouped(apply, groups):
+        def run(x, batch, ids):
+            outs = [apply(tree_map(lambda a: a[g], x),
+                          tree_map(lambda a: a[g], batch), ids[g])
+                    for g in groups]
+            return (torch.cat([o[0] for o in outs]),
+                    tree_map(lambda *gs: torch.cat(gs),
+                             *[o[1] for o in outs]))
+        return run
+
+    def loss_one(p, images, labels):
+        return resnet_loss(p, cfg, {"images": images, "labels": labels})[0]
+
+    # one tick's gradients from the replay's start, two vmaps, two batchings
+    dev = torch.device("cuda")
+    x0 = tree_map(lambda a: a.unsqueeze(0).expand((N_WORKERS,) + a.shape)
+                  .contiguous(), params0)
+    batch = gfn.draw(torch.Generator(device=dev).manual_seed(SEED + 1),
+                     N_WORKERS)
+    ids = torch.arange(N_WORKERS, device=dev)
+    shard_rows = row_groups(N_WORKERS // SHARDS)
+    ref = tree_leaves(gfn.apply(x0, batch, ids)[1])
+    big = max(a.abs().max().item() for a in ref)
+    desc = []
+    for name, chunk in (("vmap", None), ("vmap(chunk_size=1)", 1)):
+        per_worker = vmap(grad_and_value(loss_one), chunk_size=chunk)
+
+        def apply(x, b, _ids, f=per_worker):
+            grads, losses = f(x, b["images"], b["labels"])
+            return losses, grads
+
+        got, ms = {}, {}
+        for label, groups in (("16 rows", [slice(0, N_WORKERS)]),
+                              (f"{len(shard_rows)} groups", shard_rows)):
+            run = grouped(apply, groups)
+            ms[label] = cuda_ms(lambda: run(x0, batch, ids), reps=1,
+                                warmup=1)
+            got[label] = tree_leaves(run(x0, batch, ids)[1])
+        one, split = got.values()
+        same = all(torch.equal(a, c) for a, c in zip(one, split))
+        gap = max((a - c).abs().max().item() for a, c in zip(one, split))
+        to_ref = max((a - c).abs().max().item() for a, c in zip(ref, one))
+        desc.append(f"{name}: " + ", ".join(f"{k} {v:.1f} ms"
+                                            for k, v in ms.items())
+                    + f", the batchings {'bit for bit' if same else 'apart'}"
+                      f" ({gap / big:.3e} of the largest), 16 rows "
+                      f"{to_ref / big:.3e} from the replay's gradient")
+        del got, one, split
+    print(f"[{card}] 28e one tick's ResNet-18 gradients at the start (16 "
+          f"workers, batch {BATCH}; CUDA events, one call after a warm-up): "
+          + "; ".join(desc))
+    del x0, batch, ref
+
+    mk = {"default": (gfn, None),
+          "grouped": (SplitGradFn(gfn.draw, grouped(gfn.apply, shard_rows)),
+                      None),
+          "sharded": (gfn, mesh(SHARDS)),
+          "groups of 8": (SplitGradFn(gfn.draw, grouped(gfn.apply,
+                                                        row_groups(8))),
+                          None),
+          "lag 2": (gfn, mesh(SHARDS, 2))}
+    out = {}
+    for arm, (fn, m) in mk.items():
+        sim = Simulator(fn, params_from_graph(worlds[0].topology, True),
+                        GAMMA)
+        out[arm] = sim.run_worlds(
+            worlds_states(sim, params0, SEED + 1), scheds, worlds=worlds,
+            robust_clips=[ROBUST_CLIP] * N_WORLDS, defenses=defenses,
+            mesh=m)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_rank(card, d, sim, worlds, defenses, scheds) -> None:
+    """28f: ``make_rank_mesh()`` under NCCL at world size 1 (NCCL takes
+    one rank a card) on phase 9's worlds at full width, bit for bit the
+    single-device replay."""
+    import torch.distributed as dist
+    from repro_torch.launch import MeshReplay, make_rank_mesh
+
+    def run(mesh=None):
+        return sim.run_worlds(
+            quadratic_states(sim, N_WORLDS, N_WORKERS, d, SEED + 28),
+            scheds, worlds=worlds, robust_clips=[ROBUST_CLIP] * N_WORLDS,
+            defenses=defenses, mesh=mesh)
+
+    ref = run()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            rank_mesh = make_rank_mesh()
+            got = run(MeshReplay(rank_mesh))
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    err = require_pinned(ref, got, "28f NCCL rank")
+    print(f"[{card}] 28f rank mesh: NCCL, world size 1 on "
+          f"{rank_mesh.device}, phase 9's worlds at D = {d}: bit for bit the "
+          f"single-device replay, traces max rel err {err:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4307,6 +5004,14 @@ def main() -> int:
     launches["flash_attention_bhsd"] += zoo["flash_attention_bhsd"]
     launches["mixing_gossip_stacked"] += zoo["mixing_gossip_stacked"]
     print(f"[{card}] phases 1-27 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    torch.cuda.empty_cache()
+    n28, err28 = phase_sharded(card, layout.d, params0, cfg, SyntheticCIFAR,
+                               resnet_grad_fn)
+    launches["channel_gossip_worlds"] += n28
+    rows["channel_gossip_worlds"]["max_abs_err"] = max(
+        rows["channel_gossip_worlds"]["max_abs_err"], err28)
+    print(f"[{card}] phases 1-28 done at {time.perf_counter() - t_start:.1f}"
           f" s")
 
     print(card)

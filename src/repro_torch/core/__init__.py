@@ -10,7 +10,8 @@ from .engine import FlatGossipEngine, mix_flat
 from .events import (BatchedSchedule, BatchedStream, CoalescedSchedule,
                      EventStream, Schedule, coalesce_schedule,
                      coalesced_stream, concat_schedules, empirical_laplacian,
-                     make_schedule, make_topology_schedule, stack_schedules,
+                     make_schedule, make_topology_schedule, ShardPlan,
+                     shard_lag_stale, shard_partition, stack_schedules,
                      stack_streams)
 from .flatbuf import FlatLayout, LeafSpec
 from .gossip import (DelayRing, GossipMixer, WorkerAxis, bank_corruption,
@@ -20,11 +21,13 @@ from .gossip import (DelayRing, GossipMixer, WorkerAxis, bank_corruption,
 from .graphs import (Graph, TopologyPhase, TopologySchedule, build_graph,
                      complete_graph, exponential_graph, hypercube_graph,
                      ring_graph, star_graph, torus_graph)
-from .simulator import SimState, SimTrace, Simulator, allreduce_sgd
+from .simulator import (SimState, SimTrace, Simulator, SplitGradFn,
+                        allreduce_sgd)
 from .telemetry import (Telemetry, TelemetryTrace, row_bytes_of,
                         trace_summary)
 from .world import (SERVE_ARRIVE_KEY, ChurnProcess, LinkModel, PhaseSwitch,
-                    RequestTrace, ServeLoad, WorkerModel, World, WorldSweep)
+                    RequestTrace, ServeLoad, WorkerModel, World, WorldSweep,
+                    shard_cross_reads, shard_lag_schedule)
 
 __all__ = [
     "ALGORITHM_KINDS", "A2CiD2Params", "Algorithm", "acid_params",
@@ -37,7 +40,8 @@ __all__ = [
     "FlatGossipEngine", "mix_flat",
     "BatchedSchedule", "BatchedStream", "CoalescedSchedule", "EventStream",
     "Schedule", "coalesce_schedule", "coalesced_stream", "concat_schedules",
-    "empirical_laplacian", "make_schedule", "make_topology_schedule", "stack_schedules",
+    "empirical_laplacian", "make_schedule", "make_topology_schedule",
+    "ShardPlan", "shard_lag_stale", "shard_partition", "stack_schedules",
     "stack_streams",
     "FlatLayout", "LeafSpec",
     "DelayRing", "GossipMixer", "WorkerAxis", "bank_corruption",
@@ -46,8 +50,9 @@ __all__ = [
     "Graph", "TopologyPhase", "TopologySchedule", "build_graph",
     "complete_graph", "exponential_graph", "hypercube_graph", "ring_graph",
     "star_graph", "torus_graph",
-    "SimState", "SimTrace", "Simulator", "allreduce_sgd",
+    "SimState", "SimTrace", "Simulator", "SplitGradFn", "allreduce_sgd",
     "Telemetry", "TelemetryTrace", "row_bytes_of", "trace_summary",
     "SERVE_ARRIVE_KEY", "ChurnProcess", "LinkModel", "PhaseSwitch",
     "RequestTrace", "ServeLoad", "WorkerModel", "World", "WorldSweep",
+    "shard_cross_reads", "shard_lag_schedule",
 ]

@@ -251,17 +251,22 @@ def knobs_worlds(defenses, static_taus, device) -> DefenseKnobs:
                           for c in cols))
 
 
-def defense_init(n: int, device, batch: int | None = None) -> DefenseState:
+def defense_init(n: int, device, batch: int | None = None,
+                 rows: int | None = None) -> DefenseState:
     """Fresh control-loop state (all trust 1, estimator unseeded), with a
-    leading world axis of ``batch`` when given."""
+    leading world axis of ``batch`` when given.  ``rows`` (default n) is
+    the number of reader rows held here: a shard of the sharded replay
+    keeps its own (rows, n) trust table and (rows,) records, while the
+    estimator and the round counters are per world."""
     lead = () if batch is None else (batch,)
+    rows = n if rows is None else rows
 
     def full(shape, v, dtype=torch.float32):
         return torch.full(lead + shape, v, dtype=dtype, device=device)
 
-    return DefenseState(qest=full((), 0.0), trust=full((n, n), 1.0),
-                        lastn=full((n,), 0.0),
-                        lastv=full((n,), False, torch.bool),
+    return DefenseState(qest=full((), 0.0), trust=full((rows, n), 1.0),
+                        lastn=full((rows,), 0.0),
+                        lastv=full((rows,), False, torch.bool),
                         rej_acc=full((), 0.0), quar_acc=full((), 0.0))
 
 

@@ -29,7 +29,9 @@ The world-batched passes (``mix_batch``, ``batch_worlds``,
 ``channel_batch_worlds[_scaled]``, ``partner_values_worlds``) run B
 worlds' (B, W, D) buffers at once with the per-world dynamics ``pw =
 (eta, alpha, alpha_t)`` as (B,) f32 tensors on the buffers' device, so
-baseline and A2CiD2 worlds share one launch.
+baseline and A2CiD2 worlds share one launch.  The sharded replay
+(``launch/mesh_replay.py``) runs them on a shard's (B, W / NS, D) rows and
+adds the boundary passes ``publish_rows`` and ``pool_partner_values``.
 """
 from __future__ import annotations
 
@@ -45,6 +47,9 @@ from ..kernels.a2cid2_mixing.ops import (channel_event_local,
 from .a2cid2 import A2CiD2Params, apply_mixing
 from .flatbuf import FlatLayout, ring_read, ring_read_worlds
 from .tree import PyTree
+
+# rows a delta-norm sum takes at once (``FlatGossipEngine.delta_norms``)
+NORM_GROUP = 8
 
 
 def norm_scale(nrm: torch.Tensor, tau, rule: str) -> torch.Tensor:
@@ -178,15 +183,40 @@ class FlatGossipEngine:
                     corrupt: torch.Tensor, axes: int | None = 1
                     ) -> torch.Tensor:
         """f32 L2 norms of the corrupted channel deltas over the row axis
-        ``axes`` ((W,) for (W, D) buffers with axes=1, (B, W) for worlds
-        with axes=2, one 0-dim norm for a worker's (D,) vector with
-        axes=None): the product at the buffer dtype, the subtraction, the
-        squares and the sum in f32 (or wider).  JAX writes the difference
-        at the buffer dtype too, but XLA drops the rounding of a value that
-        is converted straight to f32, so at bf16 the JAX norms are these."""
+        ``axes``, the last one ((W,) for (W, D) buffers with axes=1, (B, W)
+        for worlds with axes=2, one 0-dim norm for a worker's (D,) vector
+        with axes=None): the product at the buffer dtype, the subtraction,
+        the squares and the sum in f32 (or wider).  JAX writes the
+        difference at the buffer dtype too, but XLA drops the rounding of a
+        value that is converted straight to f32, so at bf16 the JAX norms
+        are these.
+
+        The rows are summed ``NORM_GROUP`` at a time, every sum on a
+        (NORM_GROUP, D) block: PyTorch picks a reduction's split (CUDA
+        blocks and lanes, CPU threads) from the number of rows as well as
+        their length, so one sum over all rows is not bit for bit the same
+        rows summed among fewer, and the sharded replay's (B, W / NS, D)
+        banks must see the single-device norms.  The last block overlaps
+        the one before it, or is filled out with rows whose sums are
+        dropped.  Rows start 16-byte aligned when D is a multiple of 4, as
+        a ``FlatLayout``'s padded width is."""
         cadv = (1.0 + corrupt.float()).to(bx.dtype).unsqueeze(-1)
         m32 = _delta_f32(bx, cadv * xp)
-        return torch.sqrt((m32 * m32).sum(dim=axes))
+        if axes is None:
+            return torch.sqrt((m32 * m32).sum())
+        if axes != m32.dim() - 1:
+            raise ValueError(f"delta_norms reduces the last axis, got "
+                             f"axes={axes} for {m32.dim()}-d buffers")
+        rows = m32.reshape(-1, m32.shape[-1])
+        r, n = rows.shape[0], max(rows.shape[0], NORM_GROUP)
+        sq = m32.new_empty((n, rows.shape[1]))
+        torch.mul(rows, rows, out=sq[:r])
+        sums = m32.new_empty(n)
+        for s in range(0, n, NORM_GROUP):
+            s = min(s, n - NORM_GROUP)
+            torch.sum(sq[s:s + NORM_GROUP], dim=1,
+                      out=sums[s:s + NORM_GROUP])
+        return torch.sqrt(sums[:r]).reshape(m32.shape[:-1])
 
     def _mscale(self, bx: torch.Tensor, xp: torch.Tensor,
                 corrupt: torch.Tensor, axes: int | None = 1,
@@ -304,3 +334,30 @@ class FlatGossipEngine:
             b_idx = torch.arange(bx.shape[0], device=bx.device)[:, None]
             return bx[b_idx, partner.long()]
         return ring_read_worlds(ring, bx, partner, src_slot)
+
+    # ------------------------------------------- sharded-replay passes
+    @staticmethod
+    def publish_rows(ring: torch.Tensor | None, bx: torch.Tensor,
+                     rows: torch.Tensor, slots: torch.Tensor
+                     ) -> torch.Tensor:
+        """Resolve the (B, nb) boundary rows a shard publishes into their
+        (B, nb, D) channel values: fresh rows of ``bx`` at the sentinel
+        slot (or with no ring), local snapshot-ring reads otherwise.  The
+        PUBLISHER resolves staleness against its own (B, H, Ws, D) ring, so
+        the value that crosses to the reader is bit for bit the one the
+        single-device ``ring_read_worlds`` gather would have produced."""
+        if ring is None:
+            b_idx = torch.arange(bx.shape[0], device=bx.device)[:, None]
+            return bx[b_idx, rows.long()]
+        return ring_read_worlds(ring, bx, rows, slots)
+
+    @staticmethod
+    def pool_partner_values(pool: torch.Tensor, hop: torch.Tensor,
+                            pos: torch.Tensor, xp_local: torch.Tensor,
+                            is_cross: torch.Tensor) -> torch.Tensor:
+        """Merge pool reads into the shard's partner values: cross rows read
+        ``pool[hop, b, pos]`` (the block published by the source shard),
+        intra and idle rows keep the shard-local gather ``xp_local``."""
+        b_idx = torch.arange(pool.shape[1], device=pool.device)[:, None]
+        xp_cross = pool[hop.long(), b_idx, pos.long()]
+        return torch.where(is_cross[:, :, None], xp_cross, xp_local)

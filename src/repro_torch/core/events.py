@@ -819,3 +819,135 @@ def empirical_laplacian(schedule: Schedule, rounds: int | None = None
                     L[i, j] -= 1
                     L[j, i] -= 1
     return L / R
+
+
+# --------------------------------------------------------------------------
+# Shard-aware schedule compilation: partition a batched stream's matchings
+# over a worker-sharded replay mesh (``launch/mesh_replay.py``).  Host
+# numpy, exactly the JAX package's.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """Host-compiled partition of a :class:`BatchedStream` over ``n_shards``
+    equal worker shards.
+
+    Every comm step's matching splits into INTRA-shard pairs (both
+    endpoints on one shard — the partner involution restricted to a shard
+    is still an involution, because a pair is either wholly intra or both
+    of its directed reads are cross) and CROSS-shard boundary reads.  The
+    intra reads keep the fused per-shard gather (``local_partner`` indexes
+    the shard's own (Ws, D) rows); the cross reads are served by the
+    bounded-staleness permute ring: each shard publishes the boundary rows
+    its peers will read this step (``pub_row``/``pub_slot``, staleness
+    resolved by the PUBLISHER against its own snapshot ring — an exact
+    copy of what the single-device ``ring_read`` would have produced),
+    one gather over the shards stacks the published blocks into a
+    hop-ordered (NS, B, nb, D) pool (``flatbuf.ring_pool_exchange``), and
+    readers index the pool by ``(hop, pool_pos)``.
+
+    Shapes (S = steps, B = worlds, n = workers, NS = shards,
+    Ws = n // NS, nb = max boundary rows one shard serves in one step):
+      local_partner (S, B, n) int32 — partner % Ws for intra reads; the
+                    reader's own local row for cross/idle reads (a valid
+                    self-gather whose value the cross select discards)
+      is_cross      (S, B, n) bool
+      hop           (S, B, n) int32 — (reader_shard - source_shard) % NS,
+                    the pool index the read is served from (0 if intra)
+      pool_pos      (S, B, n) int32 — position inside the source shard's
+                    published block (0 if intra)
+      pub_row       (S, NS, B, nb) int32 — for each DESTINATION-facing
+                    source shard u: the local rows u publishes at this
+                    step, ordered by reader index (padding = row 0)
+      pub_slot      (S, NS, B, nb) int32 — ring slot each published row is
+                    resolved at (the sentinel ``horizon`` = fresh)
+      cross_reads   (S, B) int64 — boundary-read counts (telemetry)
+    """
+
+    n_shards: int
+    shard_size: int
+    pool_width: int
+    local_partner: np.ndarray
+    is_cross: np.ndarray
+    hop: np.ndarray
+    pool_pos: np.ndarray
+    pub_row: np.ndarray
+    pub_slot: np.ndarray
+    cross_reads: np.ndarray
+
+
+def shard_partition(partners: np.ndarray, src_slot: np.ndarray,
+                    n_shards: int, horizon: int) -> ShardPlan:
+    """Partition batched-stream matchings into intra-shard groups and
+    cross-shard boundary exchanges.
+
+    ``partners`` is the stream's (S, B, n) global partner involution,
+    ``src_slot`` the host-resolved (S, B, n) ring slots (sentinel =
+    ``horizon`` = fresh) the reads are served at — the SAME array the
+    single-device channel scan consumes, so the publisher-side resolution
+    is bitwise the single-device ``ring_read``.
+    """
+    partners = np.asarray(partners)
+    S, B, n = partners.shape
+    if n % n_shards != 0:
+        raise ValueError(f"worker axis {n} is not divisible by "
+                         f"{n_shards} shards")
+    ws = n // n_shards
+    rdr = np.arange(n, dtype=np.int64)
+    rdr_shard = rdr // ws                       # (n,)
+    p_shard = partners.astype(np.int64) // ws   # (S, B, n)
+    involved = partners != rdr
+    is_cross = involved & (p_shard != rdr_shard)
+    hop = np.where(is_cross, (rdr_shard - p_shard) % n_shards, 0
+                   ).astype(np.int32)
+    local_partner = np.where(is_cross | ~involved, rdr % ws,
+                             partners.astype(np.int64) % ws
+                             ).astype(np.int32)
+    # rank each cross read among same-(step, world, source-shard) reads,
+    # reader-index ascending — the order the source shard publishes in
+    pool_pos = np.zeros((S, B, n), np.int32)
+    counts = np.zeros((S, B, n_shards), np.int64)
+    for u in range(n_shards):
+        m = is_cross & (p_shard == u)
+        pool_pos = np.where(m, np.cumsum(m, axis=-1) - 1, pool_pos
+                            ).astype(np.int32)
+        counts[:, :, u] = m.sum(axis=-1)
+    nb = max(int(counts.max()), 1)
+    pub_row = np.zeros((S, n_shards, B, nb), np.int32)
+    pub_slot = np.full((S, n_shards, B, nb), horizon, np.int32)
+    s_i, b_i, r_i = np.nonzero(is_cross)
+    u_i = p_shard[s_i, b_i, r_i]
+    k_i = pool_pos[s_i, b_i, r_i]
+    pub_row[s_i, u_i, b_i, k_i] = (partners[s_i, b_i, r_i] % ws)
+    pub_slot[s_i, u_i, b_i, k_i] = np.asarray(src_slot)[s_i, b_i, r_i]
+    return ShardPlan(n_shards=n_shards, shard_size=ws, pool_width=nb,
+                     local_partner=local_partner, is_cross=is_cross,
+                     hop=hop, pool_pos=pool_pos,
+                     pub_row=pub_row, pub_slot=pub_slot,
+                     cross_reads=is_cross.sum(axis=-1).astype(np.int64))
+
+
+def shard_lag_stale(partners: np.ndarray, stale: np.ndarray,
+                    step_round: np.ndarray, n_shards: int, lag: int
+                    ) -> np.ndarray:
+    """Impose the permute ring's staleness floor ``lag`` on cross-shard
+    reads of a batched stream.
+
+    A lag-L ring serves boundary reads from snapshots at least L rounds
+    old: ``stale' = min(max(stale, L), rounds_elapsed)`` on cross reads
+    (the clamp to elapsed rounds is the same guarantee ``ChannelModel``
+    compiles — no slot is read before it was written).  Intra-shard reads
+    keep their scheduled staleness untouched, so lag > 0 is EXACTLY a
+    single-device replay of the same schedule with rewritten ``stale``
+    extras — the per-event ``DelayProcess`` reference the tests pin
+    against.
+    """
+    partners = np.asarray(partners)
+    S, B, n = partners.shape
+    ws = n // n_shards
+    rdr = np.arange(n, dtype=np.int64)
+    is_cross = (partners != rdr) & \
+        (partners.astype(np.int64) // ws != rdr // ws)
+    eff = np.minimum(np.maximum(np.asarray(stale, np.int64), int(lag)),
+                     step_round[:, None, None])
+    return np.where(is_cross, eff, stale).astype(np.int32)

@@ -246,3 +246,41 @@ def ring_read_worlds(ring: torch.Tensor, buf: torch.Tensor,
     fresh = buf[b_idx, partner]
     stale = ring[b_idx, src_slot.clamp(max=h - 1), partner]
     return torch.where((src_slot < h)[:, :, None], stale, fresh)
+
+
+# -- bounded-staleness permute ring: the cross-shard half of the sharded
+# worlds replay (``launch/mesh_replay.py``).  Each shard publishes the
+# (B, nb, D) block of boundary rows its peers read this step; one gather
+# over the shards stacks every shard's block into an (NS, B, nb, D) pool,
+# which readers index by (hop, pool_pos): hop h holds the block published
+# by shard (self - h) mod NS, matching ``events.ShardPlan.hop``.
+
+def ring_pool_exchange(vals, mesh) -> list[torch.Tensor]:
+    """All-to-all the published boundary blocks over ``mesh``'s shards.
+
+    ``vals`` holds one (B, nb, D) block per shard of this process (in
+    ``mesh.shards`` order, each on its shard's device); returns each of
+    those shards' HOP-ordered pool: ``pool[h]`` is the block published by
+    shard ``(self - h) mod NS``, the block an ``h``-step ring walk (shard
+    i -> i + 1 mod NS) would deliver, because the host shard plan
+    (``events.shard_partition``) addresses cross reads by hop count.  The
+    exchange is ONE ``mesh.all_gather``; the hop order is then a window of
+    the gathered blocks reversed and laid out twice, so shards that share
+    a gather (local shards on one device) share that copy and take views
+    of it.  With one shard there is no collective and the pool is the
+    local block alone.
+    """
+    ns = mesh.n_shards
+    if ns == 1:
+        return [v[None] for v in vals]
+    twice: dict = {}
+    pools = []
+    for u, g in zip(mesh.shards, mesh.all_gather(vals)):
+        if id(g) not in twice:
+            # twice[k] = g[(ns - 1 - k) mod ns], for k < 2 ns
+            twice[id(g)] = torch.stack([g[(-1 - k) % ns]
+                                        for k in range(2 * ns)])
+        # pool[h] = twice[ns - 1 - u + h] = g[(u - h) mod ns]
+        start = ns - 1 - u
+        pools.append(twice[id(g)][start:start + ns])
+    return pools

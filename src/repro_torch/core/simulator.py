@@ -43,8 +43,9 @@ threads a small f32 accumulator of applied and rejected reads and delta-norm
 moments through the channel flavours' comm steps, emitted and reset at each
 gradient tick; it forces the channel flavour even for a clean schedule (at
 horizon 0, corrupt 0 and mscale 1 the channel kernel is the clean one), and
-with ``telemetry=None`` nothing of it runs.  The sharded flavour is not
-ported yet; ``mesh=`` is refused instead of taking another path.
+with ``telemetry=None`` nothing of it runs.  ``mesh=`` runs the sharded
+replay (``launch/mesh_replay.py``): the worlds' worker axis split over the
+shards of a replay mesh, bit for bit the single-device replay at lag 0.
 
 ``run_worlds`` replays B independent worlds at once, in the engine's three
 flavors (plain, channel, defense) on (B, W, D) buffers and (B, H, W, D)
@@ -59,6 +60,7 @@ padded batched schedule arrays (the oracle).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -73,7 +75,8 @@ from .defense import (DefenseTrace, defense_absorb, defense_comm,
                       defense_grad, defense_init, knobs_single, knobs_worlds)
 from .engine import FlatGossipEngine, _delta_f32, norm_scale
 from .events import (Schedule, coalesce_schedule, coalesced_stream,
-                     stack_schedules, stack_streams)
+                     shard_lag_stale, shard_partition, stack_schedules,
+                     stack_streams)
 from .flatbuf import (FlatLayout, ring_init, ring_init_worlds, ring_push,
                       ring_push_worlds, ring_read)
 from .telemetry import (Telemetry, batch_schedule_columns, finalize_trace,
@@ -88,6 +91,33 @@ from .tree import PyTree, tree_flatten, tree_leaves, tree_map
 # keys instead; torch generators do not split, so the port batches here.
 GradFn = Callable[[PyTree, torch.Generator, torch.Tensor],
                   tuple[torch.Tensor, PyTree]]
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitGradFn:
+    """A ``GradFn`` in two halves, the draw and its use.
+
+    ``draw(generator, n)`` draws the batch of all n workers of a world: a
+    pytree of tensors with a leading worker axis.  ``apply(x_rows,
+    batch_rows, worker_ids)`` returns the losses and gradients of the
+    given rows (``worker_ids`` names them).  Called as a ``GradFn`` it is
+    ``apply(x, draw(generator, n), ids)``, so a replay on one device sees
+    no difference.  The sharded replay (``mesh=``) draws the whole world's
+    batch and applies only a shard's rows: a shard's draws are then the
+    single-device stream's, and the generator ends where the single-device
+    replay leaves it.  A plain callable cannot be split, and the sharded
+    replay refuses it on more than one shard.
+    """
+
+    draw: Callable[[torch.Generator, int], PyTree]
+    apply: Callable[[PyTree, PyTree, torch.Tensor],
+                    tuple[torch.Tensor, PyTree]]
+
+    def __call__(self, x_stacked: PyTree, generator: torch.Generator,
+                 worker_ids: torch.Tensor) -> tuple[torch.Tensor, PyTree]:
+        return self.apply(x_stacked,
+                          self.draw(generator, worker_ids.shape[0]),
+                          worker_ids)
 
 
 class SimState(NamedTuple):
@@ -494,18 +524,24 @@ class Simulator:
         caller's)."""
         n = ids.shape[0]
         losses, grads = self.grad_fn(engine.unpack(bx), generator, ids)
-        g = engine.pack(grads)
-        # grad_scale masks straggler/churned ticks (1.0 elsewhere)
-        g = gscale[:, None].to(g.dtype) * g
-        gamma = dtype_scalar(self.gamma if gamma is None else gamma,
-                             g.dtype)
-        bx = bx - gamma * g
-        bxt = bxt - gamma * g
+        bx, bxt = self._descend(engine, bx, bxt, grads, gscale,
+                                self.gamma if gamma is None else gamma)
         mean = bx.mean(dim=0, keepdim=True)
         # padding columns are zero across workers: they add 0 to both
         return bx, bxt, (losses.mean().float(),
                          (((bx - mean) ** 2).sum() / n).float(),
                          (mean ** 2).sum().float())
+
+    @staticmethod
+    def _descend(engine: FlatGossipEngine, bx, bxt, grads, gscale,
+                 gamma: float):
+        """The gradient step on both (W, D) buffers: ``grads`` packed, each
+        row scaled by its ``gscale`` (grad_scale masks straggler and
+        churned ticks, 1.0 elsewhere), times ``gamma``."""
+        g = engine.pack(grads)
+        g = gscale[:, None].to(g.dtype) * g
+        gamma = dtype_scalar(gamma, g.dtype)
+        return bx - gamma * g, bxt - gamma * g
 
     def run_coalesced(self, state: SimState, stream_arrays
                       ) -> tuple[SimState, SimTrace]:
@@ -654,8 +690,8 @@ class Simulator:
         the card it is refused, so the kernels are never skipped
         quietly."""
         if mesh is not None:
-            raise NotImplementedError("mesh=... (the sharded replay) is not "
-                                      "ported to PyTorch yet")
+            return self._run_schedule_sharded(state, sched, engine, defense,
+                                              telemetry, mesh)
         _check_telemetry(telemetry)
         tel = telemetry
         active = defense is not None and defense.is_active
@@ -704,6 +740,29 @@ class Simulator:
         final, tr = out
         return final, tr._replace(
             telemetry=finalize_trace(tel, tr.telemetry, cols, rb))
+
+    def _run_schedule_sharded(self, state: SimState, sched: Schedule,
+                              engine: bool, defense, telemetry, mesh
+                              ) -> tuple[SimState, SimTrace]:
+        """``run_schedule(mesh=)``: lifted to a B = 1 worlds replay (the
+        sharded flavors are world-batched only) with the world axis
+        squeezed back off."""
+        finalw, trw = self.run_worlds(
+            [state], [sched], defenses=None if defense is None else [defense],
+            engine=engine, telemetry=telemetry, mesh=mesh)
+
+        def first(v):
+            return v[0] if getattr(v, "ndim", 0) >= 1 else v
+
+        def squeeze(t):
+            return None if t is None else type(t)(*(first(v) for v in t))
+
+        final = SimState(tree_map(first, finalw.x),
+                         tree_map(first, finalw.x_tilde), finalw.t_last[0],
+                         finalw.generator[0])
+        return final, SimTrace(trw.loss[0], trw.consensus[0],
+                               trw.mean_param_norm[0], squeeze(trw.defense),
+                               squeeze(trw.telemetry))
 
     # --------------------------------------------- world-batched replay
     @staticmethod
@@ -776,13 +835,26 @@ class Simulator:
         depth H, the largest staleness any world demands (a shallower
         world reads the same snapshots from a deeper ring; fresh reads use
         the sentinel H).  Adds ``(corrupt, src_slot, ring_pos)``."""
+        arrays, _, _, horizon = self._worlds_channel_stream(states, scheds)
+        return arrays, horizon
+
+    def _worlds_channel_stream(self, states: SimState, scheds, mr=None):
+        """``worlds_channel_arrays``'s tuple and ring depth, with the
+        batched stream and the host (S, B, n) slots.  A sharded replay
+        ``mr`` with a positive lag first floors the staleness of every
+        cross-shard read (``events.shard_lag_stale``) and deepens the ring
+        to hold the lagged window."""
         arrays, bs = self._batched_stream(states, scheds)
         S, B, n = bs.partners.shape
         stale, corrupt, horizon = self._channel_extras(bs.extras_dict(),
                                                        (S, B, n))
-        h = max(horizon, 1)
         step_round = np.searchsorted(np.asarray(bs.grad_pos), np.arange(S),
                                      side="left")
+        if mr is not None and mr.lag > 0 and mr.n_shards > 1:
+            stale = shard_lag_stale(bs.partners, stale, step_round,
+                                    mr.n_shards, mr.lag)
+            horizon = max(horizon, int(stale.max()))
+        h = max(horizon, 1)
         src_slot = np.where(stale > 0,
                             (step_round[:, None, None] - stale) % h,
                             horizon).astype(np.int32)
@@ -790,7 +862,23 @@ class Simulator:
         dev = self.device
         return arrays + (torch.as_tensor(corrupt, device=dev),
                          torch.as_tensor(src_slot, device=dev).long(),
-                         ring_pos), horizon
+                         ring_pos), bs, src_slot, horizon
+
+    def worlds_sharded_arrays(self, states: SimState, scheds, mr):
+        """Sharded twin of ``worlds_channel_arrays``: the channel stream
+        arrays (cross reads lagged by ``mr.lag``) plus the host-compiled
+        shard plan (``events.shard_partition``) for ``mr``'s mesh:
+        ``(local_partner, is_cross, hop, pool_pos, pub_row, pub_slot)`` on
+        the simulator's device.  Returns ``(arrays, horizon)``."""
+        arrays, bs, src_slot, horizon = self._worlds_channel_stream(
+            states, scheds, mr)
+        plan = shard_partition(bs.partners, src_slot, mr.n_shards, horizon)
+        dev = self.device
+        return arrays + tuple(torch.as_tensor(a, device=dev) for a in (
+            plan.local_partner.astype(np.int64), plan.is_cross,
+            plan.hop.astype(np.int64), plan.pool_pos.astype(np.int64),
+            plan.pub_row.astype(np.int64),
+            plan.pub_slot.astype(np.int64))), horizon
 
     def worlds_reference_arrays(self, scheds):
         """Batched per-event inputs (``events.stack_schedules``): the
@@ -879,27 +967,11 @@ class Simulator:
         rows, drows, trows = [], [], []
         for s in range(len(is_grad)):
             if not is_grad[s]:
-                partner = partners[s]
-                xp = engine.partner_values_worlds(ring, bx, partner,
+                xp = engine.partner_values_worlds(ring, bx, partners[s],
                                                   src_slot[s])
-                if ds is None:
-                    if acc is not None:
-                        nrm = engine.delta_norms(bx, xp, corrupt[s], axes=2)
-                        acc = _tel_step(acc, partner != ids,
-                                        self._tel_rej(nrm, taus), nrm,
-                                        batched=True)
-                    bx, bxt = engine.channel_batch_worlds(
-                        bx, bxt, xp, corrupt[s], dt_next[s], pw, taus)
-                    continue
-                nrm = engine.delta_norms(bx, xp, corrupt[s], axes=2)
-                involved = partner != ids
-                mscale, quar, ds = defense_comm(knobs, ds, partner,
-                                                involved, nrm)
-                bx, bxt, rej = engine.channel_batch_worlds_scaled(
-                    bx, bxt, xp, corrupt[s], mscale, dt_next[s], pw)
-                ds = defense_absorb(ds, rej, quar, involved)
-                if acc is not None:
-                    acc = _tel_step(acc, involved, rej, nrm, batched=True)
+                bx, bxt, ds, acc = self._channel_step(
+                    engine, bx, bxt, xp, partners[s], ids, corrupt[s],
+                    dt_next[s], pw, taus, knobs, ds, acc)
                 continue
             bx, bxt, row = self._grad_worlds(engine, bx, bxt,
                                              state.generator, grad_scale[s],
@@ -922,6 +994,31 @@ class Simulator:
             trace = trace._replace(
                 defense=_stack_rows(drows, DefenseTrace, dim=1))
         return final, trace
+
+    def _channel_step(self, engine: FlatGossipEngine, bx, bxt, xp, partner,
+                      ids, corrupt, dt_next, pw, taus, knobs, ds, acc):
+        """One world-batched channel comm step on pre-gathered partner
+        values ``xp`` of the (B, W) rows ``ids``: ONE channel-kernel
+        launch, with the defense's decision (``knobs``, state ``ds``) or
+        the robust thresholds ``taus``, and the telemetry accumulator
+        ``acc`` folded in.  Returns (bx, bxt, ds, acc)."""
+        involved = partner != ids
+        if ds is not None:
+            nrm = engine.delta_norms(bx, xp, corrupt, axes=2)
+            mscale, quar, ds = defense_comm(knobs, ds, partner, involved,
+                                            nrm)
+            bx, bxt, rej = engine.channel_batch_worlds_scaled(
+                bx, bxt, xp, corrupt, mscale, dt_next, pw)
+            ds = defense_absorb(ds, rej, quar, involved)
+        else:
+            if acc is not None:
+                nrm = engine.delta_norms(bx, xp, corrupt, axes=2)
+                rej = self._tel_rej(nrm, taus)
+            bx, bxt = engine.channel_batch_worlds(bx, bxt, xp, corrupt,
+                                                  dt_next, pw, taus)
+        if acc is not None:
+            acc = _tel_step(acc, involved, rej, nrm, batched=True)
+        return bx, bxt, ds, acc
 
     def _run_worlds_per_event(self, state: SimState, scheds, plan
                               ) -> tuple[SimState, SimTrace]:
@@ -1054,11 +1151,16 @@ class Simulator:
         defense select the channel flavor, an active defense its
         self-healing form; ``engine=False`` the per-event oracle.  On the
         CPU a state no flat buffer can hold takes the per-event path; on
-        the card it is refused.  ``mesh=`` is not ported yet.
+        the card it is refused.
+
+        mesh — a ``launch.mesh_replay.MeshReplay`` (or a bare replay mesh,
+          at lag 0): the sharded replay, the worker axis split over the
+          mesh's shards (``launch/mesh_replay.py``).  Every flavor runs as
+          the channel flavor there (bit for bit the plain one on a clean
+          schedule).  A worker axis the mesh cannot split evenly warns and
+          replays on one device; ``engine=False`` is refused; a telemetry
+          spec with ``shards`` 0 takes the mesh's shard count.
         """
-        if mesh is not None:
-            raise NotImplementedError("mesh=... (the sharded replay) is not "
-                                      "ported to PyTorch yet")
         scheds = list(scheds)
         if not isinstance(states, SimState):
             states = self.batch_states(states)
@@ -1066,6 +1168,8 @@ class Simulator:
                                  gammas=gammas, robust_clips=robust_clips,
                                  defenses=defenses, worlds=worlds,
                                  telemetry=telemetry)
+        mr = None if mesh is None else self._replay_mesh(mesh, states, plan,
+                                                         engine)
         tel = plan["tel"]
         # schedule columns and row bytes before dispatch (the kernels write
         # x~ in place)
@@ -1073,7 +1177,11 @@ class Simulator:
             if tel is not None and tel.bytes_moved else 0
         cols = batch_schedule_columns(tel, scheds) if tel is not None \
             else None
-        final, trace = self._dispatch_worlds(states, scheds, plan, engine)
+        if mr is not None:
+            final, trace = self._run_worlds_sharded(states, scheds, plan, mr)
+        else:
+            final, trace = self._dispatch_worlds(states, scheds, plan,
+                                                 engine)
         if tel is None:
             return final, trace
         return final, trace._replace(
@@ -1097,20 +1205,79 @@ class Simulator:
         gammas, tel = plan["gammas"], plan["tel"]
         if plan["active"]:
             arrays, horizon = self.worlds_channel_arrays(states, scheds)
-            knobs = knobs_worlds(plan["defenses"], plan["taus"], self.device)
             return self.run_worlds_channel(states, pw, gammas, None, arrays,
-                                           horizon, knobs, tel)
+                                           horizon, self._knobs(plan), tel)
         if plan["channel"]:
             arrays, horizon = self.worlds_channel_arrays(states, scheds)
-            taus = None
-            if plan["any_clip"]:
-                taus = torch.tensor([float("inf") if t is None else t
-                                     for t in plan["taus"]],
-                                    dtype=torch.float32, device=self.device)
-            return self.run_worlds_channel(states, pw, gammas, taus, arrays,
+            return self.run_worlds_channel(states, pw, gammas,
+                                           self._taus(plan), arrays,
                                            horizon, tel=tel)
         return self.run_worlds_coalesced(
             states, pw, gammas, self.worlds_coalesced_arrays(states, scheds))
+
+    def _knobs(self, plan: dict):
+        """The defense flavor's (B,) knobs, None off it."""
+        if not plan["active"]:
+            return None
+        return knobs_worlds(plan["defenses"], plan["taus"], self.device)
+
+    def _taus(self, plan: dict) -> torch.Tensor | None:
+        """Per-world (B,) thresholds for the channel flavor when the call
+        gave any (None entries accept every finite delta); None otherwise
+        and on the defense flavor, whose knobs carry them."""
+        if plan["active"] or not plan["any_clip"]:
+            return None
+        return torch.tensor([float("inf") if t is None else t
+                             for t in plan["taus"]],
+                            dtype=torch.float32, device=self.device)
+
+    def _replay_mesh(self, mesh, states: SimState, plan: dict,
+                     engine: bool):
+        """Validate ``run_worlds(mesh=)``: the ``MeshReplay``, or None when
+        the worker axis cannot be split evenly (after a warning: the
+        replay then runs on one device).  A telemetry spec with ``shards``
+        0 takes the mesh's shard count in ``plan``."""
+        from ..launch.mesh_replay import MeshReplay
+        mr = mesh if isinstance(mesh, MeshReplay) else MeshReplay(mesh)
+        if engine:
+            try:
+                FlatLayout.from_pytree(states.x, worlds=True)
+            except TypeError:
+                engine = False
+        if not engine:
+            raise ValueError(
+                "the sharded replay (mesh=) runs on the flat-buffer engine; "
+                "engine=False (or a layout-rejected pytree) has no worker "
+                "banks to shard")
+        n = states.t_last.shape[1]
+        if n % mr.n_shards != 0:
+            warnings.warn(f"worker axis {n} is not divisible by "
+                          f"{mr.n_shards} shards; falling back to the "
+                          f"single-device replay", RuntimeWarning,
+                          stacklevel=3)
+            return None
+        if mr.n_shards > 1 and not isinstance(self.grad_fn, SplitGradFn):
+            raise ValueError(
+                "the sharded replay needs a grad_fn with a draw / apply "
+                "split (simulator.SplitGradFn): each shard draws the whole "
+                "world's batch and applies its own rows, and a plain "
+                "callable would draw a different batch on every shard")
+        tel = plan["tel"]
+        if tel is not None and tel.shards == 0:
+            plan["tel"] = dataclasses.replace(tel, shards=mr.n_shards)
+        return mr
+
+    def _run_worlds_sharded(self, states: SimState, scheds, plan: dict, mr
+                            ) -> tuple[SimState, SimTrace]:
+        """The sharded replay: the channel flavor (its defense form on an
+        active defense) on the mesh's shards, ``launch.mesh_replay``."""
+        from ..launch.mesh_replay import sharded_replay
+        arrays, horizon = self.worlds_sharded_arrays(states, scheds, mr)
+        return sharded_replay(self, states,
+                              self.world_params(plan["params"], self.device),
+                              plan["gammas"], self._taus(plan),
+                              self._knobs(plan), arrays, horizon,
+                              plan["tel"], mr)
 
 
 # --------------------------------------------------------------- AR-SGD ref

@@ -1009,3 +1009,54 @@ class WorldSweep:
     @staticmethod
     def from_json(s: str) -> "WorldSweep":
         return WorldSweep.from_dict(json.loads(s))
+
+
+# --------------------------------------------------------------------------
+# Shard-aware schedule compilation, schedule-level half.  The stream-level
+# partition lives in events.shard_partition; these two operate on compiled
+# Schedules, the form tests and telemetry consume.
+# --------------------------------------------------------------------------
+
+def shard_cross_reads(sched, n_shards: int) -> np.ndarray:
+    """(R,) per-round cross-shard boundary-read counts of a compiled
+    schedule under an ``n_shards``-way equal split of the worker axis: the
+    host-side exact column behind the telemetry ``bytes_cross`` split
+    (boundary rows x flat-row width).  Zeros when the worker axis does not
+    divide evenly (the replay falls back to one device, so nothing crosses
+    a boundary)."""
+    from .telemetry import cross_shard_reads
+
+    return cross_shard_reads(sched.partners, sched.event_mask, n_shards)
+
+
+def shard_lag_schedule(sched, n_shards: int, lag: int):
+    """The per-event delay reference of a lag-``lag`` sharded replay: the
+    same schedule with every cross-shard read's staleness floored at
+    ``lag`` (clamped to rounds elapsed, the ``ChannelModel`` guarantee).
+
+    ``Simulator.run_worlds(mesh=MeshReplay(mesh, lag=L))`` on ``sched`` is
+    bit for bit the single-device replay of ``shard_lag_schedule(sched,
+    NS, L)``: the permute ring is exactly a ``DelayProcess`` whose floor is
+    the ring lag on boundary edges.
+    """
+    from .channel import STALE_KEY
+
+    partners = np.asarray(sched.partners)
+    R, K, n = partners.shape
+    if lag <= 0 or n_shards <= 1:
+        return sched
+    if n % n_shards != 0:
+        raise ValueError(f"worker axis {n} is not divisible by "
+                         f"{n_shards} shards")
+    ws = n // n_shards
+    rdr = np.arange(n, dtype=np.int64)
+    cross = ((partners != rdr)
+             & (partners.astype(np.int64) // ws != rdr // ws)
+             & np.asarray(sched.event_mask)[..., None])
+    extras = sched.extras_dict()
+    stale = np.asarray(extras.get(STALE_KEY,
+                                  np.zeros((R, K, n), np.int32)), np.int64)
+    rounds_elapsed = np.arange(R, dtype=np.int64)[:, None, None]
+    eff = np.minimum(np.maximum(stale, int(lag)), rounds_elapsed)
+    extras[STALE_KEY] = np.where(cross, eff, stale).astype(np.int32)
+    return dataclasses.replace(sched, extras=extras)

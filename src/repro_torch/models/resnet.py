@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import grad_and_value, vmap
 
+from ..core.simulator import SplitGradFn
 from ..core.tree import PyTree, tree_flatten
 
 
@@ -132,26 +133,27 @@ def resnet_loss(p: dict, cfg: ResNetConfig, batch: dict
     return ce, {"acc": acc}
 
 
-def resnet_grad_fn(cfg: ResNetConfig, stream):
-    """Batched ``grad_fn`` for ``Simulator`` (see ``simulator.GradFn``).
+def resnet_grad_fn(cfg: ResNetConfig, stream) -> SplitGradFn:
+    """Batched ``grad_fn`` for ``Simulator`` (see ``simulator.GradFn``),
+    split into its draw and its use (``simulator.SplitGradFn``) so that the
+    sharded replay draws the single-device batches.
 
     ``stream.sample_workers(generator, n)`` draws one batch per worker,
     ``{"images": (n, B, 32, 32, 3), "labels": (n, B)}``, outside the vmap;
     the per-worker loss and gradient are then one ``torch.func.vmap`` of
-    ``grad_and_value`` over the stacked parameters.
+    ``grad_and_value`` over the stacked parameters of the given rows.
     """
     def loss_one(p, images, labels):
         return resnet_loss(p, cfg, {"images": images, "labels": labels})[0]
 
     per_worker = vmap(grad_and_value(loss_one))
 
-    def grad_fn(x_stacked, generator, worker_ids):
-        batch = stream.sample_workers(generator, worker_ids.shape[0])
+    def apply(x_stacked, batch, worker_ids):
         grads, losses = per_worker(x_stacked, batch["images"],
                                    batch["labels"])
         return losses, grads
 
-    return grad_fn
+    return SplitGradFn(stream.sample_workers, apply)
 
 
 class ResNet(nn.Module):

@@ -6,9 +6,9 @@ runs its forward on both attention paths, a telemetry replay runs through
 ``run_world``, and a ``make_train_step`` step and a checkpoint round trip
 run there, and the serving path runs there: ``generate`` on a reduced
 Qwen3, a ``ContinuousBatcher`` drained, a 3-replica ``train_bench`` fleet
-for 4 rounds), the entry points refuse to run on a machine without a card
-unless the caller names the CPU, and the part not ported yet (the sharded
-replay) raises instead of taking another path.  The rest of the model zoo
+for 4 rounds, and a 2-shard sharded replay on CPU shards, bit for bit the
+single-device one), and the entry points refuse to run on a machine
+without a card unless the caller names the CPU.  The rest of the model zoo
 runs there too: reduced DeepSeek-V3 (MLA, MoE, MTP), Arctic, Mamba-2 and
 RecurrentGemma each build and take a forward and a decode step, and
 ``lm_grad_fn`` takes one vmapped call on reduced DeepSeek-V3."""
@@ -83,6 +83,20 @@ PROBE = textwrap.dedent("""
     print("TELEMETRY", tuple(tel.applied.shape), tel.row_bytes,
           bool(((tel.applied + tel.rejected).numpy() + tel.dropped
                 == tel.scheduled).all()))
+    from repro_torch.core import SplitGradFn
+    from repro_torch.launch import MeshReplay, make_replay_mesh
+    ssim = Simulator(SplitGradFn(lambda g, n: torch.randn(n, 6, generator=g),
+                                 lambda x, noise, ids: ((x ** 2).sum(1),
+                                                        x + 0.1 * noise)),
+                     pfg(ring), 0.1, device="cpu")
+    sharded = []
+    for mesh in (None, MeshReplay(make_replay_mesh(2, devices=["cpu"] * 2))):
+        sharded.append(ssim.run_worlds(
+            [ssim.init(torch.ones(6), 8, torch.Generator().manual_seed(0))],
+            [World(ring).compile(3)], mesh=mesh)[0])
+    print("SHARDED", torch.equal(sharded[0].x, sharded[1].x),
+          torch.equal(sharded[0].generator[0].get_state(),
+                      sharded[1].generator[0].get_state()))
     from repro_torch.launch.steps import TrainState, make_train_step
     lm = Model(cfg)
     step, opt = make_train_step(lm, lr=0.05, remat=True)
@@ -104,7 +118,8 @@ PROBE = textwrap.dedent("""
     refused = 0
     for make in (lambda: Simulator(None, baseline_params(1.0), 0.1),
                  lambda: SyntheticCIFAR(),
-                 lambda: params_from_jax({})):
+                 lambda: params_from_jax({}),
+                 lambda: make_replay_mesh()):
         try:
             make()
         except RuntimeError:
@@ -173,7 +188,8 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
                  if line.startswith(("LEAKED", "WORLDS", "CUDA", "BANK",
                                      "STEP", "TELEMETRY", "TRAIN", "SERVE",
-                                     "BATCH", "FLEET", "ZOO_GRAD")))
+                                     "BATCH", "FLEET", "ZOO_GRAD",
+                                     "SHARDED")))
     models = [line for line in out.stdout.splitlines()
               if line.startswith("MODEL")]
     assert models == ["MODEL xla (1, 8, 512)", "MODEL pallas (1, 8, 512)"]
@@ -182,6 +198,7 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     assert lines["STEP"] == "8 (5,) True"
     assert lines["WORLDS"] == "4 True"
     assert lines["TELEMETRY"] == "(3,) 24 True"
+    assert lines["SHARDED"] == "True True"
     assert lines["TRAIN"] == "True 1 TrainState True"
     assert lines["SERVE"] == "(1, 7)"
     assert lines["BATCH"] == "[3, 3, 3]"
@@ -194,7 +211,7 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
     assert lines["ZOO_GRAD"] == "(2,) (2, 512, 256) True"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CPU-refusal half does not apply")
-    assert lines["CUDA"] == "False REFUSED 3"
+    assert lines["CUDA"] == "False REFUSED 4"
     assert lines["SERVE_REFUSED"] == "2"
 
 
@@ -209,7 +226,8 @@ def test_explicit_cpu_is_accepted():
 def test_unported_world_parts_raise():
     """A telemetry spec that is not a ``Telemetry`` raises JAX's
     ``ValueError``, a JSON spec loads as one; ``mesh=`` (the sharded
-    replay, not ported) still raises ``NotImplementedError``."""
+    replay, ported) runs on CPU shards and pins the single-device
+    replay, and refuses something that is not a replay mesh."""
     from repro.core import World as JWorld
     from repro.core import ring_graph as j_ring
     from repro_torch.core import (Simulator, Telemetry, World,
@@ -225,8 +243,15 @@ def test_unported_world_parts_raise():
     sim = Simulator(None, baseline_params(1.0), 0.1, device="cpu")
     state = sim.init(torch.zeros(4), 4, torch.Generator())
     sched = World(ring_graph(4)).compile(2)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    from repro_torch.launch import MeshReplay, make_replay_mesh
+    with pytest.raises(TypeError, match="replay mesh"):
         sim.run_worlds([state], [sched], mesh=object())
+    quad = Simulator(lambda x, g, ids: ((x ** 2).sum(1), x),
+                     baseline_params(1.0), 0.1, device="cpu")
+    f0, _ = quad.run_worlds([state], [sched])
+    f1, _ = quad.run_worlds([state], [sched], mesh=MeshReplay(
+        make_replay_mesh(1, devices=["cpu"])))
+    assert torch.equal(f0.x, f1.x) and torch.equal(f0.x_tilde, f1.x_tilde)
     with pytest.raises(ValueError, match="telemetry"):
         sim.run_worlds([state], [sched], telemetry=object())
 

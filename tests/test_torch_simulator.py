@@ -100,30 +100,55 @@ def test_acid_consensus_below_baseline():
     assert acid.consensus[-20:].mean() < base.consensus[-20:].mean()
 
 
+def _two_shards():
+    from repro_torch.launch import MeshReplay, make_replay_mesh
+    return MeshReplay(make_replay_mesh(2, devices=["cpu", "cpu"]))
+
+
+def _pins_sharded(sim, state, sched, **kw):
+    """``run_schedule(mesh=)`` on 2 CPU shards: |x| and x~ bit for bit the
+    single-device replay (a signed zero may differ), the defense and
+    telemetry counts equal.  Returns the sharded trace."""
+    f0, t0 = sim.run_schedule(state, sched, **kw)
+    f1, t1 = sim.run_schedule(state, sched, mesh=_two_shards(), **kw)
+    assert torch.equal(f0.x.abs(), f1.x.abs())
+    assert torch.equal(f0.x_tilde.abs(), f1.x_tilde.abs())
+    torch.testing.assert_close(t1.loss, t0.loss, rtol=1e-6, atol=0)
+    if t0.defense is not None:
+        assert all(torch.equal(a, b) for a, b in zip(t0.defense, t1.defense))
+    if t0.telemetry is not None:
+        assert torch.equal(t0.telemetry.applied, t1.telemetry.applied)
+    return t1
+
+
 def test_unported_flavors_raise():
+    from repro_torch.core import SplitGradFn
     sim = Simulator(t_grad_fn, params_from_graph(ring_graph(N)), GAMMA,
                     device="cpu")
     state = sim.init(torch.zeros(DIM), N, torch.Generator())
     sched = make_schedule(ring_graph(N), 2, seed=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sim.run_schedule(state, sched, mesh=object())
-    # the channel and defense flavors and their telemetry are ported, but
-    # not their sharded forms: those are refused before any replay starts;
+    # the sharded replay is ported: a plain grad_fn cannot be split over
+    # shards (it is refused there), its draw / apply split runs and pins
+    with pytest.raises(ValueError, match="draw / apply"):
+        sim.run_schedule(state, sched, mesh=_two_shards())
+    split = SplitGradFn(lambda generator, n: (),
+                        lambda x, batch, ids: t_grad_fn(x, None, ids))
+    sim = dataclasses.replace(sim, grad_fn=split)
+    _pins_sharded(sim, state, sched)
+    # the channel and defense flavors and their telemetry run sharded too;
     # a telemetry spec that is not a Telemetry is refused as JAX's World
     # refuses one
     stale = dataclasses.replace(
         sched, extras={"stale": np.zeros_like(sched.partners)})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sim.run_schedule(state, stale, telemetry=Telemetry(), mesh=object())
+    trace = _pins_sharded(sim, state, stale, telemetry=Telemetry())
+    assert trace.telemetry.cross_reads.shape == (2,)
     with pytest.raises(ValueError, match="telemetry"):
         sim.run_schedule(state, stale, telemetry=object())
     _, trace = sim.run_schedule(state, stale, telemetry=Telemetry())
     assert trace.telemetry.applied.shape == (2,)
-    robust = Simulator(t_grad_fn, params_from_graph(ring_graph(N)), GAMMA,
-                       robust_clip=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        robust.run_schedule(state, sched, defense=AdaptiveDefense(),
-                            mesh=object())
+    robust = dataclasses.replace(sim, robust_clip=1.0)
+    trace = _pins_sharded(robust, state, sched, defense=AdaptiveDefense())
+    assert trace.defense.tau.shape == (2,)
     with pytest.raises(ValueError):
         FlatGossipEngine(FlatLayout.from_pytree(state.x, stacked=True),
                          robust.params, robust_rule="median")
