@@ -265,6 +265,21 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      it); one tick's gradients timed and compared under ``vmap`` and
      ``vmap(chunk_size=1)``, in one call and in the shards' groups; (f) ``make_rank_mesh()`` under NCCL at
      world size 1, bit for bit.
+ 29. the dry run (``launch.dryrun``) on the meta device, no card: (a)
+     every architecture at decode_32k and long_500k and Qwen3-0.6B and
+     DeepSeek-V3 at prefill_32k on the single-pod mesh, and the six
+     gossip modes, each passing (the full-size train steps and the other
+     prefills run through the CLI, PERF.md); (b) on a one-card mesh
+     Qwen3-0.6B's prefill at 2 x 4096 with flash, its decode at
+     decode_32k cut to batch 4 and a nano-lm train step (16 x 512, 4
+     micro-batches), bf16, built by ``bundle_for``, traced on the meta
+     device, then run on the card: the card's argument bytes exactly the
+     dry run's, the FLOPs counted on the card (flash reporting through
+     ``op_cost.record``, 28 launches) exactly the meta trace's, the peak
+     allocation above the arguments over the meta trace's peak inside
+     ``MEMORY_RATIO``, and the step's time (median of 5, CUDA events)
+     beside its roofline bound; (c) ``worlds_executable`` on phase 9's
+     worlds (2 rounds): ``fn(*args)`` bit for bit ``run_worlds``.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -286,9 +301,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit),
+# stated once in the port: memory, f32 on the CUDA cores, bf16 and TF32 on
+# the tensor cores
+from repro_torch.analysis.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_PER_S, PEAK_FLOPS_BF16 as PEAK_BF16_FLOPS,
+    PEAK_FLOPS_F32 as PEAK_F32_FLOPS, PEAK_FLOPS_TF32 as PEAK_TF32_FLOPS)
+
 N_WORKERS, BATCH, ROUNDS, SEED, GAMMA = 16, 32, 4, 0, 0.01
 # the channel slice: 6 rounds so that stale reads reach 2 snapshots back;
 # schedule seed 1 puts 8 corrupted reads in them, the first in round 0
@@ -317,8 +336,6 @@ FLOPS_PER_ELEM = 9  # m, 2 scaled subtractions, d, c*d, 2 outputs: 9 f32 ops
 CHANNEL_FLOPS_PER_ELEM = 11
 # the world-batched slices: B = 4 worlds in one call
 N_WORLDS = 4
-PEAK_BF16_FLOPS = 989e12   # dense tensor-core rate (NVIDIA data sheet)
-PEAK_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core rate (NVIDIA data sheet)
 # flash kernel vs plain: the JAX package's kernel-vs-oracle tolerances
 FLASH_F32_TOL = dict(atol=2e-5, rtol=1e-4)
 FLASH_BF16_ATOL = 3e-2
@@ -4882,6 +4899,253 @@ def phase_rank(card, d, sim, worlds, defenses, scheds) -> None:
           f"single-device replay, traces max rel err {err:.3e}")
 
 
+# phase 29: the dry run on the meta device, three of its steps on the card
+
+# (a) the combinations run here (the rest, the train steps at full size and
+# the prefills, run through the CLI on a host:
+# `python -m repro_torch.launch.dryrun --all --mesh single`, PERF.md): every
+# architecture's two decode shapes, and two prefills at 32k
+DRYRUN_ARCH_SHAPES = ("decode_32k", "long_500k")
+DRYRUN_PREFILLS = (("qwen3-0.6b", "prefill_32k"),
+                   ("deepseek-v3-671b", "prefill_32k"))
+# (b) the steps run for real on a one-card mesh: (label, arch, config
+# updates, shape); bf16 weights and compute, as the dry run takes them
+CARD_STEPS = (
+    ("Qwen3-0.6B prefill 2 x 4096, flash", "qwen3-0.6b",
+     {"attention_impl": "pallas"}, ("prefill_4k", 4096, 2, "prefill")),
+    ("Qwen3-0.6B decode_32k at batch 4", "qwen3-0.6b", {},
+     ("decode_32k", 32768, 4, "decode")),
+    ("nano-lm train 16 x 512, 4 micro-batches", "nano-lm", {},
+     ("train_512", 512, 16, "train")),
+)
+# the card's peak allocation above its arguments over the meta trace's
+# activation peak, predicted in PERF.md before the first run: the decode
+# and train steps run the meta trace's aten ops (1.0 but for the
+# allocator's 512-byte rounding); the prefill runs the flash kernel where
+# the meta trace runs its plain version, whose f32 scores are not made
+# (0.532 when the kernel's output alone is traced)
+MEMORY_RATIO = {CARD_STEPS[0][0]: (0.50, 0.60),
+                CARD_STEPS[1][0]: (0.95, 1.10),
+                CARD_STEPS[2][0]: (0.95, 1.15)}
+# (c) phase 9's worlds, cut to 2 rounds
+EXEC_ROUNDS = 2
+
+
+def dryrun_subset(card) -> None:
+    """(a): the dry run's combinations on the single-pod mesh and its six
+    gossip modes, on the meta device; each must pass."""
+    import contextlib
+    import io
+    from repro_torch.configs import ARCHITECTURES
+    from repro_torch.launch import dryrun
+    combos = [(a, s) for a in ARCHITECTURES for s in DRYRUN_ARCH_SHAPES] \
+        + list(DRYRUN_PREFILLS)
+    t0 = time.perf_counter()
+    ok = 0
+    for arch, shape in combos:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = dryrun.run_one(arch, shape, "single")
+        require(out["ok"] and out["hlo_flops_per_device"] > 0,
+                f"dry run {arch} x {shape} failed: {out}")
+        ok += 1
+        print(f"[{card}] dry run {arch} x {shape} x single: peak/device "
+              f"{out['peak_memory_per_device'] / 1e9:.2f} GB (fits "
+              f"{out['fits_h100_hbm']}), FLOPs/device "
+              f"{out['hlo_flops_per_device']:.4e}, bytes/device "
+              f"{out['hlo_bytes_per_device']:.4e}, collective/device "
+              f"{out['collective_bytes_per_device']:.4e}, bottleneck "
+              f"{out['bottleneck']}")
+    for kw in dryrun.GOSSIP_RUNS:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = dryrun.run_gossip_step("qwen3-0.6b", **kw)
+        require(out["ok"] and out["hlo_flops_per_device"] > 0,
+                f"gossip dry run {kw} failed: {out}")
+        ok += 1
+        print(f"[{card}] dry run gossip {kw}: peak/device "
+              f"{out['peak_memory_per_device'] / 1e9:.2f} GB, FLOPs/device "
+              f"{out['hlo_flops_per_device']:.4e}, collective/device "
+              f"{out['collective_bytes_per_device']:.4e}")
+    n = len(combos) + len(dryrun.GOSSIP_RUNS)
+    print(f"[{card}] dry run: {ok}/{n} combos OK in "
+          f"{time.perf_counter() - t0:.1f} s (meta device, no card)")
+
+
+def card_args(spec, cfg, shape, dev):
+    """The step's arguments on the card, built as the port builds them
+    (weights from seed 0, random tokens, empty caches)."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import sgd
+    model = Model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init(gen)
+
+    def tokens(like):
+        return torch.randint(0, cfg.vocab_size, tuple(like.shape),
+                             generator=gen, device=dev, dtype=torch.int32)
+
+    if shape.kind == "train":
+        return (TrainState(params, sgd().init(params)),
+                {k: tokens(v) for k, v in spec.args[1].items()})
+    if shape.kind == "prefill":
+        return params, {"inputs": tokens(spec.args[1]["inputs"])}
+    return (params, model.init_cache(shape.global_batch, shape.seq_len,
+                                     device=dev),
+            tokens(spec.args[2]),
+            torch.tensor(shape.seq_len // 2, dtype=torch.int32, device=dev))
+
+
+def card_step(card, label, arch, updates, shape_args) -> int:
+    """(b) one step: its dry run on a one-card mesh, then the step on the
+    card; returns the flash launches."""
+    from repro_torch.analysis.op_cost import OpCounter
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import AbstractMesh, rules_for
+    from repro_torch.launch.steps import bundle_for
+    from repro_torch.shapes import InputShape
+    mesh = AbstractMesh(("data", "model"), (1, 1))
+    shape = InputShape(*shape_args)
+    cfg = get_config(arch).with_updates(param_dtype="bfloat16",
+                                        compute_dtype="bfloat16", **updates)
+    spec = bundle_for(cfg, shape, mesh, rules_for(mesh))
+    meta = spec.trace(mesh)
+    arg_bytes = spec.arg_bytes(mesh)
+    dev = resolve_device()
+    args = card_args(spec, cfg, shape, dev)
+    want = [t for t in tree_leaves(spec.args) if t is not None]
+    got = [t for t in tree_leaves(args) if t is not None]
+    require(len(got) == len(want) and all(
+        g.shape == w.shape and g.dtype == w.dtype for g, w in zip(got, want)),
+        f"{label}: the card's arguments are not the dry run's")
+    real_bytes = sum(t.numel() * t.element_size() for t in got)
+    require(real_bytes == arg_bytes,
+            f"{label}: {real_bytes} argument bytes on the card, the dry run "
+            f"counts {arg_bytes}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    with OpCounter() as counter:
+        out = spec.fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = read_launches()
+    cost = counter.cost()
+    first = tree_leaves(out)[0]
+    require(bool(torch.isfinite(first.float()).all()),
+            f"{label}: non-finite output")
+    del out
+    flash = launches["flash_attention_bhsd"]
+    rec = cost.recorded.get("flash_attention_bhsd", {}).get("calls", 0)
+    if updates.get("attention_impl") == "pallas":
+        require(flash == cfg.num_layers and rec == flash,
+                f"{label}: flash launched {flash} times, reported {rec}; "
+                f"{cfg.num_layers} attention layers")
+    require(all(v == 0 for k, v in launches.items()
+                if k != "flash_attention_bhsd"),
+            f"{label}: another kernel launched: {launches}")
+    require(cost.flops == meta.flops,
+            f"{label}: {cost.flops:.6e} FLOPs counted on the card, "
+            f"{meta.flops:.6e} on the meta device")
+    ratio = peak / meta.peak_live_bytes
+    lo, hi = MEMORY_RATIO[label]
+    require(lo <= ratio <= hi,
+            f"{label}: card peak {peak} over the meta trace's "
+            f"{meta.peak_live_bytes:.0f} is {ratio:.4f}, outside the "
+            f"predicted [{lo}, {hi}]")
+    runs = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = spec.fn(*args)
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end))
+        del out
+    ms = float(np.median(runs))
+    meta_bound = max(meta.flops / PEAK_BF16_FLOPS,
+                     meta.write_bytes / PEAK_BYTES_PER_S) * 1e3
+    card_bound = max(cost.flops / PEAK_BF16_FLOPS,
+                     cost.write_bytes / PEAK_BYTES_PER_S) * 1e3
+    print(f"[{card}] {label}: arguments {arg_bytes} bytes = the dry run's; "
+          f"FLOPs {cost.flops:.6e} on the card (flash reports "
+          f"{cost.recorded.get('flash_attention_bhsd', {}).get('flops', 0):.4e}"
+          f" in {rec} calls) == {meta.flops:.6e} on the meta device; peak "
+          f"{peak / 2**30:.3f} GiB above the arguments, the meta trace's "
+          f"{meta.peak_live_bytes / 2**30:.3f} GiB (ratio {ratio:.4f}, "
+          f"predicted [{lo}, {hi}]); bytes written {cost.write_bytes:.4e} "
+          f"on the card, {meta.write_bytes:.4e} on the meta device")
+    print(f"[{card}] {label}: {ms:.3f} ms (median of 5, CUDA events; runs "
+          f"{', '.join(f'{r:.3f}' for r in runs)}); roofline bound "
+          f"{meta_bound:.3f} ms from the dry run ({100 * meta_bound / ms:.1f}"
+          f"%), {card_bound:.3f} ms from the card's own count "
+          f"({100 * card_bound / ms:.1f}%), bf16 at "
+          f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s, {PEAK_BYTES_PER_S / 1e12:.2f}"
+          f" TB/s")
+    del args
+    torch.cuda.empty_cache()
+    return flash
+
+
+def executable_vs_run_worlds(card, params0, cfg, stream_cls, grad_fn_for
+                             ) -> int:
+    """(c) phase 9's worlds: ``worlds_executable``'s ``fn(*args)`` bit for
+    bit ``run_worlds``; returns the channel kernel's launches."""
+    from repro_torch.core import Simulator, params_from_graph, ring_graph
+    graph = ring_graph(N_WORKERS)
+    worlds, defenses, _ = hostile_worlds(graph)
+    scheds = [w.compile(EXEC_ROUNDS, seed=CHANNEL_SEED) for w in worlds]
+    sim = Simulator(grad_fn_for(cfg, stream_cls(batch_size=BATCH)),
+                    params_from_graph(graph, True), GAMMA)
+    kw = dict(worlds=worlds, robust_clips=[ROBUST_CLIP] * N_WORLDS,
+              defenses=defenses)
+    reset_launches()
+    want, wtr = sim.run_worlds(worlds_states(sim, params0, SEED + 1), scheds,
+                               **kw)
+    torch.cuda.synchronize()
+    n_want = read_launches()
+    fn, args = sim.worlds_executable(worlds_states(sim, params0, SEED + 1),
+                                     scheds, **kw)
+    reset_launches()
+    got, gtr = fn(*args)
+    torch.cuda.synchronize()
+    n_got = read_launches()
+    same = (tree_equal(want.x, got.x) and tree_equal(want.x_tilde, got.x_tilde)
+            and torch.equal(want.t_last, got.t_last)
+            and all(torch.equal(a.get_state(), b.get_state())
+                    for a, b in zip(want.generator, got.generator))
+            and all(torch.equal(getattr(wtr, k), getattr(gtr, k))
+                    for k in ("loss", "consensus", "mean_param_norm"))
+            and all(torch.equal(a, b) for a, b in zip(wtr.defense,
+                                                      gtr.defense)))
+    require(same, "worlds_executable's fn(*args) is not bit for bit "
+                  "run_worlds on phase 9's worlds")
+    require(n_got == n_want and n_got["channel_gossip_worlds"] > 0,
+            f"worlds_executable launched {n_got}, run_worlds {n_want}")
+    print(f"[{card}] worlds_executable on phase 9's worlds ({EXEC_ROUNDS} "
+          f"rounds, B = {N_WORLDS}): fn = {fn.__name__}, fn(*args) bit for "
+          f"bit run_worlds (x, x~, clocks, generators, trace, defense "
+          f"trace); channel_gossip_worlds launched "
+          f"{n_got['channel_gossip_worlds']} times each")
+    return n_got["channel_gossip_worlds"]
+
+
+def phase_dryrun(card, params0, cfg, stream_cls, grad_fn_for) -> dict:
+    """Phase 29; returns the flash and channel worlds launches of its main
+    paths."""
+    t0 = time.perf_counter()
+    dryrun_subset(card)
+    flash = sum(card_step(card, *step) for step in CARD_STEPS)
+    chan = executable_vs_run_worlds(card, params0, cfg, stream_cls,
+                                    grad_fn_for)
+    print(f"[{card}] phase 29: {time.perf_counter() - t0:.1f} s")
+    return {"flash_attention_bhsd": flash, "channel_gossip_worlds": chan}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5012,6 +5276,12 @@ def main() -> int:
     rows["channel_gossip_worlds"]["max_abs_err"] = max(
         rows["channel_gossip_worlds"]["max_abs_err"], err28)
     print(f"[{card}] phases 1-28 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    torch.cuda.empty_cache()
+    for name, n in phase_dryrun(card, params0, cfg, SyntheticCIFAR,
+                                resnet_grad_fn).items():
+        launches[name] += n
+    print(f"[{card}] phases 1-29 done at {time.perf_counter() - t_start:.1f}"
           f" s")
 
     print(card)

@@ -1161,6 +1161,25 @@ class Simulator:
           replays on one device; ``engine=False`` is refused; a telemetry
           spec with ``shards`` 0 takes the mesh's shard count.
         """
+        fn, args = self.worlds_executable(
+            states, scheds, params=params, gammas=gammas,
+            robust_clips=robust_clips, defenses=defenses, worlds=worlds,
+            engine=engine, telemetry=telemetry, mesh=mesh)
+        return fn(*args)
+
+    def worlds_executable(self, states, scheds, *, params=None,
+                          gammas=None, robust_clips=None, defenses=None,
+                          worlds=None, engine: bool = True, telemetry=None,
+                          mesh=None):
+        """The callable and argument tuple a ``run_worlds`` call with the
+        same arguments dispatches, the host side (batching, the stream
+        arrays, the shard plan, the telemetry schedule columns) already
+        done: ``fn(*args)`` is that call, bit for bit.  ``fn`` is the
+        flavor's replay method, or ``launch.mesh_replay.sharded_replay``
+        with ``mesh=``; with a telemetry spec it is wrapped to finish the
+        trace's columns.  Nothing is donated (the port's replays pack the
+        state into fresh buffers); each call draws from
+        ``states.generator``."""
         scheds = list(scheds)
         if not isinstance(states, SimState):
             states = self.batch_states(states)
@@ -1178,17 +1197,24 @@ class Simulator:
         cols = batch_schedule_columns(tel, scheds) if tel is not None \
             else None
         if mr is not None:
-            final, trace = self._run_worlds_sharded(states, scheds, plan, mr)
+            fn, args = self._sharded_worlds(states, scheds, plan, mr)
         else:
-            final, trace = self._dispatch_worlds(states, scheds, plan,
-                                                 engine)
+            fn, args = self._dispatch_worlds(states, scheds, plan, engine)
         if tel is None:
-            return final, trace
-        return final, trace._replace(
-            telemetry=finalize_trace(tel, trace.telemetry, cols, rb))
+            return fn, args
+
+        def with_columns(*a):
+            """The replay, its telemetry finished with the schedule
+            columns and row bytes."""
+            final, trace = fn(*a)
+            return final, trace._replace(
+                telemetry=finalize_trace(tel, trace.telemetry, cols, rb))
+
+        return with_columns, args
 
     def _dispatch_worlds(self, states: SimState, scheds, plan: dict,
-                         engine: bool) -> tuple[SimState, SimTrace]:
+                         engine: bool) -> tuple:
+        """(flavor, arguments) of a single-device worlds replay."""
         if engine:
             try:
                 FlatLayout.from_pytree(states.x, worlds=True)
@@ -1200,19 +1226,20 @@ class Simulator:
                         f"per-event replay") from err
                 engine = False
         if not engine:
-            return self._run_worlds_per_event(states, scheds, plan)
+            return self._run_worlds_per_event, (states, scheds, plan)
         pw = self.world_params(plan["params"], self.device)
         gammas, tel = plan["gammas"], plan["tel"]
         if plan["active"]:
             arrays, horizon = self.worlds_channel_arrays(states, scheds)
-            return self.run_worlds_channel(states, pw, gammas, None, arrays,
-                                           horizon, self._knobs(plan), tel)
+            return self.run_worlds_channel, (states, pw, gammas, None,
+                                             arrays, horizon,
+                                             self._knobs(plan), tel)
         if plan["channel"]:
             arrays, horizon = self.worlds_channel_arrays(states, scheds)
-            return self.run_worlds_channel(states, pw, gammas,
-                                           self._taus(plan), arrays,
-                                           horizon, tel=tel)
-        return self.run_worlds_coalesced(
+            return self.run_worlds_channel, (states, pw, gammas,
+                                             self._taus(plan), arrays,
+                                             horizon, None, tel)
+        return self.run_worlds_coalesced, (
             states, pw, gammas, self.worlds_coalesced_arrays(states, scheds))
 
     def _knobs(self, plan: dict):
@@ -1267,17 +1294,17 @@ class Simulator:
             plan["tel"] = dataclasses.replace(tel, shards=mr.n_shards)
         return mr
 
-    def _run_worlds_sharded(self, states: SimState, scheds, plan: dict, mr
-                            ) -> tuple[SimState, SimTrace]:
-        """The sharded replay: the channel flavor (its defense form on an
-        active defense) on the mesh's shards, ``launch.mesh_replay``."""
+    def _sharded_worlds(self, states: SimState, scheds, plan: dict, mr
+                        ) -> tuple:
+        """(``sharded_replay``, arguments): the channel flavor (its defense
+        form on an active defense) on the mesh's shards,
+        ``launch.mesh_replay``."""
         from ..launch.mesh_replay import sharded_replay
         arrays, horizon = self.worlds_sharded_arrays(states, scheds, mr)
-        return sharded_replay(self, states,
-                              self.world_params(plan["params"], self.device),
-                              plan["gammas"], self._taus(plan),
-                              self._knobs(plan), arrays, horizon,
-                              plan["tel"], mr)
+        return sharded_replay, (
+            self, states, self.world_params(plan["params"], self.device),
+            plan["gammas"], self._taus(plan), self._knobs(plan), arrays,
+            horizon, plan["tel"], mr)
 
 
 # --------------------------------------------------------------- AR-SGD ref

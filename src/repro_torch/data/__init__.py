@@ -1,6 +1,6 @@
 """Synthetic data streams."""
 from .pipeline import (LMTaskStream, SyntheticCIFAR, WorkerStream,
-                       make_lm_stream)
+                       lm_batch_specs, make_lm_stream)
 
 __all__ = ["LMTaskStream", "SyntheticCIFAR", "WorkerStream",
-           "make_lm_stream"]
+           "lm_batch_specs", "make_lm_stream"]

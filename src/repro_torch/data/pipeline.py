@@ -102,6 +102,13 @@ def make_lm_stream(cfg, seq_len: int, batch_size: int, seed: int = 1234,
                         batch_size=batch_size, seed=seed, device=device)
 
 
+def lm_batch_specs(vocab: int, batch: int, seq: int) -> dict:
+    """An LM batch's int32 (batch, seq) inputs and labels on the meta
+    device: shapes and dtypes, no storage (the dry run's stand-ins)."""
+    return {k: torch.empty((batch, seq), dtype=torch.int32, device="meta")
+            for k in ("inputs", "labels")}
+
+
 # ------------------------------------------------------------ image streams
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,9 @@
-"""Hand-written Hopper kernels, each beside its plain PyTorch version."""
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+Each wrapper reports a launch's work to ``analysis.op_cost.record`` (the
+FLOPs its plain version's aten ops would count, and the bytes the kernel
+must move), since a dispatch mode cannot see a kernel bound through
+``ctypes``."""
 from __future__ import annotations
 
 import torch

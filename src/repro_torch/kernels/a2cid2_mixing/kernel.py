@@ -18,6 +18,7 @@ import functools
 import numpy as np
 import torch
 
+from ...analysis.op_cost import record
 from ..build import DTYPE_CODE, entry
 from .ref import dtype_scalar
 
@@ -136,6 +137,9 @@ def mixing_gossip_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
         raise RuntimeError(f"mixing_gossip_stacked launch failed: CUDA "
                            f"error {err}")
     mixing_gossip_stacked.launches += 1
+    # x, x~ read once, out_x and x~ written once; partner, dt_next read
+    record("mixing_gossip_stacked", 0.0,
+           4 * x.numel() * x.element_size() + 2 * w * 4)
     return out_x, x_tilde
 
 
@@ -186,6 +190,10 @@ def channel_gossip_stacked(x: torch.Tensor, x_tilde: torch.Tensor,
         raise RuntimeError(f"channel_gossip_stacked launch failed: CUDA "
                            f"error {err}")
     channel_gossip_stacked.launches += 1
+    # x, xp, x~ read once, out_x and x~ written once; corrupt, mscale,
+    # dt_next read, the mask written
+    record("channel_gossip_stacked", 0.0,
+           5 * x.numel() * x.element_size() + (3 + want_rej) * w * 4)
     if want_rej:
         return out_x, x_tilde, rej
     return out_x, x_tilde
@@ -231,6 +239,10 @@ def mixing_gossip_worlds(x: torch.Tensor, x_tilde: torch.Tensor,
         raise RuntimeError(f"mixing_gossip_worlds launch failed: CUDA "
                            f"error {err}")
     mixing_gossip_worlds.launches += 1
+    # x, x~ read once, out_x and x~ written once; partner, dt_next and the
+    # three (B,) scalars read
+    record("mixing_gossip_worlds", 0.0,
+           4 * x.numel() * x.element_size() + 2 * b * w * 4 + 3 * b * 4)
     return out_x, x_tilde
 
 
@@ -285,6 +297,11 @@ def channel_gossip_worlds(x: torch.Tensor, x_tilde: torch.Tensor,
         raise RuntimeError(f"channel_gossip_worlds launch failed: CUDA "
                            f"error {err}")
     channel_gossip_worlds.launches += 1
+    # x, xp, x~ read once, out_x and x~ written once; corrupt, mscale,
+    # dt_next and the three (B,) scalars read, the mask written
+    record("channel_gossip_worlds", 0.0,
+           5 * x.numel() * x.element_size() + (3 + want_rej) * b * w * 4
+           + 3 * b * 4)
     if want_rej:
         return out_x, x_tilde, rej
     return out_x, x_tilde
@@ -357,6 +374,8 @@ def p2p_mixing(x: torch.Tensor, x_tilde: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"p2p_mixing launch failed: CUDA error {err}")
     p2p_mixing.launches += 1
+    # x, x~, xp read once, out_x and x~ written once; dt_next read
+    record("p2p_mixing", 0.0, 5 * x.numel() * x.element_size() + 4)
     return out_x, x_tilde
 
 
@@ -520,6 +539,9 @@ def _launch_tree(fn, dtype: torch.dtype, launches: list, dt: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"mixing_p2p launch failed: CUDA error {err}")
         mixing_p2p.launches += 1
+        # each leaf's x, x~, xp read once and two outputs written once; dt
+        record("mixing_p2p", 0.0,
+               5 * int(table["n"].sum()) * _ITEMSIZE[dtype] + 4)
 
 
 def mixing_p2p_tree(xs, xts, xps, dt: torch.Tensor, *, eta: float,

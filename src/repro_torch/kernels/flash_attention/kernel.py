@@ -13,6 +13,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...analysis.op_cost import record
 from ..build import DTYPE_CODE, entry
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -108,6 +109,10 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention_bhsd launch failed: CUDA error "
                            f"{err}")
     flash_attention_bhsd.launches += 1
+    # FLOPs as the plain version's two einsums count them (every (s, t)
+    # pair, at the real head dim); q, k, v read once, out written once
+    record("flash_attention_bhsd", 4.0 * bh * s_len * t_len * hd,
+           (2 * s_len + 2 * t_len) * bh * hd * q.element_size())
     return out if hd_run == hd else out[..., :hd].contiguous()
 
 

@@ -11,6 +11,7 @@ import ctypes
 
 import torch
 
+from ...analysis.op_cost import record
 from ..build import DTYPE_CODE, entry
 
 # dtype, x, scale, out, rows, d, eps, stream
@@ -68,6 +69,8 @@ def rmsnorm_2d(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
     if err != 0:
         raise RuntimeError(f"rmsnorm_2d launch failed: CUDA error {err}")
     rmsnorm_2d.launches += 1
+    # x and scale read once, out written once; no matmul
+    record("rmsnorm_2d", 0.0, (2 * rows * d + d) * x.element_size())
     return out
 
 

@@ -2,9 +2,12 @@
 the training launcher (``launch.train``) and the serving path: the
 ``generate`` CLI (``launch.serve``), continuous batching
 (``launch.batching.ContinuousBatcher`` over a host ``SlotScheduler``) and
-the gossip-serving fleet (``launch.fleet.GossipFleet``), and the sharded
+the gossip-serving fleet (``launch.fleet.GossipFleet``), the sharded
 worlds replay (``launch.mesh_replay.MeshReplay`` on a ``launch.mesh``
-replay mesh).  ``launch.serve`` and ``launch.train`` are CLIs
+replay mesh), and the dry run on the meta device (``launch.dryrun``, over
+``launch.steps.bundle_for``, the partition specs of ``launch.shardings``
+and the abstract production meshes of ``launch.mesh``).
+``launch.serve``, ``launch.train`` and ``launch.dryrun`` are CLIs
 (``python -m``), imported by name only."""
 from .batching import ContinuousBatcher, Request, SlotScheduler
 from .fleet import FleetReport, GossipFleet
@@ -12,12 +15,15 @@ from .gossip_train import (GossipDraws, GossipTrainer, GossipTrainState,
                            PairRingDraws, StackedDraws, StackedGossipState,
                            StackedGossipTrainer, stack_workers,
                            unstack_workers)
-from .mesh import LocalMesh, RankMesh, make_rank_mesh, make_replay_mesh
+from .mesh import (AbstractMesh, LocalMesh, RankMesh, make_gossip_mesh,
+                   make_production_mesh, make_rank_mesh, make_replay_mesh,
+                   mesh_devices, rules_for)
 from .mesh_replay import MeshReplay
 
 __all__ = ["ContinuousBatcher", "Request", "SlotScheduler", "FleetReport",
            "GossipFleet", "GossipDraws", "GossipTrainer", "GossipTrainState",
            "PairRingDraws", "StackedDraws", "StackedGossipState",
            "StackedGossipTrainer", "stack_workers",
-           "unstack_workers", "LocalMesh", "RankMesh", "make_rank_mesh",
-           "make_replay_mesh", "MeshReplay"]
+           "unstack_workers", "AbstractMesh", "LocalMesh", "RankMesh",
+           "make_gossip_mesh", "make_production_mesh", "make_rank_mesh",
+           "make_replay_mesh", "mesh_devices", "rules_for", "MeshReplay"]

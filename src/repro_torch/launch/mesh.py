@@ -19,18 +19,71 @@ them:
 The replay body loops over ``mesh.shards`` either way: a local mesh hands
 it NS shards, a rank mesh one.
 
-The JAX package's ``rules_for``, ``make_production_mesh`` and
-``make_gossip_mesh`` (the sharded model's partition rules and meshes) are
-not ported: they need the port of ``sharding.py``.
+The production meshes of the dry run (``make_production_mesh``,
+``make_gossip_mesh``) are :class:`AbstractMesh`es: axis names and sizes,
+no devices, as the dry run needs no card; ``rules_for`` picks a mesh's
+partition rules (``sharding.py``) and ``mesh_devices`` counts its devices.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
 
+from .. import sharding
 from ..device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of named axes with no devices behind it (the dry run's
+    production meshes)."""
+
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """(data 16, model 16), or (pod 2, data 16, model 16) multi-pod."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
+
+
+def make_gossip_mesh(n_workers: int = 8, data: int = 8, model: int = 8
+                     ) -> AbstractMesh:
+    """Decentralized mesh: ``n_workers`` slices on a gossip graph, each an
+    FSDP(data) x TP(model) synchronous island.  Default (8, 8, 8) = 512
+    devices, 8 workers: a ring of 8 has chi1 ~ 3.5 >> chi2 ~ 0.9, so
+    A2CiD2 bites."""
+    return AbstractMesh(("worker", "data", "model"), (n_workers, data, model))
+
+
+def rules_for(mesh) -> dict:
+    """The partition rules of a mesh, by its axis names (any mesh of this
+    module: abstract, local or rank)."""
+    axes = tuple(mesh.axis_names)
+    if "pod" in axes:
+        return dict(sharding.MULTI_POD_RULES)
+    if "worker" in axes:
+        # a pure replay mesh (worker axis only) shards the flat worker
+        # banks and replicates everything else; a (worker, data, model)
+        # gossip mesh keeps the model-sharding rules
+        if axes == ("worker",):
+            return dict(sharding.REPLAY_RULES)
+        return dict(sharding.GOSSIP_RULES)
+    return dict(sharding.SINGLE_POD_RULES)
+
+
+def mesh_devices(mesh) -> int:
+    """The number of devices (shards) of a mesh."""
+    return math.prod(mesh.shape.values())
 
 
 def _indexed(dev: torch.device) -> torch.device:

@@ -4,7 +4,8 @@ ported from ``repro.models.layers``.
 Parameters are plain dicts of tensors with the JAX package's keys, shapes
 and dtypes; initialisers draw from a ``torch.Generator`` on its device, so
 their values differ from ``jax.random``'s (carry JAX weights with
-``convert``).  The sharding hints of the JAX package are dropped: one card
+``convert``).  ``SHAPE_ONLY`` in the generator's place gives the same
+leaves on the meta device, with no draws.  The sharding hints of the JAX package are dropped: one card
 has no mesh.
 """
 from __future__ import annotations
@@ -27,10 +28,24 @@ def dtype_of(name: str) -> torch.dtype:
 
 # ------------------------------------------------------------------- inits
 
+class ShapeOnly:
+    """Takes a generator's place in the ``init_*`` functions and
+    ``Model.init``: every leaf is made on the meta device with its shape
+    and dtype, nothing is drawn and nothing is allocated."""
+
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = ShapeOnly()
+
+
 def dense_init(generator: torch.Generator, fan_in: int, shape, dtype
                ) -> torch.Tensor:
     """Truncated normal on [-2, 2], scaled by 1 / sqrt(fan_in), drawn in
-    f32 and cast to ``dtype``."""
+    f32 and cast to ``dtype`` (a meta tensor of ``dtype`` for
+    ``SHAPE_ONLY``)."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     # scaled in place: one f32 temporary, not two, for a 7.5 GB (bf16)
@@ -39,6 +54,8 @@ def dense_init(generator: torch.Generator, fan_in: int, shape, dtype
 
 
 def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, device=generator.device)
     return (w * 0.02).to(dtype)
 
@@ -47,13 +64,14 @@ def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
-    """RMSNorm with the JAX layer's rounding: the sum of squares in f32,
-    ``inv`` rounded to x's dtype, then ``(x * inv) * (1 + scale)`` in x's
-    dtype.  Autograd differentiates it; the JAX package's custom VJP is the
-    same function written out to keep its cotangents in x's dtype."""
+    """RMSNorm with the JAX layer's rounding: the sum of squares in f32 as
+    a dot (the JAX layer's einsum, so that both count its FLOPs), ``inv``
+    rounded to x's dtype, then ``(x * inv) * (1 + scale)`` in x's dtype.
+    Autograd differentiates it; the JAX package's custom VJP is the same
+    function written out to keep its cotangents in x's dtype."""
     dt = x.dtype
     x32 = x.float()
-    var = (x32 * x32).sum(dim=-1, keepdim=True) / x.shape[-1]
+    var = torch.einsum("...d,...d->...", x32, x32)[..., None] / x.shape[-1]
     inv = torch.rsqrt(var + eps).to(dt)
     return (x * inv) * (1.0 + scale.to(dt))
 

@@ -147,7 +147,8 @@ class Model:
     def init(self, generator: torch.Generator) -> dict:
         """Random weights on the generator's device.  Structure, shapes and
         dtypes equal the JAX ``Model.init``'s; the values come from the
-        generator."""
+        generator.  ``layers.SHAPE_ONLY`` in the generator's place gives
+        the same tree on the meta device: no draws, no storage."""
         cfg = self.cfg
         cfg.validate()
         dtype = dtype_of(cfg.param_dtype)

@@ -11,7 +11,11 @@ single-device one), and the entry points refuse to run on a machine
 without a card unless the caller names the CPU.  The rest of the model zoo
 runs there too: reduced DeepSeek-V3 (MLA, MoE, MTP), Arctic, Mamba-2 and
 RecurrentGemma each build and take a forward and a decode step, and
-``lm_grad_fn`` takes one vmapped call on reduced DeepSeek-V3."""
+``lm_grad_fn`` takes one vmapped call on reduced DeepSeek-V3.  The dry run
+(``shapes``, ``sharding``, ``launch.shardings``, ``launch.mesh``,
+``launch.steps.bundle_for``, ``analysis.op_cost`` and ``roofline``,
+``launch.dryrun``) traces a reduced train step on the meta device there
+and counts full DeepSeek-V3's parameters without a card."""
 import os
 import subprocess
 import sys
@@ -170,6 +174,22 @@ PROBE = textwrap.dedent("""
             print("ZOO_GRAD", tuple(zloss.shape),
                   tuple(zg["mtp"]["proj"].shape),
                   bool(torch.isfinite(zloss).all()))
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh, rules_for
+    from repro_torch.launch.steps import bundle_for
+    from repro_torch.shapes import InputShape, input_specs
+    from repro_torch.sharding import SINGLE_POD_RULES
+    dmesh = make_production_mesh()
+    dspec = bundle_for(get_config("qwen3-0.6b", reduced=True),
+                       InputShape("t", 64, 32, "train"), dmesh,
+                       rules_for(dmesh))
+    dcost = dspec.trace(dmesh)
+    dcounts = dryrun._param_counts(Model(get_config("deepseek-v3-671b")))
+    print("DRYRUN", dspec.arg_bytes(dmesh) > 0, dcost.flops > 0,
+          dcost.peak_live_bytes > 0, dcounts["active"] < dcounts["total"],
+          input_specs(get_config("qwen3-0.6b"), "decode_32k")["pos"].is_meta,
+          model_flops(2, 1, 3, "train"), SINGLE_POD_RULES["fsdp"])
     refused = 0
     for make in (lambda: qm.init_cache(1, 4), lambda: serve.main([])):
         try:
@@ -189,7 +209,7 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
                  if line.startswith(("LEAKED", "WORLDS", "CUDA", "BANK",
                                      "STEP", "TELEMETRY", "TRAIN", "SERVE",
                                      "BATCH", "FLEET", "ZOO_GRAD",
-                                     "SHARDED")))
+                                     "SHARDED", "DRYRUN")))
     models = [line for line in out.stdout.splitlines()
               if line.startswith("MODEL")]
     assert models == ["MODEL xla (1, 8, 512)", "MODEL pallas (1, 8, 512)"]
@@ -209,6 +229,7 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
                    for arch in ("deepseek-v3-671b", "arctic-480b",
                                 "mamba2-780m", "recurrentgemma-9b")]
     assert lines["ZOO_GRAD"] == "(2,) (2, 512, 256) True"
+    assert lines["DRYRUN"] == "True True True True True 18.0 data"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CPU-refusal half does not apply")
     assert lines["CUDA"] == "False REFUSED 4"
