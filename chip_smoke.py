@@ -280,6 +280,39 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      ``MEMORY_RATIO``, and the step's time (median of 5, CUDA events)
      beside its roofline bound; (c) ``worlds_executable`` on phase 9's
      worlds (2 rounds): ``fn(*args)`` bit for bit ``run_worlds``.
+ 30. (a) ``models.layers.rmsnorm``'s custom VJP (JAX's
+     ``_rmsnorm_fwd`` / ``_rmsnorm_bwd`` as an ``autograd.Function``) at
+     (8192, 1024) and (4, 4096, 1024), f32 and bf16: out, gx and gscale
+     on the card against the same function on CPU copies, within 1e-5
+     (f32) and 2e-2 (bf16, the JAX package's RMSNorm tolerance) of each
+     output's largest magnitude, with the bitwise share; forward +
+     backward at (8192, 1024) timed beside the earlier autograd form's
+     recorded times; ``vmap`` of ``grad`` over 8 workers against single
+     calls.  (b) the four example twins
+     (``repro_torch.examples``) at their defaults, in this process, each
+     path with the launch counts set to 0 just before it and read just
+     after: each quickstart section (``mixing_gossip_stacked`` once a comm
+     step of the calm and hostile arms' streams, ``channel_gossip_stacked``
+     of the lossy and self-healing arms', ``mixing_gossip_worlds`` once a
+     shared step of the sweep, nothing else), with A2CiD2's consensus
+     below the baseline's on the calm ring, the adaptive defense
+     rejecting, and the static trim rejecting 0 (a ``Telemetry()`` replay
+     of its world, bit for bit the section's arm); ``cifar_decentralized``
+     (ResNet-8, 25 rounds) and ``lm_decentralized`` (reduced nano-lm, 200
+     rounds; then ``--full --rounds 4``, nano-lm at full width, with a
+     stream that skips the header's entropy rate): the clean kernel once
+     a comm step of each arm, losses finite; ``serve_lm`` (8 replicas, 60
+     rounds, a kill at round 20): no hand kernel, nothing lost, a
+     restart; every printed line the twin's own.  Each quickstart
+     section and both CIFAR arms are replayed again on the per-event
+     path (no hand kernel) and held against the kernels' replay: x and
+     x~ finite-or-not exactly, each worker's row within 1e-5 of its
+     largest magnitude, the loss and consensus traces at rtol 1e-5; and
+     each kernel against its plain version at every shape and dynamics
+     a twin launched it at (the clean kernel bit for bit, the channel
+     and worlds kernels within 1e-5), its error into the kernel's JSON
+     row.  Then ``python -m repro_torch.examples.quickstart`` in its own
+     process, on the card by default.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -287,8 +320,12 @@ and power limit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -520,11 +557,13 @@ class ReplayTimer:
 
 
 # ---------------------------------------------------------- clean kernel
-def check_kernel(card, kernel, ref, dyn, w, d, d_real, dtype, tol, gen):
-    """Kernel vs plain version on one input set, plus the exact
-    identities.  Returns (max_abs_err, inputs)."""
+def check_kernel(card, kernel, ref, dyn, w, d, d_real, dtype, tol, gen,
+                 idle: int = 4):
+    """Kernel vs plain version on one input set (``idle`` rows left out of
+    the matching), plus the exact identities.  Returns (max_abs_err,
+    inputs)."""
     dev = torch.device("cuda")
-    partner_np = involution(w, idle=4, seed=d)
+    partner_np = involution(w, idle=idle, seed=d)
     partner = torch.from_numpy(partner_np).to(dev)
     idle = torch.from_numpy(partner_np == np.arange(w)).to(dev)
     dt = torch.rand(w, generator=gen, device=dev) * 1.5
@@ -5146,6 +5185,483 @@ def phase_dryrun(card, params0, cfg, stream_cls, grad_fn_for) -> dict:
     return {"flash_attention_bhsd": flash, "channel_gossip_worlds": chan}
 
 
+# ------------------------------------------- 30: RMSNorm VJP, the examples
+RMS_VJP_SHAPES = ((8192, 1024), (4, 4096, 1024))
+# card against the same function on CPU copies, max|d| / max|ref| of each
+# output: f32 as phase 12's kernel; bf16 the JAX package's RMSNorm bf16
+# tolerance
+RMS_VJP_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# forward + backward at (8192, 1024), ms (PERF.md section 6, NVIDIA H100
+# 80GB HBM3 at 700 W): autograd through x * x summed, then through the
+# einsum, and that autograd form timed in turns beside the custom VJP
+EARLIER_RMS_FWD_BWD_MS = ("0.50-0.72 (autograd, x * x summed), 1.19-1.45 "
+                          "(autograd, the einsum), the einsum's autograd "
+                          "form in turns with the custom VJP: median "
+                          "1.3398 f32, 1.5250 bf16")
+RMS_VMAP_WORKERS = 8
+RMS_TIMINGS = 6
+
+
+def rms_inputs(shape, dtype, dev):
+    gen = torch.Generator().manual_seed(24)
+    x = 3 * torch.randn(shape, generator=gen)
+    scale = 0.1 * torch.randn(shape[-1:], generator=gen)
+    g = torch.randn(shape, generator=gen)
+    return [t.to(dtype).to(dev) for t in (x, scale, g)]
+
+
+def rms_fwd_bwd(fn, x, scale, g):
+    xa, sa = x.detach().requires_grad_(), scale.detach().requires_grad_()
+    out = fn(xa, sa)
+    gx, gs = torch.autograd.grad(out, (xa, sa), g)
+    return out.detach(), gx, gs
+
+
+def phase_rmsnorm_vjp(card, dev=None) -> None:
+    """30a: ``models.layers.rmsnorm``'s custom VJP on the card against the
+    same function on CPU copies, its forward + backward time beside the
+    earlier autograd form's recorded times, and a ``vmap`` of ``grad``
+    over 8 workers."""
+    from repro_torch.models.layers import rmsnorm
+    dev = dev or torch.device("cuda")
+    for shape in RMS_VJP_SHAPES:
+        for dtype, tol in RMS_VJP_TOL.items():
+            x, scale, g = rms_inputs(shape, dtype, dev)
+            got = rms_fwd_bwd(rmsnorm, x, scale, g)
+            want = rms_fwd_bwd(rmsnorm, x.cpu(), scale.cpu(), g.cpu())
+            parts = []
+            for name, a, b in zip(("out", "gx", "gscale"), got, want):
+                require(a.dtype == b.dtype and a.shape == b.shape,
+                        f"rmsnorm VJP {shape} {dtype} {name}: "
+                        f"{a.dtype} {tuple(a.shape)}")
+                a = a.cpu()
+                err = float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max())
+                share = float((a == b).float().mean())
+                require(err <= tol, f"rmsnorm VJP {shape} {dtype} {name}: "
+                                    f"{err:.3e} > {tol}")
+                parts.append(f"{name} {err:.3e} ({share:.4%} bitwise)")
+            print(f"[{card}] phase 30a: rmsnorm VJP {tuple(shape)} {dtype} "
+                  f"card vs CPU, max|d| / max|ref| (tol {tol}): "
+                  f"{', '.join(parts)}")
+            del x, scale, g, got, want
+    for dtype in RMS_VJP_TOL:
+        x, scale, g = rms_inputs(RMS_VJP_SHAPES[0], dtype, dev)
+        t = [cuda_ms(lambda: rms_fwd_bwd(rmsnorm, x, scale, g), reps=50,
+                     warmup=3) for _ in range(RMS_TIMINGS)]
+        print(f"[{card}] phase 30a: rmsnorm forward + backward "
+              f"{RMS_VJP_SHAPES[0]} {dtype}, each a mean of 50 (CUDA "
+              f"events): median {np.median(t):.4f} "
+              f"{[round(r, 4) for r in t]} ms; earlier records "
+              f"{EARLIER_RMS_FWD_BWD_MS} ms")
+    for dtype, tol in RMS_VJP_TOL.items():
+        xs, _, gs = rms_inputs((RMS_VMAP_WORKERS, 2048, 1024), dtype, dev)
+        ss = (0.1 * torch.randn((RMS_VMAP_WORKERS, 1024),
+                                generator=torch.Generator().manual_seed(25))
+              ).to(dtype).to(dev)
+
+        def loss(a, s, c):
+            return (rmsnorm(a, s) * c).sum()
+        gx, gsc = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)))(
+            xs, ss, gs)
+        err = 0.0
+        for w in range(RMS_VMAP_WORKERS):
+            lx, ls = torch.func.grad(loss, argnums=(0, 1))(xs[w], ss[w],
+                                                          gs[w])
+            for a, b in ((gx[w], lx), (gsc[w], ls)):
+                err = max(err, float((a.float() - b.float()).abs().max()
+                                     / b.float().abs().max()))
+        require(bool(torch.isfinite(gx).all() and torch.isfinite(gsc).all())
+                and err <= tol,
+                f"rmsnorm vmap of grad {dtype}: {err:.3e} > {tol}")
+        print(f"[{card}] phase 30a: vmap(grad) over {RMS_VMAP_WORKERS} "
+              f"workers of (2048, 1024) {dtype} against single calls: "
+              f"max|d| / max|ref| {err:.3e}")
+
+
+def quickstart_paths(qs) -> dict:
+    """Each quickstart section's kernel and its launches: once a comm step
+    of each arm's compiled stream (the worlds kernel once a shared step of
+    the sweep)."""
+    from repro_torch.core import AdaptiveDefense, World, ring_graph
+    n, rounds = qs.N_WORKERS, qs.ROUNDS
+    ring = ring_graph(n)
+    clean = stream_comm_steps(World(topology=ring).compile(rounds, seed=0))
+    hostile = stream_comm_steps(qs.hostile_world(n, rounds).compile(
+        rounds, seed=0))
+    lossy = stream_comm_steps(qs.lossy_world(ring).compile(rounds, seed=0))
+    heal = sum(stream_comm_steps(qs.sign_flip_world(ring, d).compile(
+        rounds, seed=0)) for d in (None, AdaptiveDefense()))
+    sweep = worlds_comm_steps(qs.sweep_worlds(n).compile(rounds))
+    return {"calm": ("mixing_gossip_stacked", 2 * clean),
+            "hostile": ("mixing_gossip_stacked", 2 * hostile),
+            "lossy": ("channel_gossip_stacked", 2 * lossy),
+            "self_healing": ("channel_gossip_stacked", heal),
+            "sweep": ("mixing_gossip_worlds", sweep)}
+
+
+def timed_path(dev, run):
+    """``run()`` as one main path: the launch counts set to 0 just before
+    and read just after, its standard output captured; returns (its
+    result, wall s, launches, the non-empty lines it printed)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    printed = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        out = run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    return out, wall, launches, [x for x in printed.getvalue().split("\n")
+                                 if x]
+
+
+def require_launched(launches: dict, name, n: int, what: str) -> None:
+    """``name`` launched exactly ``n`` times and nothing else launched
+    (``name`` None: nothing launched at all)."""
+    if name is None:
+        require(all(v == 0 for v in launches.values()),
+                f"{what}: a hand kernel launched: {launches}")
+        return
+    require(launches[name] == n and only_launched(launches, name),
+            f"{what}: launches {launches}, expected {name} x {n} alone")
+
+
+def print_lines(card, twin, printed, lines) -> None:
+    """The lines a twin printed, prefixed; they must be the lines its
+    result holds."""
+    want = [x for line in lines for x in line.split("\n") if x]
+    require(printed == want, f"{twin} printed {printed}, expected {want}")
+    for line in printed:
+        print(f"[{card}] {twin}: {line}")
+
+
+def arm_rows(t: torch.Tensor, lead: int) -> torch.Tensor:
+    """A leaf's (worker, or world and worker) rows, each flattened."""
+    return t.float().reshape(math.prod(t.shape[:lead]), -1)
+
+
+def same_replay(eng, ref, what: str, lead: int = 1) -> tuple[float, float]:
+    """A twin's arm (``state``, ``trace``) replayed through the kernels
+    against the same arm on the per-event path (the plain path, no hand
+    kernel), both on the card: x and x~ finite-or-not exactly, then each
+    worker's row within ENGINE_TOL of that row's largest magnitude (an
+    undefended lossy arm's rows grow to ~1e12 beside far smaller ones);
+    the loss and consensus traces likewise, at rtol ENGINE_TOL, atol 1e-6
+    on the finite entries.  ``lead`` is 2 for world-batched states.
+    Returns (the max abs err of x and x~, their bitwise share)."""
+    from repro_torch.core.tree import tree_leaves
+    err, same, total = 0.0, 0, 0
+    for part in ("x", "x_tilde"):
+        for a, r in zip(tree_leaves(getattr(eng.state, part)),
+                        tree_leaves(getattr(ref.state, part))):
+            a, r = arm_rows(a, lead), arm_rows(r, lead)
+            fin = torch.isfinite(r)
+            require(torch.equal(torch.isfinite(a), fin),
+                    f"{what} {part}: finite entries differ")
+            scale = torch.where(fin, r, 0).abs().amax(1, keepdim=True)
+            d = torch.where(fin, a - r, 0).abs()
+            require(bool((d <= ENGINE_TOL * scale).all()),
+                    f"{what} {part}: a row parts by more than "
+                    f"{ENGINE_TOL:g} of its largest magnitude")
+            err = max(err, float(d.max()))
+            same += int(((a == r) | (a.isnan() & r.isnan())).sum())
+            total += a.numel()
+    for name in ("loss", "consensus"):
+        a, r = getattr(eng.trace, name), getattr(ref.trace, name)
+        fin = torch.isfinite(r)
+        require(torch.equal(torch.isfinite(a), fin),
+                f"{what} {name}: finite entries differ")
+        torch.testing.assert_close(a[fin], r[fin], rtol=ENGINE_TOL,
+                                   atol=1e-6, msg=f"{what} {name}")
+    return err, same / total
+
+
+def check_worlds_clean(card, pw, b: int, w: int, d: int, d_real: int, gen
+                       ) -> float:
+    """``mixing_gossip_worlds`` against its plain version at f32 on (b, w,
+    d) buffers with the per-world dynamics ``pw``, idle rows in every
+    matching; the padding columns stay 0.  Returns the max abs err."""
+    from repro_torch.kernels.a2cid2_mixing import kernel as k
+    from repro_torch.kernels.a2cid2_mixing.ops import gossip_event_worlds
+    dev = torch.device("cuda")
+    partner = torch.stack([torch.from_numpy(involution(w, idle=w // 4,
+                                                       seed=d + i))
+                           for i in range(b)]).to(dev)
+    x, xt = (torch.randn(b, w, d, generator=gen, device=dev)
+             for _ in range(2))
+    x[:, :, d_real:] = 0
+    xt[:, :, d_real:] = 0
+    dt = torch.rand(b, w, generator=gen, device=dev) * 1.5
+    rx, rxt = gossip_event_worlds(x, xt, partner, dt, *pw, backend="ref")
+    kx, kxt = k.mixing_gossip_worlds(x, xt.clone(), partner, dt, *pw)
+    torch.cuda.synchronize()
+    err = max((kx - rx).abs().max().item(), (kxt - rxt).abs().max().item())
+    require(err <= F32_TOL, f"mixing_gossip_worlds ({b}, {w}, {d}): max abs "
+                            f"err {err} (tolerance {F32_TOL:g})")
+    require(bool((kx[:, :, d_real:] == 0).all()
+                 and (kxt[:, :, d_real:] == 0).all()),
+            f"mixing_gossip_worlds ({b}, {w}, {d}): padding columns not 0")
+    print(f"[{card}] worlds kernel vs plain torch.float32 ({b}, {w}, {d}): "
+          f"max abs err {err:.3e} (tolerance {F32_TOL:g}); {d - d_real} "
+          f"padding columns stay 0")
+    return err
+
+
+def example_kernel_checks(card, paths) -> dict:
+    """Each kernel of phase 30b against its plain version at every (shape,
+    dynamics) a twin's path launched it at, f32 as the twins run: ``paths``
+    holds (kernel, workers, FlatLayout, dynamics or per-world dynamics).
+    The clean kernel bit for bit (EXACT), the channel and worlds kernels
+    at F32_TOL, as phases 1, 4 and 5 hold them.  Returns each kernel's max
+    abs err."""
+    from repro_torch.kernels.a2cid2_mixing.kernel import mixing_gossip_stacked
+    from repro_torch.kernels.a2cid2_mixing.ops import gossip_event_stacked
+
+    def plain(*args, **kw):
+        return gossip_event_stacked(*args, backend="ref", **kw)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    errs = {}
+    for name, w, layout, dyn in paths:
+        d, d_real = layout.d, layout.d_real
+        if name == "mixing_gossip_stacked":
+            e, _ = check_kernel(card, mixing_gossip_stacked, plain, dyn, w, d,
+                                d_real, torch.float32, EXACT, gen,
+                                idle=w // 4)
+        elif name == "channel_gossip_stacked":
+            e, _ = check_channel(card, dyn, w, d, d_real, torch.float32,
+                                 F32_TOL, gen, False)
+        else:
+            e = check_worlds_clean(card, dyn, dyn[0].numel(), w, d, d_real,
+                                   gen)
+        errs[name] = max(errs.get(name, 0.0), e)
+        torch.cuda.empty_cache()
+    return errs
+
+
+def algo_dyn(p) -> dict:
+    """The kernels' dynamics arguments of an ``A2CiD2Params``."""
+    return dict(eta=p.eta, alpha=p.alpha, alpha_t=p.alpha_tilde)
+
+
+def lm_full_main(lm, dev, argv):
+    """``lm_decentralized``'s ``main`` on ``argv`` with a stream whose
+    entropy rate is not computed (the header reads ``bayes CE nan``): at
+    V = 32,000 it is 200 products of a vector with an 8.2 GB f64 matrix
+    in numpy on the host, which is no work of the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMTaskStream
+
+    class NoEntropyRate(LMTaskStream):
+        def bayes_ce(self) -> float:
+            return float("nan")
+
+    args = lm.build_parser().parse_args(argv)
+    cfg = get_config("nano-lm", reduced=not args.full)
+    stream = NoEntropyRate(vocab_size=cfg.vocab_size,
+                           seq_len=args.seq_len, batch_size=args.batch_size,
+                           concentration=0.15, device=dev)
+    header, out = lm.run(args, stream=stream)
+    print(header, flush=True)
+    for arm in out.values():
+        print(arm.line, flush=True)
+    return header, out
+
+
+def phase_examples(card, dev=None) -> tuple[dict, dict]:
+    """30b: the four example twins at their defaults, in this process,
+    each path (each quickstart section) driven with the launch counts set
+    to 0 just before it and read just after; then ``lm_decentralized
+    --full --rounds 4`` and ``python -m repro_torch.examples.quickstart``
+    in a subprocess.  Each quickstart section and the CIFAR arms are
+    replayed again on the per-event path and held against the kernels'
+    replay (``same_replay``), and each kernel is held against its plain
+    version at every shape and dynamics the paths launched it at
+    (``example_kernel_checks``).  Returns the launches of the paths and
+    each kernel's max abs err."""
+    from repro_torch.core import (Simulator, Telemetry, build_graph,
+                                  params_from_graph, ring_graph)
+    from repro_torch.core.flatbuf import FlatLayout
+    from repro_torch.examples import cifar_decentralized as cifar
+    from repro_torch.examples import lm_decentralized as lm
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.examples import serve_lm, two_arms
+    dev = dev or torch.device("cuda")
+    flag = ["--device", dev.type]
+    total = {name: 0 for name in KERNELS}
+    walls = {}
+    paths = []   # (kernel, workers, layout, dynamics) for the checks
+
+    def count(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    # -- quickstart, a path a section
+    expect = quickstart_paths(qs)
+    sections = {}
+    b = qs.draw_b()
+    for name, (kernel, n) in expect.items():
+        out, wall, launched, printed = timed_path(
+            dev, lambda name=name: qs.print_section(
+                qs.SECTIONS[name](b, qs.NOISE, qs.ROUNDS, dev)))
+        require_launched(launched, kernel, n, f"quickstart {name}")
+        count(launched)
+        sections[name] = out
+        walls[f"quickstart {name}"] = wall
+        print_lines(card, "quickstart", printed, out.lines)
+        print(f"[{card}] phase 30b: quickstart {name}: {wall:.2f} s, "
+              f"{kernel} x {n} (once a comm step of its streams)")
+        ref = qs.SECTIONS[name](b, qs.NOISE, qs.ROUNDS, dev, engine=False)
+        held = {arm: same_replay(out.runs[arm], ref.runs[arm],
+                                 f"quickstart {name} {arm}",
+                                 lead=2 if name == "sweep" else 1)
+                for arm in out.runs}
+        print(f"[{card}] phase 30b: quickstart {name} against its "
+              f"per-event replay on the card (rows within {ENGINE_TOL:g} "
+              f"of their largest magnitude): x, x~ max abs err, bitwise "
+              f"share: " + "; ".join(f"{arm} {e:.3e}, {sh:.4%}"
+                                     for arm, (e, sh) in held.items()))
+        del ref
+    ring = ring_graph(qs.N_WORKERS)
+    quad = FlatLayout.from_pytree(sections["calm"].runs["A2CiD2"].state.x,
+                                  stacked=True)
+    accel = params_from_graph(ring, accelerated=True)
+    paths += [("mixing_gossip_stacked", qs.N_WORKERS, quad,
+               algo_dyn(params_from_graph(ring, accelerated=False))),
+              ("mixing_gossip_stacked", qs.N_WORKERS, quad, algo_dyn(accel)),
+              ("channel_gossip_stacked", qs.N_WORKERS, quad,
+               algo_dyn(accel)),
+              ("mixing_gossip_worlds", qs.N_WORKERS, quad,
+               Simulator.world_params(
+                   [accel] * qs.sweep_worlds(qs.N_WORKERS).size, dev))]
+    calm = sections["calm"].runs
+    require(float(calm["A2CiD2"].trace.consensus[-1])
+            < float(calm["baseline"].trace.consensus[-1]),
+            "quickstart: A2CiD2's consensus is not below the baseline's")
+    heal = sections["self_healing"].runs
+    require(heal["adaptive defense"].number >= 1,
+            "quickstart: the adaptive defense rejected nothing")
+    # the static trim: 0 rejected reads, counted by a telemetry replay of
+    # its world, bit for bit the section's arm
+    sim = Simulator(
+        qs.quadratic_grad(0.2 * qs.draw_b()[0].to(dev), qs.NOISE),
+        params_from_graph(ring, accelerated=True), gamma=qs.GAMMA,
+        robust_clip=5.0, robust_rule="trim", device=dev)
+    world = dataclasses.replace(qs.sign_flip_world(ring, None),
+                                telemetry=Telemetry())
+    tfinal, ttrace = sim.run_world(qs._start(sim, qs.N_WORKERS, qs.DIM),
+                                   world, qs.ROUNDS, seed=0)
+    rejected = float(ttrace.telemetry.rejected.sum())
+    require(rejected == 0 and heal["static trim"].number == 0
+            and torch.equal(tfinal.x, heal["static trim"].state.x),
+            f"quickstart: the static trim rejected {rejected} reads or "
+            f"parted from its telemetry replay")
+    print(f"[{card}] phase 30b: quickstart gates: A2CiD2 "
+          f"{float(calm['A2CiD2'].trace.consensus[-1]):.4f} < baseline "
+          f"{float(calm['baseline'].trace.consensus[-1]):.4f}; adaptive "
+          f"defense rejected {heal['adaptive defense'].number:.0f}; static "
+          f"trim 0 (telemetry replay: {rejected:.0f} rejected, x bit for "
+          f"bit)")
+    del sections, calm, heal
+
+    # -- the two trainers: the clean kernel once a comm step of each arm
+    for twin, mod, argv, rounds in (
+            ("cifar_decentralized", cifar, [], 25),
+            ("lm_decentralized", lm, [], 200),
+            ("lm_decentralized --full", lm, ["--full", "--rounds", "4"], 4)):
+        args = mod.build_parser().parse_args(flag + argv)
+        graph = build_graph(getattr(args, "graph", "ring"), args.workers)
+        worlds, sched = two_arms(graph, args.rounds, args.seed)
+        n = 2 * stream_comm_steps(sched)
+        require(args.rounds == rounds, f"{twin}: {args.rounds} rounds")
+        if getattr(args, "full", False):
+            def twin_main():
+                return lm_full_main(lm, dev, flag + argv)
+        else:
+            def twin_main():
+                return mod.main(flag + argv)
+        out, wall, launched, printed = timed_path(dev, twin_main)
+        require_launched(launched, "mixing_gossip_stacked", n, twin)
+        count(launched)
+        walls[twin] = wall
+        arms = out if mod is cifar else out[1]
+        for kind, arm in arms.items():
+            require(bool(torch.isfinite(arm.trace.loss).all()),
+                    f"{twin} {kind}: non-finite loss")
+        print_lines(card, twin, printed, ([] if mod is cifar else [out[0]])
+                    + [arm.line for arm in arms.values()])
+        print(f"[{card}] phase 30b: {twin}: {wall:.2f} s, "
+              f"mixing_gossip_stacked x {n} (2 arms x {n // 2} comm steps)"
+              f", losses finite")
+        layout = FlatLayout.from_pytree(arms["a2cid2"].state.x, stacked=True)
+        paths += [("mixing_gossip_stacked", args.workers, layout,
+                   algo_dyn(world.algorithm_params()))
+                  for world in worlds.values()]
+        if mod is cifar:
+            ref = cifar.run(args, engine=False)
+            held = {kind: same_replay(arms[kind], ref[kind],
+                                      f"{twin} {kind}") for kind in arms}
+            print(f"[{card}] phase 30b: {twin} against its per-event replay"
+                  f" on the card (rows within {ENGINE_TOL:g} of their "
+                  f"largest magnitude, loss trace at rtol {ENGINE_TOL:g}):"
+                  f" x, x~ max abs err, bitwise share: "
+                  + "; ".join(f"{kind} {e:.3e}, {sh:.4%} (test acc "
+                              f"{arms[kind].test_acc:.2f} / "
+                              f"{ref[kind].test_acc:.2f})"
+                              for kind, (e, sh) in held.items()))
+            del ref
+        del out, arms
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # -- the serving fleet: the per-event replay, no hand kernel
+    rep, wall, launched, printed = timed_path(dev,
+                                              lambda: serve_lm.main(flag))
+    require_launched(launched, None, 0, "serve_lm")
+    require(rep.lost == 0 and rep.restarted >= 1,
+            f"serve_lm: lost {rep.lost}, restarted {rep.restarted}")
+    walls["serve_lm"] = wall
+    print_lines(card, "serve_lm", printed, serve_lm.report_lines(rep))
+    print(f"[{card}] phase 30b: serve_lm: {wall:.2f} s, no hand kernel, "
+          f"lost 0, restarted {rep.restarted}")
+    del rep
+
+    # -- each kernel against its plain version at the paths' shapes
+    errs = example_kernel_checks(card, paths) if dev.type == "cuda" else {}
+    print(f"[{card}] phase 30b: kernels against their plain versions at the"
+          f" twins' shapes and dynamics ("
+          + ", ".join(sorted({f"{k} ({'6, ' if 'worlds' in k else ''}{w}, "
+                              f"{lay.d})" for k, w, lay, _ in paths}))
+          + "): max abs err " + ", ".join(f"{k} {e:.3e}"
+                                          for k, e in errs.items()))
+
+    # -- the module alone, on the card by default
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m",
+                          "repro_torch.examples.quickstart"]
+                         + ([] if dev.type == "cuda" else flag),
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env={**os.environ,
+                                           "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    lines = [x for x in run.stdout.splitlines() if x]
+    require(run.returncode == 0 and len(lines) == 19
+            and lines[0].startswith("ring graph: chi1="),
+            f"python -m repro_torch.examples.quickstart: rc "
+            f"{run.returncode}, {len(lines)} lines; {run.stderr[-2000:]}")
+    walls["quickstart (subprocess)"] = wall
+    print(f"[{card}] phase 30b: python -m repro_torch.examples.quickstart "
+          f"(no flags, its own process): rc 0, {len(lines)} lines in "
+          f"{wall:.2f} s")
+    print(f"[{card}] phase 30b: wall s " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()))
+    return total, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5282,6 +5798,18 @@ def main() -> int:
                                 resnet_grad_fn).items():
         launches[name] += n
     print(f"[{card}] phases 1-29 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_rmsnorm_vjp(card)
+    torch.cuda.empty_cache()
+    example_launches, example_errs = phase_examples(card)
+    for name, n in example_launches.items():
+        launches[name] += n
+    for name, e in example_errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+    print(f"[{card}] phase 30: {time.perf_counter() - t0:.1f} s")
+    print(f"[{card}] phases 1-30 done at {time.perf_counter() - t_start:.1f}"
           f" s")
 
     print(card)

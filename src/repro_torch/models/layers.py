@@ -62,18 +62,60 @@ def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
 
 # -------------------------------------------------------------------- norms
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
-            ) -> torch.Tensor:
-    """RMSNorm with the JAX layer's rounding: the sum of squares in f32 as
-    a dot (the JAX layer's einsum, so that both count its FLOPs), ``inv``
-    rounded to x's dtype, then ``(x * inv) * (1 + scale)`` in x's dtype.
-    Autograd differentiates it; the JAX package's custom VJP is the same
-    function written out to keep its cotangents in x's dtype."""
-    dt = x.dtype
+def _rms_inv(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """rsqrt(mean x² + eps) in f32, the sum of squares as a dot (the JAX
+    layer's einsum, so that both count its FLOPs)."""
     x32 = x.float()
     var = torch.einsum("...d,...d->...", x32, x32)[..., None] / x.shape[-1]
-    inv = torch.rsqrt(var + eps).to(dt)
-    return (x * inv) * (1.0 + scale.to(dt))
+    return torch.rsqrt(var + eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The JAX layer's ``_rmsnorm_fwd`` / ``_rmsnorm_bwd``, line for line.
+    The forward also returns ``inv`` (non-differentiable) so that the
+    backward reads it; ``generate_vmap_rule`` lets ``torch.func`` run it."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, scale, eps):
+        dt = x.dtype
+        inv = _rms_inv(x, eps).to(dt)
+        return (x * inv) * (1.0 + scale.to(dt)), inv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, _ = inputs
+        inv = output[1]
+        ctx.mark_non_differentiable(inv)
+        ctx.save_for_backward(x, scale, inv)
+
+    @staticmethod
+    def backward(ctx, g, _):
+        x, scale, inv = ctx.saved_tensors
+        dt = x.dtype
+        gs = g * (1.0 + scale.to(dt))
+        # the row scalar sum(g * s' * x) in f32 as one dot
+        dot = torch.einsum("...d,...d->...", gs.float(), x.float())
+        coef = (dot[..., None] / x.shape[-1]).to(dt) * (inv * inv * inv)
+        gx = gs * inv - x * coef
+        gscale = (g * x * inv).float()
+        if g.dim() > 1:       # JAX sums over every axis but the last
+            gscale = gscale.sum(dim=tuple(range(g.dim() - 1)))
+        return gx, gscale.to(scale.dtype), None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """RMSNorm with the JAX layer's rounding and its custom VJP.
+
+    Forward: the sum of squares in f32 as a dot, ``inv`` rounded to x's
+    dtype, then ``(x * inv) * (1 + scale)`` in x's dtype.  Backward
+    (``_RMSNorm``): every cotangent in x's dtype, only the row dot
+    ``(g * (1 + scale)) · x`` taken in f32, and the scale's gradient
+    summed in f32 and cast to the scale's dtype; at bf16 it is bit for bit
+    JAX's, where autograd through the f32 upcast was not."""
+    return _RMSNorm.apply(x, scale, eps)[0]
 
 
 def init_rmsnorm(dim: int, dtype, device=None) -> torch.Tensor:

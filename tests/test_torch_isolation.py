@@ -15,7 +15,10 @@ RecurrentGemma each build and take a forward and a decode step, and
 (``shapes``, ``sharding``, ``launch.shardings``, ``launch.mesh``,
 ``launch.steps.bundle_for``, ``analysis.op_cost`` and ``roofline``,
 ``launch.dryrun``) traces a reduced train step on the meta device there
-and counts full DeepSeek-V3's parameters without a card."""
+and counts full DeepSeek-V3's parameters without a card.  The quickstart
+twin (``repro_torch.examples``) runs its calm-ring section at 4 workers
+there, RMSNorm's custom VJP runs under ``vmap`` of ``grad``, and the
+twin's ``main`` without ``--device cpu`` refuses."""
 import os
 import subprocess
 import sys
@@ -197,6 +200,23 @@ PROBE = textwrap.dedent("""
         except RuntimeError:
             refused += 1
     print("SERVE_REFUSED", refused)
+    from repro_torch.examples import quickstart
+    calm = quickstart.calm_ring(quickstart.draw_b(4, 8), quickstart.NOISE,
+                                5, "cpu")
+    print("QUICKSTART", len(calm.lines), sorted(calm.runs),
+          tuple(calm.runs["A2CiD2"].trace.consensus.shape),
+          bool(torch.isfinite(calm.runs["A2CiD2"].trace.consensus).all()))
+    from repro_torch.models.layers import rmsnorm
+    rx, rs = torch.randn(3, 2, 16), torch.randn(3, 16)
+    rgx, rgs = torch.func.vmap(torch.func.grad(
+        lambda a, b: rmsnorm(a, b).sum(), argnums=(0, 1)))(rx, rs)
+    print("RMSNORM", tuple(rgx.shape), tuple(rgs.shape),
+          bool(torch.isfinite(rgx).all() and torch.isfinite(rgs).all()))
+    try:
+        quickstart.main(["--rounds", "2"])
+        print("EXAMPLE_REFUSED", False)
+    except RuntimeError:
+        print("EXAMPLE_REFUSED", True)
 """)
 
 
@@ -209,7 +229,8 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
                  if line.startswith(("LEAKED", "WORLDS", "CUDA", "BANK",
                                      "STEP", "TELEMETRY", "TRAIN", "SERVE",
                                      "BATCH", "FLEET", "ZOO_GRAD",
-                                     "SHARDED", "DRYRUN")))
+                                     "SHARDED", "DRYRUN", "QUICKSTART",
+                                     "RMSNORM", "EXAMPLE_REFUSED")))
     models = [line for line in out.stdout.splitlines()
               if line.startswith("MODEL")]
     assert models == ["MODEL xla (1, 8, 512)", "MODEL pallas (1, 8, 512)"]
@@ -230,10 +251,13 @@ def test_port_imports_without_jax_and_refuses_cpu_by_default():
                                 "mamba2-780m", "recurrentgemma-9b")]
     assert lines["ZOO_GRAD"] == "(2,) (2, 512, 256) True"
     assert lines["DRYRUN"] == "True True True True True 18.0 data"
+    assert lines["QUICKSTART"] == "3 ['A2CiD2', 'baseline'] (5,) True"
+    assert lines["RMSNORM"] == "(3, 2, 16) (3, 16) True"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CPU-refusal half does not apply")
     assert lines["CUDA"] == "False REFUSED 4"
     assert lines["SERVE_REFUSED"] == "2"
+    assert lines["EXAMPLE_REFUSED"] == "True"
 
 
 def test_explicit_cpu_is_accepted():

@@ -7,9 +7,10 @@ hold here on eager loops, where every iteration dispatches its ops.  Then
 ``record`` (the hand kernels' report), views, peaks and collectives, and
 the counted FLOPs of reduced nano-lm's prefill and train steps against
 JAX's ``cost_from_hlo`` of the compiled steps on the CPU: the prefill
-exactly (within rel 1e-3), the train step within 2% (the port's autograd
-differentiates RMSNorm's sum-of-squares dot with two products where the
-JAX package's custom VJP takes one).
+and the train step exactly (within rel 1e-3; the train step was 4.8e-4
+over while autograd differentiated RMSNorm's sum-of-squares dot with two
+products, and is exact since the port takes the JAX package's custom
+VJP, one product).
 """
 import jax
 import jax.numpy as jnp
@@ -206,7 +207,7 @@ def test_train_flops_within_two_percent_of_jax(nano):
     step, opt = steps.make_train_step(m, num_microbatches=M)
     batch = {k: _meta_tokens((M, B // M, S)) for k in ("inputs", "labels")}
     _, cost = count(step, steps.abstract_train_state(m, opt), batch)
-    assert cost.flops == pytest.approx(want, rel=0.02)
+    assert cost.flops == pytest.approx(want, rel=1e-3)
     # remat recounts the forward: more FLOPs than without it
     plain, _ = steps.make_train_step(m, num_microbatches=M, remat=False)
     _, no_remat = count(plain, steps.abstract_train_state(m, opt), batch)
