@@ -1,6 +1,7 @@
 """Host-side metrics registry with Prometheus-style text exposition
-(DESIGN.md §15), a copy of ``repro.analysis.metrics`` (stdlib only), so
-that the port imports nothing of the JAX package.
+(DESIGN.md §15), a copy of ``repro.analysis.metrics`` (stdlib only)
+without its JSON ``snapshot``, so that the port imports nothing of the JAX
+package.
 
 The span tracer (``analysis/tracing.py``) answers "when did the host do
 what"; this registry answers "how much, in total" — monotonic counters,
@@ -12,10 +13,8 @@ point-in-time gauges, and bucketed histograms, labeled Prometheus-style:
     reg.histogram("fleet_ttft_rounds", "time to first token",
                   buckets=(1, 2, 4, 8)).observe(3.0)
     text = reg.exposition()     # Prometheus text format 0.0.4
-    snap = reg.snapshot()       # JSON-able dict for BENCH_*.json
 
-Stdlib-only, no server: benchmarks embed ``snapshot()`` in their JSON
-artifacts and write ``exposition()`` next to them, so any Prometheus
+Stdlib-only, no server: ``exposition()`` is plain text, so any Prometheus
 scraper (or a human with grep) can read fleet health without the repo.
 """
 from __future__ import annotations
@@ -175,23 +174,6 @@ class MetricsRegistry:
                 lines.append(f"{name}_sum{key} {_fmt_value(child.sum)}")
                 lines.append(f"{name}_count{key} {child.count}")
         return "\n".join(lines) + ("\n" if lines else "")
-
-    def snapshot(self) -> dict:
-        """JSON-able dump (embedded in ``BENCH_*.json`` artifacts)."""
-        out: dict = {}
-        for name, (kind, help_, children) in self._families.items():
-            fam: dict = {"type": kind, "help": help_, "series": {}}
-            for key, child in children.items():
-                if kind in ("counter", "gauge"):
-                    fam["series"][key or "{}"] = child.value
-                else:
-                    fam["series"][key or "{}"] = {
-                        "count": child.count, "sum": child.sum,
-                        "buckets": dict(zip(
-                            [_fmt_value(e) for e in child.edges]
-                            + ["+Inf"], child.cumulative()))}
-            out[name] = fam
-        return out
 
 
 def parse_exposition(text: str) -> dict:

@@ -1,6 +1,7 @@
-"""Host-side span tracer: Chrome-trace-event JSON (DESIGN.md §15), a
-copy of ``repro.analysis.tracing`` (stdlib only), so that the port imports
-nothing of the JAX package.
+"""Span tracer: Chrome-trace-event JSON (DESIGN.md §15).  It began as a
+copy of ``repro.analysis.tracing`` and adds what the port's replay needs:
+an active tracer that the program's own code records to, parent links,
+device time on CUDA events, profiler ranges and garbage-collector pauses.
 
 The compiled side of the flight recorder (``core/telemetry.py``) records
 WHAT the replay did, per round, as data on the scan carry.  This module
@@ -23,16 +24,117 @@ one ``time.perf_counter`` origin captured at construction, so spans from
 different subsystems (fleet loop, benchmark harness) line up on one
 timeline.  ``validate_trace`` is the schema gate used by the tests and
 the CI trace-smoke step.
+
+Spans nest: each ``span`` carries its own ``id`` and its parent's
+(``parent``, 0 at the top) in its args, from a stack per thread; a
+``counter`` sample names the innermost open span as its ``parent`` and
+adds its values to that span's args.  A tracer made with a CUDA
+``device`` also records a CUDA event pair on the current stream around
+each span; ``resolve`` reads the pairs once the work is done and adds
+``device_ms`` to the span's args.  Nothing synchronises while spans are
+recorded, and the events stay in memory until ``to_dict``/``write``.
+
+The program records to the *active* tracer through the module-level
+``span(name, **args)`` and ``count(name, **values)``:
+
+    tracer = SpanTracer("run", device=torch.device("cuda"))
+    with tracer.activate():
+        sim.run_schedule(state, sched)      # replay.* spans and counters
+    tracer.resolve()
+
+With no tracer active, ``span`` returns one shared null context and
+``count`` returns at once: no event, no profiler range, no list append.
+While a tracer is active, each of its spans also opens a
+``torch.profiler.record_function`` range of the same name, so under
+``torch.profiler`` the program's spans sit on the device trace's clock
+next to the kernels they launched, and a ``gc.callbacks`` hook records
+each collection as a ``python.gc`` span (its generation and the objects
+it collected).
 """
 from __future__ import annotations
 
+import gc
 import json
+import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any
+
+import torch
 
 # trace-event phases we emit (and validate_trace accepts)
 _PHASES = {"X", "C", "i", "M"}
+
+# the tracer that ``span`` and ``count`` record to (``SpanTracer.activate``)
+_active: SpanTracer | None = None
+_NULL = nullcontext()
+
+
+def active() -> SpanTracer | None:
+    """The active tracer, or None."""
+    return _active
+
+
+def span(name: str, **args):
+    """A span of the active tracer (``with span("replay.tick"): ...``);
+    the shared null context when none is active."""
+    tracer = _active
+    return _NULL if tracer is None else tracer.span(name, args=args)
+
+
+def count(name: str, **values) -> None:
+    """A counter sample of the active tracer; nothing when none is
+    active."""
+    tracer = _active
+    if tracer is not None:
+        tracer.counter(name, values)
+
+
+class _Span:
+    """One open span of ``tracer`` (``SpanTracer.span``)."""
+
+    __slots__ = ("tracer", "name", "pid", "tid", "args", "id", "t0",
+                 "start", "rf")
+
+    def __init__(self, tracer: SpanTracer, name: str, pid: int, tid: int,
+                 args: dict):
+        self.tracer, self.name, self.pid, self.tid = tracer, name, pid, tid
+        self.args = args
+
+    def __enter__(self) -> SpanTracer:
+        tr = self.tracer
+        stack = tr._stack()
+        tr._last_id += 1
+        self.id = tr._last_id
+        self.args["id"] = self.id
+        self.args["parent"] = stack[-1].id if stack else 0
+        stack.append(self)
+        self.rf = None
+        if tr is _active:
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.start = None
+        if tr.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        self.t0 = tr.now_us()
+        return tr
+
+    def __exit__(self, *exc) -> bool:
+        tr = self.tracer
+        t1 = tr.now_us()
+        ev = {"ph": "X", "name": self.name, "pid": self.pid,
+              "tid": self.tid, "ts": self.t0, "dur": t1 - self.t0,
+              "args": _jsonable(self.args)}
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            tr._pending.append((ev, self.start, end))
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        tr._stack().pop()
+        tr.events.append(ev)
+        return False
 
 
 class SpanTracer:
@@ -43,13 +145,18 @@ class SpanTracer:
     """
 
     def __init__(self, process: str = "repro", *,
-                 metadata: dict | None = None):
+                 metadata: dict | None = None, device=None):
         self._origin = time.perf_counter()
         self.events: list[dict] = []
         self.metadata: dict = dict(metadata or {})
         self._pids: dict[str, int] = {}
         self._tids: dict[tuple[int, str], int] = {}
         self._root = process
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        self._local = threading.local()
+        self._last_id = 0
+        self._pending: list[tuple[dict, Any, Any]] = []
+        self._gc_open: tuple | None = None
         self.process(process)
 
     # ------------------------------------------------------------- identity
@@ -79,22 +186,21 @@ class SpanTracer:
         return (time.perf_counter() - self._origin) * 1e6
 
     # --------------------------------------------------------------- events
-    @contextmanager
     def span(self, name: str, *, process: str | None = None,
-             lane: str = "main", args: dict | None = None):
+             lane: str = "main", args: dict | None = None) -> _Span:
         """Context manager emitting one complete ("X") span.  ``process``
         defaults to the tracer's root process (every emitter below
         does)."""
         pid = self.process(process or self._root)
-        tid = self.thread(pid, lane)
-        t0 = self.now_us()
-        try:
-            yield self
-        finally:
-            self.events.append({
-                "ph": "X", "name": name, "pid": pid, "tid": tid,
-                "ts": t0, "dur": self.now_us() - t0,
-                "args": _jsonable(args or {})})
+        return _Span(self, name, pid, self.thread(pid, lane),
+                     dict(args or {}))
+
+    def _stack(self) -> list[_Span]:
+        """This thread's open spans, innermost last."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     def complete(self, name: str, ts_us: float, dur_us: float, *,
                  process: str | None = None, lane: str = "main",
@@ -120,12 +226,66 @@ class SpanTracer:
     def counter(self, name: str, values: dict, *,
                 process: str | None = None) -> None:
         """A counter ("C") sample: ``values`` maps series name -> number
-        (one multi-series counter track per ``name``)."""
+        (one multi-series counter track per ``name``).  Inside an open
+        span the sample names it as ``parent`` and adds its values to the
+        span's args."""
         pid = self.process(process or self._root)
+        stack = self._stack()
+        if stack:
+            stack[-1].args.update(values)
         self.events.append({"ph": "C", "name": name, "pid": pid, "tid": 0,
                             "ts": self.now_us(),
+                            "parent": stack[-1].id if stack else 0,
                             "args": {k: float(v) for k, v in
                                      values.items()}})
+
+    # ---------------------------------------------------- active recording
+    @contextmanager
+    def activate(self):
+        """Install this tracer as the one that ``span`` and ``count``
+        record to, and hook the garbage collector, until the block ends."""
+        global _active
+        prev, _active = _active, self
+        gc.callbacks.append(self._on_gc)
+        try:
+            yield self
+        finally:
+            gc.callbacks.remove(self._on_gc)
+            _active = prev
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        """``gc.callbacks`` hook: each collection as a ``python.gc`` span
+        under the innermost open span, with a profiler range."""
+        if phase == "start":
+            rf = torch.profiler.record_function("python.gc")
+            rf.__enter__()
+            self._gc_open = (self.now_us(), rf)
+            return
+        if self._gc_open is None:
+            return
+        t0, rf = self._gc_open
+        self._gc_open = None
+        rf.__exit__(None, None, None)
+        stack = self._stack()
+        self._last_id += 1
+        pid = self.process(self._root)
+        self.events.append({
+            "ph": "X", "name": "python.gc", "pid": pid,
+            "tid": self.thread(pid, "main"), "ts": t0,
+            "dur": self.now_us() - t0,
+            "args": {"generation": info["generation"],
+                     "collected": info["collected"], "id": self._last_id,
+                     "parent": stack[-1].id if stack else 0}})
+
+    def resolve(self) -> SpanTracer:
+        """Wait for the device, then add each recorded span's CUDA event
+        time to its args as ``device_ms``."""
+        if self._pending:
+            torch.cuda.synchronize()
+            for ev, start, end in self._pending:
+                ev["args"]["device_ms"] = start.elapsed_time(end)
+            self._pending.clear()
+        return self
 
     # ----------------------------------------------------------- serialize
     def to_dict(self) -> dict:

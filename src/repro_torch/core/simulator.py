@@ -66,6 +66,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..analysis import tracing
 from ..device import resolve_device
 from ..kernels.a2cid2_mixing.ref import dtype_scalar
 from .a2cid2 import (A2CiD2Params, apply_mixing, consensus_distance,
@@ -147,6 +148,20 @@ def _stack_rows(rows, cls, dim: int = 0):
     """Per-round tuples of 0-d tensors -> ``cls`` of (rounds,) tensors; of
     (B,) tensors with ``dim=1`` -> (B, rounds)."""
     return cls(*(torch.stack(c, dim=dim) for c in zip(*rows)))
+
+
+def _count_call(engine: FlatGossipEngine, n: int, is_grad, grad_pos,
+                pairs) -> None:
+    """The replay call's counters, from host data only: rounds, gradient
+    ticks, comm steps, the directed pairs they exchange, and the bytes the
+    comm steps move at least (x and x~ of each of the n workers read and
+    written once a step: 4 n D element sizes)."""
+    comm = ~np.asarray(is_grad, dtype=bool)
+    steps = int(comm.sum())
+    row_bytes = engine.layout.d * engine.layout.buf_dtype.itemsize
+    tracing.count("replay", rounds=len(grad_pos), ticks=len(comm) - steps,
+                  steps=steps, pairs=int(pairs[comm].sum()),
+                  comm_bytes=steps * 4 * n * row_bytes)
 
 
 def _check_telemetry(telemetry) -> None:
@@ -500,13 +515,17 @@ class Simulator:
     def coalesced_arrays(self, state: SimState, sched: Schedule):
         """Compile a schedule + start clocks into the engine's inputs:
         ``(prologue, partners, dt_next, is_grad, grad_scale, grad_pos,
-        t_final)``.  ``is_grad`` and ``grad_pos`` stay host numpy (they
-        steer the loop); the rest is copied to the device once."""
+        t_final, pairs)``.  ``is_grad``, ``grad_pos`` and ``pairs`` (the
+        directed pairs each step exchanges, counted before the copy) stay
+        host numpy: they steer the loop and label its spans; the rest is
+        copied to the device once."""
         return self._stream_arrays(state, sched)[0]
 
     def _stream_arrays(self, state: SimState, sched: Schedule):
         stream = coalesced_stream(coalesce_schedule(sched),
                                   state.t_last.cpu().numpy())
+        partners = np.asarray(stream.partners)
+        pairs = (partners != np.arange(partners.shape[1])).sum(axis=1)
         dev = self.device
         return (torch.as_tensor(stream.prologue, device=dev),
                 torch.as_tensor(stream.partners, device=dev),
@@ -514,23 +533,33 @@ class Simulator:
                 stream.is_grad, torch.as_tensor(stream.grad_scale,
                                                 device=dev),
                 stream.grad_pos, torch.as_tensor(stream.t_final,
-                                                 device=dev)), stream
+                                                 device=dev),
+                pairs), stream
 
     def _grad_tick(self, engine: FlatGossipEngine, bx, bxt, generator,
                    gscale, ids, gamma: float | None = None):
         """The engine's gradient tick: the batched gradient on the unpacked
         buffer, the step (``gamma``, default ``self.gamma``) on both buffers
         and the round's metrics row (the trailing mixing segment is the
-        caller's)."""
+        caller's).  Spans: ``replay.tick`` over ``replay.grad``,
+        ``replay.descend`` and ``replay.row``."""
         n = ids.shape[0]
-        losses, grads = self.grad_fn(engine.unpack(bx), generator, ids)
-        bx, bxt = self._descend(engine, bx, bxt, grads, gscale,
-                                self.gamma if gamma is None else gamma)
-        mean = bx.mean(dim=0, keepdim=True)
-        # padding columns are zero across workers: they add 0 to both
-        return bx, bxt, (losses.mean().float(),
-                         (((bx - mean) ** 2).sum() / n).float(),
-                         (mean ** 2).sum().float())
+        with tracing.span("replay.tick"):
+            with tracing.span("replay.grad"):
+                losses, grads = self.grad_fn(engine.unpack(bx), generator,
+                                             ids)
+            with tracing.span("replay.descend"):
+                bx, bxt = self._descend(engine, bx, bxt, grads, gscale,
+                                        self.gamma if gamma is None
+                                        else gamma)
+            with tracing.span("replay.row"):
+                mean = bx.mean(dim=0, keepdim=True)
+                # padding columns are zero across workers: they add 0 to
+                # both
+                row = (losses.mean().float(),
+                       (((bx - mean) ** 2).sum() / n).float(),
+                       (mean ** 2).sum().float())
+        return bx, bxt, row
 
     @staticmethod
     def _descend(engine: FlatGossipEngine, bx, bxt, grads, gscale,
@@ -548,24 +577,32 @@ class Simulator:
         """Flat-buffer engine replay of a coalesced event stream (hot path):
         one fused kernel launch per comm step, a batched gradient call and
         a plain mixing sweep per gradient tick."""
-        (prologue, partners, dt_next, is_grad, grad_scale, _grad_pos,
-         t_final) = stream_arrays
+        (prologue, partners, dt_next, is_grad, grad_scale, grad_pos,
+         t_final, pairs) = stream_arrays
         engine = FlatGossipEngine.for_pytree(state.x, self.params)
-        bx = engine.pack(state.x)
-        bxt = engine.pack(state.x_tilde)
-        bx, bxt = engine.mix(bx, bxt, prologue)
+        if tracing.active() is not None:
+            _count_call(engine, prologue.shape[0], is_grad, grad_pos,
+                        pairs)
+        with tracing.span("replay.pack"):
+            bx = engine.pack(state.x)
+            bxt = engine.pack(state.x_tilde)
+        with tracing.span("replay.mix"):
+            bx, bxt = engine.mix(bx, bxt, prologue)
         ids = torch.arange(prologue.shape[0], device=bx.device)
         rows = []
         for s in range(len(is_grad)):
             if not is_grad[s]:
-                bx, bxt = engine.batch(bx, bxt, partners[s], dt_next[s])
+                with tracing.span("replay.comm", pairs=pairs[s]):
+                    bx, bxt = engine.batch(bx, bxt, partners[s], dt_next[s])
                 continue
             bx, bxt, row = self._grad_tick(engine, bx, bxt, state.generator,
                                            grad_scale[s], ids)
             rows.append(row)
-            bx, bxt = engine.mix(bx, bxt, dt_next[s])
-        final = SimState(engine.unpack(bx), engine.unpack(bxt), t_final,
-                         state.generator)
+            with tracing.span("replay.mix"):
+                bx, bxt = engine.mix(bx, bxt, dt_next[s])
+        with tracing.span("replay.unpack"):
+            final = SimState(engine.unpack(bx), engine.unpack(bxt), t_final,
+                             state.generator)
         # one row per gradient tick, in round order (= grad_pos order)
         return final, _stack_rows(rows, SimTrace)
 
@@ -605,14 +642,19 @@ class Simulator:
         a telemetry spec ``tel`` the accumulator folds in each comm step
         (one more delta-norm reduce a step off the defense path) and is
         emitted and reset at each gradient tick, all on the device."""
-        (prologue, partners, dt_next, is_grad, grad_scale, _grad_pos,
-         t_final, corrupt, src_slot, ring_pos) = stream_arrays
+        (prologue, partners, dt_next, is_grad, grad_scale, grad_pos,
+         t_final, pairs, corrupt, src_slot, ring_pos) = stream_arrays
         engine = FlatGossipEngine.for_pytree(state.x, self.params,
                                              robust_clip=self.robust_clip,
                                              robust_rule=self.robust_rule)
-        bx = engine.pack(state.x)
-        bxt = engine.pack(state.x_tilde)
-        bx, bxt = engine.mix(bx, bxt, prologue)
+        if tracing.active() is not None:
+            _count_call(engine, prologue.shape[0], is_grad, grad_pos,
+                        pairs)
+        with tracing.span("replay.pack"):
+            bx = engine.pack(state.x)
+            bxt = engine.pack(state.x_tilde)
+        with tracing.span("replay.mix"):
+            bx, bxt = engine.mix(bx, bxt, prologue)
         n = prologue.shape[0]
         ids = torch.arange(n, device=bx.device)
         ring = ring_init(bx, horizon) if horizon else None
@@ -621,29 +663,31 @@ class Simulator:
         rows, drows, trows = [], [], []
         for s in range(len(is_grad)):
             if not is_grad[s]:
-                partner = partners[s]
-                if horizon:
-                    xp = engine.partner_values(ring, bx, partner,
-                                               src_slot[s])
-                else:
-                    xp = bx.index_select(0, partner.long())
-                if ds is None:
+                with tracing.span("replay.comm", pairs=pairs[s]):
+                    partner = partners[s]
+                    if horizon:
+                        xp = engine.partner_values(ring, bx, partner,
+                                                   src_slot[s])
+                    else:
+                        xp = bx.index_select(0, partner.long())
+                    if ds is None:
+                        if acc is not None:
+                            nrm = engine.delta_norms(bx, xp, corrupt[s])
+                            acc = _tel_step(acc, partner != ids,
+                                            self._tel_rej(nrm), nrm)
+                        bx, bxt = engine.channel_batch(bx, bxt, xp,
+                                                       corrupt[s],
+                                                       dt_next[s])
+                        continue
+                    nrm = engine.delta_norms(bx, xp, corrupt[s])
+                    involved = partner != ids
+                    mscale, quar, ds = defense_comm(knobs, ds, partner,
+                                                    involved, nrm)
+                    bx, bxt, rej = engine.channel_batch_scaled(
+                        bx, bxt, xp, corrupt[s], mscale, dt_next[s])
+                    ds = defense_absorb(ds, rej, quar, involved)
                     if acc is not None:
-                        nrm = engine.delta_norms(bx, xp, corrupt[s])
-                        acc = _tel_step(acc, partner != ids,
-                                        self._tel_rej(nrm), nrm)
-                    bx, bxt = engine.channel_batch(bx, bxt, xp, corrupt[s],
-                                                   dt_next[s])
-                    continue
-                nrm = engine.delta_norms(bx, xp, corrupt[s])
-                involved = partner != ids
-                mscale, quar, ds = defense_comm(knobs, ds, partner,
-                                                involved, nrm)
-                bx, bxt, rej = engine.channel_batch_scaled(
-                    bx, bxt, xp, corrupt[s], mscale, dt_next[s])
-                ds = defense_absorb(ds, rej, quar, involved)
-                if acc is not None:
-                    acc = _tel_step(acc, involved, rej, nrm)
+                        acc = _tel_step(acc, involved, rej, nrm)
                 continue
             bx, bxt, row = self._grad_tick(engine, bx, bxt, state.generator,
                                            grad_scale[s], ids)
@@ -656,9 +700,11 @@ class Simulator:
                 drows.append(drow)
             if horizon:
                 ring_push(ring, bx, int(ring_pos[s]))
-            bx, bxt = engine.mix(bx, bxt, dt_next[s])
-        final = SimState(engine.unpack(bx), engine.unpack(bxt), t_final,
-                         state.generator)
+            with tracing.span("replay.mix"):
+                bx, bxt = engine.mix(bx, bxt, dt_next[s])
+        with tracing.span("replay.unpack"):
+            final = SimState(engine.unpack(bx), engine.unpack(bxt), t_final,
+                             state.generator)
         trace = _finish(_stack_rows(rows, SimTrace),
                         None if tel is None else trows)
         if ds is not None:
@@ -688,10 +734,18 @@ class Simulator:
         ``telemetry`` is a ``TelemetryTrace``.  On the CPU a tree that no
         flat buffer can hold (e.g. int leaves) takes the per-event path; on
         the card it is refused, so the kernels are never skipped
-        quietly."""
+        quietly.
+
+        With a tracer active (``analysis.tracing``) the call is one
+        ``replay.call`` span (args: the flavour, the rounds, and the
+        counters of ``_count_call`` on the engine paths) over
+        ``replay.compile`` (the host compile of the schedule and its copies
+        to the device) and the replay's own spans."""
         if mesh is not None:
-            return self._run_schedule_sharded(state, sched, engine, defense,
-                                              telemetry, mesh)
+            with tracing.span("replay.call", flavour="sharded",
+                              rounds=sched.rounds):
+                return self._run_schedule_sharded(state, sched, engine,
+                                                  defense, telemetry, mesh)
         _check_telemetry(telemetry)
         tel = telemetry
         active = defense is not None and defense.is_active
@@ -723,18 +777,28 @@ class Simulator:
         rb = self._row_bytes(state) if tel is not None and tel.bytes_moved \
             else 0
         cols = schedule_columns(tel, sched) if tel is not None else None
-        if engine and channel:
-            arrays, horizon = self.channel_coalesced_arrays(state, sched)
-            out = self.run_channel_coalesced(state, arrays, horizon, knobs,
-                                             tel)
-        elif engine:
-            return self.run_coalesced(state,
-                                      self.coalesced_arrays(state, sched))
-        elif channel:
-            arrays, horizon = self.channel_reference_arrays(sched)
-            out = self.run_channel(state, arrays, horizon, knobs, tel)
-        else:
-            return self.run(state, self.reference_arrays(sched))
+        flavour = ("channel_coalesced" if channel else "coalesced") \
+            if engine else ("channel" if channel else "event")
+        with tracing.span("replay.call", flavour=flavour,
+                          rounds=sched.rounds):
+            if engine and channel:
+                with tracing.span("replay.compile"):
+                    arrays, horizon = self.channel_coalesced_arrays(state,
+                                                                    sched)
+                out = self.run_channel_coalesced(state, arrays, horizon,
+                                                 knobs, tel)
+            elif engine:
+                with tracing.span("replay.compile"):
+                    arrays = self.coalesced_arrays(state, sched)
+                return self.run_coalesced(state, arrays)
+            elif channel:
+                with tracing.span("replay.compile"):
+                    arrays, horizon = self.channel_reference_arrays(sched)
+                out = self.run_channel(state, arrays, horizon, knobs, tel)
+            else:
+                with tracing.span("replay.compile"):
+                    arrays = self.reference_arrays(sched)
+                return self.run(state, arrays)
         if tel is None:
             return out
         final, tr = out

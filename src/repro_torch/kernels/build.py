@@ -8,7 +8,10 @@ and the flags, and loaded with ``ctypes``.  ``build_all`` starts one
 ``nvcc`` per missing library, all at once.  Nothing is built or loaded when
 this module is imported, so the CPU tests import it freely.  ``root``
 names another tree of the same packages (an edited copy, or an earlier
-version, to time against): its libraries take their own keys.
+version, to time against): its libraries take their own keys.  With a
+tracer active (``analysis.tracing``) each build is a ``kernels.build`` span
+and each library load a ``kernels.load`` span, and the counters of the
+same names count them by kernel.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from ..analysis import tracing
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build"
@@ -74,10 +79,23 @@ def build_all(names=KERNELS, root: Path = _KERNELS_DIR
     ``{name: (library path, the compiler's -Xptxas -v report)}``."""
     missing = [name for name in names if not lib_path(name, root).exists()]
     if missing:
-        nvcc = toolkit_tool()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tracing.span("kernels.build", kernels=",".join(missing)):
+            _build(missing, root)
+        tracing.count("kernels.build", **dict.fromkeys(missing, 1))
+    out = {}
+    for name in names:
+        lib = lib_path(name, root)
+        log = lib.with_suffix(".log")
+        out[name] = (lib, log.read_text() if log.exists() else "")
+    return out
+
+
+def _build(names, root: Path) -> None:
+    """One ``nvcc`` for each of ``names``, all started together."""
+    nvcc = toolkit_tool()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in missing:
+    for name in names:
         lib = lib_path(name, root)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
         jobs[name] = (lib, tmp, subprocess.Popen(
@@ -94,12 +112,6 @@ def build_all(names=KERNELS, root: Path = _KERNELS_DIR
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
     if failed:
         raise RuntimeError("\n".join(failed))
-    out = {}
-    for name in names:
-        lib = lib_path(name, root)
-        log = lib.with_suffix(".log")
-        out[name] = (lib, log.read_text() if log.exists() else "")
-    return out
 
 
 @functools.cache
@@ -114,7 +126,9 @@ def entry(name: str, argtypes: tuple):
 def bind(path: Path, name: str, argtypes: tuple):
     """``<name>_launch`` of the library at ``path``, typed as ``entry``
     types it."""
-    fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
+    with tracing.span("kernels.load", kernel=name):
+        fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
+    tracing.count("kernels.load", **{name: 1})
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

@@ -4,7 +4,9 @@ hash of its source, its package's headers and the flags, and nothing is
 built where there is no ``nvcc``; another tree of the packages (the
 variant sweep's edited copies) takes keys of its own.  Building and
 binding on the card is
-``chip_smoke.py``'s first phase and the gpu-marked test below."""
+``chip_smoke.py``'s first phase and the gpu-marked test below.  With a
+tracer active a build is a ``kernels.build`` span and counter, a load a
+``kernels.load`` one."""
 import ctypes
 import hashlib
 import importlib.util
@@ -14,6 +16,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.analysis import SpanTracer
 from repro_torch.kernels import build
 
 SIX = ("mixing_gossip_stacked", "channel_gossip_stacked",
@@ -90,6 +93,28 @@ def test_sweep_variants_edit_the_sources(monkeypatch, tmp_path, name):
         len(roots)
 
 
+def test_build_is_a_span_and_a_counter(monkeypatch, tmp_path):
+    """Only a missing library is built, under one ``kernels.build`` span
+    naming it, and counted by kernel; the compiler's part is stood in for
+    (there is no ``nvcc`` here)."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+
+    def fake_build(names, root):
+        for name in names:
+            build.lib_path(name, root).write_text("")
+    monkeypatch.setattr(build, "_build", fake_build)
+    tracer = SpanTracer("test")
+    with tracer.activate():
+        build.build_all(("rmsnorm_2d", "p2p_mixing"))
+        build.build_all(("rmsnorm_2d",))
+    (span,) = [e for e in tracer.events if e["ph"] == "X"]
+    assert span["name"] == "kernels.build"
+    assert span["args"]["kernels"] == "rmsnorm_2d,p2p_mixing"
+    (sample,) = [e for e in tracer.events if e["ph"] == "C"]
+    assert sample["name"] == "kernels.build"
+    assert sample["args"] == {"rmsnorm_2d": 1.0, "p2p_mixing": 1.0}
+
+
 @pytest.mark.gpu
 def test_build_all_builds_and_binds_six_libraries():
     if not torch.cuda.is_available():
@@ -99,3 +124,9 @@ def test_build_all_builds_and_binds_six_libraries():
     for name, (path, log) in built.items():
         assert path.exists() and path == build.lib_path(name)
         assert hasattr(ctypes.CDLL(str(path)), f"{name}_launch")
+    tracer = SpanTracer("test")
+    with tracer.activate():
+        build.bind(built["rmsnorm_2d"][0], "rmsnorm_2d", ())
+    assert [e["args"]["kernel"] for e in tracer.events
+            if e["name"] == "kernels.load" and e["ph"] == "X"] == \
+        ["rmsnorm_2d"]
