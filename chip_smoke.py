@@ -6,7 +6,7 @@ It needs one card, the CUDA toolkit (``nvcc``) and this checkout; it never
 imports JAX or the JAX package.  Phases, each fatal on failure:
 
   1. device and build: the card, the TF32 settings (both set off: f32
-     means f32 here), all eight hand kernels built from ``src/`` in parallel
+     means f32 here), all nine hand kernels built from ``src/`` in parallel
      (``kernels/build.py``) with nvcc's register and spill report;
   2. the clean kernel ``mixing_gossip_stacked`` bit for bit its plain
      PyTorch version on the same inputs, at the slice's real shape (16
@@ -21,7 +21,9 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      arm for 4 rounds each at one comm per gradient, through
      ``Simulator.run_schedule``, with every comm batch and gradient tick
      timed by CUDA events; the clean kernel's launch count must equal the
-     stream's comm steps (and the channel kernel must not launch), losses
+     stream's comm steps, the one-pass tick tail ``tick_tail_stacked`` must
+     launch once a gradient tick (and the channel kernel must not launch),
+     losses
      must be finite, and the engine must agree with the per-event replay on
      a quadratic (n=16, d=256);
   4. the channel kernel ``channel_gossip_stacked`` against its plain
@@ -161,9 +163,12 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      rejected + dropped == scheduled exactly, the defense arm rejecting,
      row_bytes 44,685,096, the host-clock overhead a round; (b) phase 3's
      clean A2CiD2 arm with ``Telemetry()``: ``channel_gossip_stacked`` once
-     a comm step, ``mixing_gossip_stacked`` never, bit for bit the clean
-     replay (the channel kernel at corrupt 0 / mscale 1 / no clip is the
-     clean one); (c) engine columns against the per-event replay's on the
+     a comm step, ``mixing_gossip_stacked`` never, x, x~ and losses bit
+     for bit the clean replay (the channel kernel at corrupt 0 / mscale 1
+     / no clip is the clean one; the eager tail is ``tick_tail_stacked``'s
+     arithmetic), the rows within 1e-6 (the clean replay's row comes from
+     the tick kernel's sums); (c) engine columns against the per-event
+     replay's on the
      quadratic (counts exactly, moments within 1e-5 relative); (d) phase
      9's channel + defense worlds with ``Telemetry()`` in one
      ``run_worlds`` call, bit for bit the batch without it, and on the
@@ -301,7 +306,8 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      (ResNet-8, 25 rounds) and ``lm_decentralized`` (reduced nano-lm, 200
      rounds; then ``--full --rounds 4``, nano-lm at full width, with a
      stream that skips the header's entropy rate): the clean kernel once
-     a comm step of each arm, losses finite; ``serve_lm`` (8 replicas, 60
+     a comm step of each arm and the tick tail once a gradient tick (as
+     in the calm and hostile sections), losses finite; ``serve_lm`` (8 replicas, 60
      rounds, a kill at round 20): no hand kernel, nothing lost, a
      restart; every printed line the twin's own.  Each quickstart
      section and both CIFAR arms are replayed again on the per-event
@@ -310,9 +316,21 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      largest magnitude, the loss and consensus traces at rtol 1e-5; and
      each kernel against its plain version at every shape and dynamics
      a twin launched it at (the clean kernel bit for bit, the channel
-     and worlds kernels within 1e-5), its error into the kernel's JSON
-     row.  Then ``python -m repro_torch.examples.quickstart`` in its own
+     and worlds kernels within 1e-5; the tick tail inside the clean
+     paths, at the first tick of each leaf geometry and dynamics, on the
+     replay's own gradients: x and x~ bit for bit, the row within 1e-6),
+     its error into the kernel's JSON row.  Then ``python -m repro_torch.examples.quickstart`` in its own
      process, on the card by default.
+ 31. the tick tail ``tick_tail_stacked`` (the descent of x and x~, the
+     metrics row and the trailing mix in one pass, reading the gradient
+     leaves where they lie) at ResNet-18-CIFAR's (16, 11,171,328) with the
+     real gradient leaves of a 32-image batch (the convolutions' strided
+     views through the runs path) and at the LM cell's (4, 313,024,000)
+     (Qwen3-0.6B at 10 layers, f32, random contiguous leaves): x and x~
+     bit for bit the plain version, the row within 1e-6, each time beside
+     its bytes bound (each leaf read once, x and x~ read and written once,
+     at 3.35 TB/s) and beside the eager PyTorch sequence it replaces
+     (``Simulator._grad_tick``'s descent and row, then ``engine.mix``).
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -433,7 +451,15 @@ KERNELS = {
         "name": "rmsnorm_2d", "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_2d.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:27"},
+    "tick_tail_stacked": {
+        "name": "tick_tail_stacked", "route": "cuda",
+        "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
+                  "tick_tail_stacked.cu",
+        "replaces": "none: the JAX package leaves the tick's tail to XLA"},
 }
+# the clean replay on the card: the clean kernel once a comm step, the
+# one-pass tick tail once a gradient tick
+CLEAN_REPLAY = ("mixing_gossip_stacked", "tick_tail_stacked")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -522,9 +548,9 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def only_launched(launches: dict, name: str) -> bool:
-    """True when no kernel other than ``name`` launched."""
-    return all(v == 0 for k, v in launches.items() if k != name)
+def only_launched(launches: dict, *names: str) -> bool:
+    """True when no kernel other than ``names`` launched."""
+    return all(v == 0 for k, v in launches.items() if k not in names)
 
 
 class ReplayTimer:
@@ -726,7 +752,10 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
     require(launches["mixing_gossip_stacked"] == 2 * comm_steps,
             f"clean kernel launched {launches['mixing_gossip_stacked']} "
             f"times, stream has {comm_steps} comm steps per arm")
-    require(only_launched(launches, "mixing_gossip_stacked"),
+    require(launches["tick_tail_stacked"] == 2 * ROUNDS,
+            f"the tick tail launched {launches['tick_tail_stacked']} times "
+            f"for 2 x {ROUNDS} gradient ticks")
+    require(only_launched(launches, *CLEAN_REPLAY),
             f"another kernel launched on the clean path: {launches}")
     for arm, tr in traces.items():
         require(tr.loss.shape == (ROUNDS,)
@@ -738,6 +767,7 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
     print(f"[{card}] clean slice: {comm_steps} comm steps + {ROUNDS} "
           f"gradient ticks per arm; clean kernel launches "
           f"{launches['mixing_gossip_stacked']} == 2 x {comm_steps}, "
+          f"tick tail {launches['tick_tail_stacked']} == 2 x {ROUNDS}, "
           f"channel kernel 0; peak memory {peak / 2**30:.2f} GiB")
     for arm, wall in walls.items():
         comm, grad = timer.ms(arm, "comm"), timer.ms(arm, "grad")
@@ -749,9 +779,10 @@ def phase_slice(card, params0, cfg, stream_cls, grad_fn_for):
               f"comm batch {np.mean(comm):.4f} ms x {comm_steps} "
               f"{[round(t, 4) for t in comm]}, gradient tick model "
               f"(16 workers x {BATCH}) {np.mean(grad):.2f} ms x {ROUNDS}, "
-              f"rest per tick (pack, update, metrics, mix, host) "
+              f"rest per tick (pack, tick tail, host) "
               f"{rest:.2f} ms; replay {wall:.1f} ms")
-    return launches["mixing_gossip_stacked"]
+    return {name: launches[name]
+            for name in ("mixing_gossip_stacked", "tick_tail_stacked")}
 
 
 def quadratic_sim(dev, gen, scale=1.0, **kw):
@@ -1814,7 +1845,10 @@ def phase_lm_replay(card):
     require(launches["mixing_gossip_stacked"] == 2 * comm_steps,
             f"clean kernel launched {launches['mixing_gossip_stacked']} "
             f"times, stream has {comm_steps} comm steps per arm")
-    require(only_launched(launches, "mixing_gossip_stacked"),
+    require(launches["tick_tail_stacked"] == 2 * LM_ROUNDS,
+            f"the tick tail launched {launches['tick_tail_stacked']} times "
+            f"for 2 x {LM_ROUNDS} gradient ticks")
+    require(only_launched(launches, *CLEAN_REPLAY),
             f"another kernel launched on the LM replay: {launches}")
     for arm, run in runs.items():
         tr = run.trace
@@ -1836,16 +1870,17 @@ def phase_lm_replay(card):
               f"comm batch {np.mean(comm):.4f} ms x {comm_steps} "
               f"{[round(t, 4) for t in comm]} (earlier: "
               f"{EARLIER_LM_COMM_MS:.2f} ms), rest per round (pack, "
-              f"update, metrics, mix, host) {rest:.2f} ms; peak memory "
+              f"tick tail, host) {rest:.2f} ms; peak memory "
               f"{peaks[arm] / 2**30:.2f} GiB")
     print(f"[{card}] LM replay: nano-lm full, {n_params} parameters, "
           f"{comm_steps} comm steps + {LM_ROUNDS} gradient ticks per arm; "
           f"mixing_gossip_stacked launches "
-          f"{launches['mixing_gossip_stacked']} == 2 x {comm_steps}, every "
-          f"other kernel 0")
+          f"{launches['mixing_gossip_stacked']} == 2 x {comm_steps}, "
+          f"tick_tail_stacked {launches['tick_tail_stacked']} == 2 x "
+          f"{LM_ROUNDS}, every other kernel 0")
     acid = runs["a2cid2"]
-    return (launches["mixing_gossip_stacked"], acid.model.cfg, acid.stream,
-            worker_mean(acid.state.x))
+    return ({name: launches[name] for name in CLEAN_REPLAY}, acid.model.cfg,
+            acid.stream, worker_mean(acid.state.x))
 
 
 def phase_lm_engine_vs_reference(card, cfg, stream):
@@ -2872,6 +2907,15 @@ def stream_comm_steps(sched) -> int:
     return int((~steps.is_grad).sum())
 
 
+def stream_ticks(sched) -> int:
+    """The gradient ticks of a schedule's compiled stream: the launches of
+    the one-pass tick tail in a clean replay on the card."""
+    from repro_torch.core import coalesce_schedule, coalesced_stream
+    steps = coalesced_stream(coalesce_schedule(sched),
+                             np.zeros(sched.n, np.float32))
+    return int(steps.is_grad.sum())
+
+
 def columns_agree(a, b, what: str) -> float:
     """Engine-against-oracle columns: counts exactly, moments within
     ENGINE_TOL relative; returns the largest moment error."""
@@ -2973,7 +3017,8 @@ def phase_telemetry(card, params0, cfg, stream_cls, grad_fn_for) -> dict:
     (_, _, plain_l, wall_n), (_, tr, tel_l, wall_t) = \
         runs["none"], runs["telemetry"]
     require(plain_l["mixing_gossip_stacked"] == comm_steps
-            and only_launched(plain_l, "mixing_gossip_stacked"),
+            and plain_l["tick_tail_stacked"] == stream_ticks(sched)
+            and only_launched(plain_l, *CLEAN_REPLAY),
             f"clean replay launched {plain_l}")
     require(tel_l["channel_gossip_stacked"] == comm_steps
             and only_launched(tel_l, "channel_gossip_stacked"),
@@ -2981,10 +3026,15 @@ def phase_telemetry(card, params0, cfg, stream_cls, grad_fn_for) -> dict:
             f"channel kernel {comm_steps} times and nothing else")
     (fa, ta, _, _), (fb, tb, _, _) = runs["none"], runs["telemetry"]
     require(tree_equal(fa.x, fb.x) and tree_equal(fa.x_tilde, fb.x_tilde)
-            and torch.equal(ta.loss, tb.loss)
-            and torch.equal(ta.consensus, tb.consensus),
+            and torch.equal(ta.loss, tb.loss),
             "clean slice: the telemetry replay (channel kernel) is not bit "
             "for bit the clean replay (clean kernel)")
+    # the clean replay's row comes from tick_tail_stacked's sums, the
+    # channel replay's from the eager ops: equal to the rounding of sums
+    row_gap = max(rel_err(ta.consensus, tb.consensus),
+                  rel_err(ta.mean_param_norm, tb.mean_param_norm))
+    require(row_gap <= TICK_ROW_RTOL,
+            f"clean slice: the rows part by {row_gap:.3e}")
     require(budget_holds(tr.telemetry)
             and float(tr.telemetry.rejected.sum()) == 0,
             "clean slice: budget or rejections wrong")
@@ -2992,7 +3042,8 @@ def phase_telemetry(card, params0, cfg, stream_cls, grad_fn_for) -> dict:
           f"channel_gossip_stacked {tel_l['channel_gossip_stacked']} == "
           f"{comm_steps} comm steps, mixing_gossip_stacked 0 (without the "
           f"spec: mixing_gossip_stacked {plain_l['mixing_gossip_stacked']}"
-          f"); final state bit for bit the clean replay's; replay "
+          f"); final state and losses bit for bit the clean replay's, "
+          f"its row within {row_gap:.3e} (limit {TICK_ROW_RTOL:g}); replay "
           f"{wall_n:.1f} ms without, {wall_t:.1f} ms with: "
           f"{(wall_t - wall_n) / comm_steps:.2f} ms a comm step (host "
           f"clock); applied {tr.telemetry.applied.tolist()}")
@@ -4159,7 +4210,7 @@ def phase_zoo_reduced(card):
     capacity 8), RecurrentGemma's ``windowed(8)`` rings, 8 SGD steps
     lowering the loss, ``lm_grad_fn``'s vmapped gradients against
     separate calls, and a 2-round ``run_sim`` on DeepSeek-V3.  Returns the
-    clean kernel's launches of that replay."""
+    clean kernel's and the tick tail's launches of that replay."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core import (build_graph, coalesce_schedule,
@@ -4242,15 +4293,19 @@ def phase_zoo_reduced(card):
             and run.trace.loss.shape == (2,),
             f"run_sim on reduced DeepSeek-V3: losses {run.trace.loss}")
     require(launches["mixing_gossip_stacked"] == comm_steps
-            and only_launched(launches, "mixing_gossip_stacked"),
-            f"run_sim launched {launches}, {comm_steps} comm steps")
+            and launches["tick_tail_stacked"] == stream_ticks(sched)
+            and only_launched(launches, *CLEAN_REPLAY),
+            f"run_sim launched {launches}, {comm_steps} comm steps, "
+            f"{stream_ticks(sched)} gradient ticks")
     print(f"[{card}] 27 run_sim reduced DeepSeek-V3 (4 workers, ring, "
           f"A2CiD2, 2 rounds): losses {run.trace.loss.tolist()}; "
           f"mixing_gossip_stacked launches "
           f"{launches['mixing_gossip_stacked']} == {comm_steps} comm "
-          f"steps, every other kernel 0; the phase's peak memory "
+          f"steps, tick_tail_stacked {launches['tick_tail_stacked']} == "
+          f"{stream_ticks(sched)} gradient ticks, every other kernel 0; the "
+          f"phase's peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches["mixing_gossip_stacked"]
+    return {name: launches[name] for name in CLEAN_REPLAY}
 
 
 def phase_zoo(card, qwen_step_ms: float) -> dict:
@@ -4266,7 +4321,7 @@ def phase_zoo(card, qwen_step_ms: float) -> dict:
         if n == 26:
             launches["flash_attention_bhsd"] = out
         elif n == 27:
-            launches["mixing_gossip_stacked"] = out
+            launches.update(out)
         print(f"[{card}] phase {n}: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return launches
@@ -5280,24 +5335,28 @@ def phase_rmsnorm_vjp(card, dev=None) -> None:
 
 
 def quickstart_paths(qs) -> dict:
-    """Each quickstart section's kernel and its launches: once a comm step
-    of each arm's compiled stream (the worlds kernel once a shared step of
-    the sweep)."""
+    """Each quickstart section's kernel launches: once a comm step of each
+    arm's compiled stream (the worlds kernel once a shared step of the
+    sweep), and in the clean sections the tick tail once a gradient
+    tick."""
     from repro_torch.core import AdaptiveDefense, World, ring_graph
     n, rounds = qs.N_WORKERS, qs.ROUNDS
     ring = ring_graph(n)
-    clean = stream_comm_steps(World(topology=ring).compile(rounds, seed=0))
-    hostile = stream_comm_steps(qs.hostile_world(n, rounds).compile(
-        rounds, seed=0))
+
+    def clean(sched):   # two arms on one schedule
+        return {"mixing_gossip_stacked": 2 * stream_comm_steps(sched),
+                "tick_tail_stacked": 2 * stream_ticks(sched)}
+
     lossy = stream_comm_steps(qs.lossy_world(ring).compile(rounds, seed=0))
     heal = sum(stream_comm_steps(qs.sign_flip_world(ring, d).compile(
         rounds, seed=0)) for d in (None, AdaptiveDefense()))
     sweep = worlds_comm_steps(qs.sweep_worlds(n).compile(rounds))
-    return {"calm": ("mixing_gossip_stacked", 2 * clean),
-            "hostile": ("mixing_gossip_stacked", 2 * hostile),
-            "lossy": ("channel_gossip_stacked", 2 * lossy),
-            "self_healing": ("channel_gossip_stacked", heal),
-            "sweep": ("mixing_gossip_worlds", sweep)}
+    return {"calm": clean(World(topology=ring).compile(rounds, seed=0)),
+            "hostile": clean(qs.hostile_world(n, rounds).compile(
+                rounds, seed=0)),
+            "lossy": {"channel_gossip_stacked": 2 * lossy},
+            "self_healing": {"channel_gossip_stacked": heal},
+            "sweep": {"mixing_gossip_worlds": sweep}}
 
 
 def timed_path(dev, run):
@@ -5319,15 +5378,68 @@ def timed_path(dev, run):
                                  if x]
 
 
-def require_launched(launches: dict, name, n: int, what: str) -> None:
-    """``name`` launched exactly ``n`` times and nothing else launched
-    (``name`` None: nothing launched at all)."""
-    if name is None:
-        require(all(v == 0 for v in launches.values()),
-                f"{what}: a hand kernel launched: {launches}")
-        return
-    require(launches[name] == n and only_launched(launches, name),
-            f"{what}: launches {launches}, expected {name} x {n} alone")
+def require_launched(launches: dict, expect: dict, what: str) -> None:
+    """Each kernel of ``expect`` launched exactly its count and no other
+    kernel launched (``expect`` empty: nothing launched at all)."""
+    got = {k: v for k, v in launches.items() if v or k in expect}
+    require(got == expect,
+            f"{what}: launches {launches}, expected {expect} alone")
+
+
+@contextlib.contextmanager
+def held_ticks(held: list):
+    """Inside, the first ``FlatGossipEngine.tick`` on CUDA buffers of each
+    leaf geometry and dynamics (mix or none) is held against the plain
+    version on the same tensors, with the gradient leaves the replay gave
+    it: x and x~ bit for bit (a NaN where the plain version has one), the
+    padding columns 0, the row within TICK_ROW_RTOL (non-finite where the
+    plain row is).  Each held call appends (workers, D, leaves, mix, max
+    abs err, row gap) to ``held``; every other call runs as it would."""
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.kernels.a2cid2_mixing import kernel as tk
+    real, seen = engine_mod.tick_tail, set()
+
+    def tick_tail(x, x_tilde, leaves, offsets, gscale, coeff, *, gamma,
+                  backend="auto"):
+        key = (tuple(tk._tick_geometry(x, leaves, offsets)), x.dtype,
+               coeff is None) if x.is_cuda and backend == "auto" else None
+        if key is None or key in seen:
+            return real(x, x_tilde, leaves, offsets, gscale, coeff,
+                        gamma=gamma, backend=backend)
+        seen.add(key)
+        want = real(x, x_tilde, leaves, offsets, gscale, coeff, gamma=gamma,
+                    backend="ref")
+        got = real(x, x_tilde, leaves, offsets, gscale, coeff, gamma=gamma)
+        w, d = x.shape
+        d_real = max((o + leaf.numel() // w for o, leaf in zip(offsets,
+                                                                leaves)),
+                     default=0)
+        err = 0.0
+        for a, r in zip(got[:2], want[:2]):
+            require(bool(((a == r) | (a.isnan() & r.isnan())).all()),
+                    f"tick_tail_stacked ({w}, {d}), {len(leaves)} leaves: "
+                    f"x or x~ parts from the plain version")
+            require(not a[:, d_real:].any(),
+                    f"tick_tail_stacked ({w}, {d}): a padding column moved")
+            fin = torch.isfinite(r)
+            err = max(err, float(torch.where(fin, a - r, 0).abs().max()))
+        gap = 0.0
+        for a, r in zip(got[2:], want[2:]):
+            a, r = float(a), float(r)
+            require(math.isfinite(a) == math.isfinite(r),
+                    f"tick_tail_stacked ({w}, {d}): row {a} against {r}")
+            if math.isfinite(r):
+                gap = max(gap, abs(a - r) / max(abs(r), 1e-30))
+        require(gap <= TICK_ROW_RTOL,
+                f"tick_tail_stacked ({w}, {d}): the row parts by {gap:.3e}")
+        held.append((w, d, len(leaves), coeff is not None, err, gap))
+        return got
+
+    engine_mod.tick_tail = tick_tail
+    try:
+        yield
+    finally:
+        engine_mod.tick_tail = real
 
 
 def print_lines(card, twin, printed, lines) -> None:
@@ -5481,8 +5593,10 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
     replayed again on the per-event path and held against the kernels'
     replay (``same_replay``), and each kernel is held against its plain
     version at every shape and dynamics the paths launched it at
-    (``example_kernel_checks``).  Returns the launches of the paths and
-    each kernel's max abs err."""
+    (``example_kernel_checks``; the tick tail, which the clean paths
+    launch once a gradient tick, inside the paths on the gradients the
+    replay gave it, ``held_ticks``).  Returns the launches of the paths
+    and each kernel's max abs err."""
     from repro_torch.core import (Simulator, Telemetry, build_graph,
                                   params_from_graph, ring_graph)
     from repro_torch.core.flatbuf import FlatLayout
@@ -5495,26 +5609,42 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
     total = {name: 0 for name in KERNELS}
     walls = {}
     paths = []   # (kernel, workers, layout, dynamics) for the checks
+    ticks = []   # the tick tail's held calls (held_ticks)
 
     def count(launches):
         for name, n in launches.items():
             total[name] += n
 
+    def held_both(start: int, what: str) -> None:
+        """A clean path's baseline (eta 0) and A2CiD2 arms each had a tick
+        held since ``ticks[start]``."""
+        mixes = {m for _, _, _, m, _, _ in ticks[start:]}
+        require(dev.type != "cuda" or mixes == {False, True},
+                f"{what}: the tick tail was held with mix {mixes}")
+
     # -- quickstart, a path a section
     expect = quickstart_paths(qs)
     sections = {}
     b = qs.draw_b()
-    for name, (kernel, n) in expect.items():
-        out, wall, launched, printed = timed_path(
-            dev, lambda name=name: qs.print_section(
-                qs.SECTIONS[name](b, qs.NOISE, qs.ROUNDS, dev)))
-        require_launched(launched, kernel, n, f"quickstart {name}")
+    for name, want in expect.items():
+        start = len(ticks)
+        with held_ticks(ticks):
+            out, wall, launched, printed = timed_path(
+                dev, lambda name=name: qs.print_section(
+                    qs.SECTIONS[name](b, qs.NOISE, qs.ROUNDS, dev)))
+        require_launched(launched, want, f"quickstart {name}")
+        if "tick_tail_stacked" in want:
+            held_both(start, f"quickstart {name}")
         count(launched)
         sections[name] = out
         walls[f"quickstart {name}"] = wall
         print_lines(card, "quickstart", printed, out.lines)
         print(f"[{card}] phase 30b: quickstart {name}: {wall:.2f} s, "
-              f"{kernel} x {n} (once a comm step of its streams)")
+              + ", ".join(f"{k} x {n}" for k, n in want.items())
+              + " (once a comm step"
+              + (", the tick tail once a gradient tick,"
+                 if "tick_tail_stacked" in want else "")
+              + " of its streams)")
         ref = qs.SECTIONS[name](b, qs.NOISE, qs.ROUNDS, dev, engine=False)
         held = {arm: same_replay(out.runs[arm], ref.runs[arm],
                                  f"quickstart {name} {arm}",
@@ -5576,7 +5706,7 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
         args = mod.build_parser().parse_args(flag + argv)
         graph = build_graph(getattr(args, "graph", "ring"), args.workers)
         worlds, sched = two_arms(graph, args.rounds, args.seed)
-        n = 2 * stream_comm_steps(sched)
+        n, n_ticks = 2 * stream_comm_steps(sched), 2 * stream_ticks(sched)
         require(args.rounds == rounds, f"{twin}: {args.rounds} rounds")
         if getattr(args, "full", False):
             def twin_main():
@@ -5584,8 +5714,12 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
         else:
             def twin_main():
                 return mod.main(flag + argv)
-        out, wall, launched, printed = timed_path(dev, twin_main)
-        require_launched(launched, "mixing_gossip_stacked", n, twin)
+        start = len(ticks)
+        with held_ticks(ticks):
+            out, wall, launched, printed = timed_path(dev, twin_main)
+        require_launched(launched, {"mixing_gossip_stacked": n,
+                                    "tick_tail_stacked": n_ticks}, twin)
+        held_both(start, twin)
         count(launched)
         walls[twin] = wall
         arms = out if mod is cifar else out[1]
@@ -5596,7 +5730,8 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
                     + [arm.line for arm in arms.values()])
         print(f"[{card}] phase 30b: {twin}: {wall:.2f} s, "
               f"mixing_gossip_stacked x {n} (2 arms x {n // 2} comm steps)"
-              f", losses finite")
+              f", tick_tail_stacked x {n_ticks} (2 arms x {n_ticks // 2} "
+              f"gradient ticks), losses finite")
         layout = FlatLayout.from_pytree(arms["a2cid2"].state.x, stacked=True)
         paths += [("mixing_gossip_stacked", args.workers, layout,
                    algo_dyn(world.algorithm_params()))
@@ -5621,7 +5756,7 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
     # -- the serving fleet: the per-event replay, no hand kernel
     rep, wall, launched, printed = timed_path(dev,
                                               lambda: serve_lm.main(flag))
-    require_launched(launched, None, 0, "serve_lm")
+    require_launched(launched, {}, "serve_lm")
     require(rep.lost == 0 and rep.restarted >= 1,
             f"serve_lm: lost {rep.lost}, restarted {rep.restarted}")
     walls["serve_lm"] = wall
@@ -5638,6 +5773,14 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
                               f"{lay.d})" for k, w, lay, _ in paths}))
           + "): max abs err " + ", ".join(f"{k} {e:.3e}"
                                           for k, e in errs.items()))
+    if dev.type == "cuda":
+        errs["tick_tail_stacked"] = max(e for *_, e, _ in ticks)
+        print(f"[{card}] phase 30b: tick_tail_stacked against its plain "
+              f"version in the clean paths, at the first tick of each leaf "
+              f"geometry and dynamics, on the gradients the replay gave it "
+              f"(x, x~ bit for bit, the row within {TICK_ROW_RTOL:g}): "
+              + "; ".join(f"({w}, {d}) {n} leaves {'mix' if m else 'eta 0'}"
+                          f" row {g:.3e}" for w, d, n, m, _, g in ticks))
 
     # -- the module alone, on the card by default
     t0 = time.perf_counter()
@@ -5660,6 +5803,159 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
     print(f"[{card}] phase 30b: wall s " + ", ".join(
         f"{k} {v:.2f}" for k, v in walls.items()))
     return total, errs
+
+
+# the LM cell's model (perfbench's qwen3_0_6b: Qwen3-0.6B at 10 of its 28
+# layers, f32) and workers, for phase 31's second shape
+LM_CELL_LAYERS, LM_CELL_WORKERS = 10, 4
+TICK_REPS = {"resnet": 20, "lm": 6}
+# the row: the kernel adds each column's squares in double, the eager sums
+# in f32 in another order
+TICK_ROW_RTOL = 1e-6
+
+
+def lm_cell_tree(dev, w: int, gen) -> dict:
+    """Random stacked leaves (w, *shape) of the LM cell's model, f32,
+    contiguous as its gradient function leaves them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Block, uniform_blocks
+    from repro_torch.models.layers import SHAPE_ONLY
+    from repro_torch.models.transformer import Model
+    from repro_torch.core.tree import tree_map
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                              blocks=uniform_blocks(Block("attn", "dense"),
+                                                    LM_CELL_LAYERS))
+    shapes = Model(cfg).init(SHAPE_ONLY)
+    return tree_map(lambda a: torch.randn((w,) + tuple(a.shape),
+                                          generator=gen, device=dev), shapes)
+
+
+def tick_case(engine, x, gen, dt_scale: float = 1.0):
+    """(bx, bxt, gscale, dt_next) for one tick from a stacked state: x~ a
+    little off x, one row masked, the gaps drawn."""
+    w = engine.layout.treedef.flatten_up_to(x)[0].shape[0]
+    bx = engine.pack(x)
+    bxt = bx + 1e-3 * torch.randn(bx.shape, generator=gen, device=bx.device)
+    bxt[:, engine.layout.d_real:] = 0
+    gscale = torch.ones(w, device=bx.device)
+    gscale[w // 2] = 0.0
+    dt = dt_scale * torch.rand(w, generator=gen, device=bx.device)
+    return bx, bxt, gscale, dt
+
+
+def phase_tick_tail(card, params0, cfg, stream_cls, grad_fn_for):
+    """Phase 31: ``tick_tail_stacked`` against its plain version and timed
+    at the two cells' shapes.  Returns (the kernel's JSON row, its
+    launches)."""
+    from repro_torch.core import FlatGossipEngine, Simulator
+    from repro_torch.core import params_from_graph, ring_graph
+    from repro_torch.kernels.a2cid2_mixing import kernel as tk
+    from repro_torch.kernels.a2cid2_mixing.ops import tick_tail
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    reset_launches()
+    row, worst, err = {}, 0.0, 0.0
+    for label, w in (("resnet", N_WORKERS), ("lm", LM_CELL_WORKERS)):
+        dyn = params_from_graph(ring_graph(w), True)
+        if label == "resnet":
+            sim = Simulator(grad_fn_for(cfg, stream_cls(batch_size=BATCH)),
+                            dyn, GAMMA)
+            state = sim.init(params0, w, gen)
+            engine = FlatGossipEngine.for_pytree(state.x, dyn)
+            _, grads = sim.grad_fn(state.x, state.generator,
+                                   torch.arange(w, device=dev))
+            x = state.x
+            del state
+        else:
+            x = lm_cell_tree(dev, w, gen)
+            engine = FlatGossipEngine.for_pytree(x, dyn)
+            grads = lm_cell_tree(dev, w, gen)
+        bx, bxt, gscale, dt = tick_case(engine, x, gen)
+        del x
+        leaves = engine.layout.treedef.flatten_up_to(grads)
+        offsets = [sp.offset for sp in engine.layout.specs]
+        geometry = tk._tick_geometry(bx, leaves, offsets)
+        table, _, (_, _, blocks) = tk.plan_tick(tuple(geometry), bx.dtype,
+                                                w, engine.layout.d)
+        kinds = {k: int((table["kind"] == v).sum())
+                 for k, v in (("vec", tk.KIND_VEC), ("runs", tk.KIND_RUNS))}
+        # the plain version on the same tensors first: the kernel writes
+        # bx and bxt in place
+        coeff = 0.5 * (1.0 - torch.exp(-2.0 * dyn.eta * dt))
+        want = tick_tail(bx, bxt, leaves, offsets, gscale, coeff,
+                         gamma=GAMMA, backend="ref")
+        got = engine.tick(bx, bxt, grads, gscale, GAMMA, dt)
+        torch.cuda.synchronize()
+        require(got[0] is bx and got[1] is bxt,
+                f"{label}: the tick's outputs are not the input buffers")
+        err = max(err, *(float((g - e).abs().max())
+                          for g, e in zip(got[:2], want[:2])))
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1]),
+                f"{label}: x or x~ parts from the plain version by {err}")
+        d_real = engine.layout.d_real
+        require(not got[0][:, d_real:].any() and not got[1][:, d_real:].any(),
+                f"{label}: a padding column moved")
+        gaps = [abs(float(g) - float(e)) / max(abs(float(e)), 1e-30)
+                for g, e in zip(got[2:], want[2:])]
+        require(max(gaps) <= TICK_ROW_RTOL,
+                f"{label}: the row parts from the plain version by {gaps}")
+        worst = max(worst, max(gaps))
+        del want, got
+
+        sim = Simulator(lambda *a: (torch.zeros(w, device=dev), grads), dyn,
+                        GAMMA)
+        ids = torch.arange(w, device=dev)
+
+        def fused():
+            return engine.tick(bx, bxt, grads, gscale, GAMMA, dt)
+
+        def eager():
+            ox, oxt, _ = sim._grad_tick(engine, bx, bxt, None, gscale, ids)
+            return engine.mix(ox, oxt, dt)
+
+        reps = TICK_REPS[label]
+        kernel_ms = cuda_ms(fused, reps)
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        eager_ms = cuda_ms(eager, reps)
+        eager_peak = torch.cuda.max_memory_allocated() - base_mem
+        nbytes = (sum(g.numel() * g.element_size() for g in leaves)
+                  + 4 * bx.numel() * bx.element_size())
+        b = bound(nbytes, 0)
+        require(kernel_ms >= b["bound_ms"],
+                f"{label}: {kernel_ms:.4f} ms is below the bytes bound "
+                f"{b['bound_ms']:.4f} ms: the bytes are miscounted")
+        row[label] = {"ms": kernel_ms, "plain_ms": eager_ms, **b}
+        print(f"[{card}] phase 31: tick_tail_stacked {label} (W, D) = "
+              f"({w}, {engine.layout.d}) {bx.dtype}, "
+              f"{len(leaves)} leaves ({kinds['vec']} vectorised, "
+              f"{kinds['runs']} through runs, "
+              f"{sum(not g.is_contiguous() for g in leaves)} strided), "
+              f"{len(blocks)} launch(es) of {blocks.tolist()} blocks: "
+              f"x, x~ bit for bit the plain version (max abs err "
+              f"{err:.3e}), padding 0, the row within {max(gaps):.3e} "
+              f"(limit {TICK_ROW_RTOL:g}); kernel {kernel_ms:.4f} ms against "
+              f"the bytes bound {b['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} "
+              f"GB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s: "
+              f"{b['bound_ms'] / kernel_ms:.1%} of it, "
+              f"{nbytes / kernel_ms / 1e9:.2f} TB/s), the eager sequence "
+              f"{eager_ms:.4f} ms ({eager_ms / kernel_ms:.2f}x the kernel; "
+              f"{eager_peak / 2**30:.2f} GiB of temporaries)")
+        del bx, bxt, grads, leaves, sim
+        torch.cuda.empty_cache()
+    launched = read_launches()
+    require(only_launched(launched, "tick_tail_stacked"),
+            f"phase 31 launched {launched}")
+    # the main path's shape (the LM cell's) in the common keys, ResNet's
+    # beside them
+    lm, resnet = row["lm"], row["resnet"]
+    return ({"max_abs_err": err, "ms": lm["ms"], "plain_ms": lm["plain_ms"],
+             "bound_ms": lm["bound_ms"], "bound_by": lm["bound_by"],
+             "library_ms": None, "row_rel_err": worst,
+             "resnet_ms": resnet["ms"], "resnet_plain_ms": resnet["plain_ms"],
+             "resnet_bound_ms": resnet["bound_ms"]},
+            launched["tick_tail_stacked"])
 
 
 def main() -> int:
@@ -5701,8 +5997,8 @@ def main() -> int:
     rows = {"mixing_gossip_stacked": phase_kernel(card, layout.d,
                                                   layout.d_real, dyn)}
     torch.cuda.empty_cache()
-    launches = {"mixing_gossip_stacked": phase_slice(
-        card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)}
+    launches = phase_slice(card, params0, cfg, SyntheticCIFAR,
+                           resnet_grad_fn)
     phase_engine_vs_reference(card)
     torch.cuda.empty_cache()
     rows["channel_gossip_stacked"] = phase_channel_kernel(
@@ -5727,7 +6023,8 @@ def main() -> int:
     launches["rmsnorm_2d"] = 0     # no model calls it
     torch.cuda.empty_cache()
     lm_launches, nano, stream, consensus = phase_lm_replay(card)
-    launches["mixing_gossip_stacked"] += lm_launches   # phases 3 and 13
+    for name, n in lm_launches.items():   # phases 3 and 13
+        launches[name] += n
     torch.cuda.empty_cache()
     phase_lm_engine_vs_reference(card, nano, stream)
     torch.cuda.empty_cache()
@@ -5783,6 +6080,7 @@ def main() -> int:
     zoo = phase_zoo(card, qwen_step_ms)
     launches["flash_attention_bhsd"] += zoo["flash_attention_bhsd"]
     launches["mixing_gossip_stacked"] += zoo["mixing_gossip_stacked"]
+    launches["tick_tail_stacked"] += zoo["tick_tail_stacked"]
     print(f"[{card}] phases 1-27 done at {time.perf_counter() - t_start:.1f}"
           f" s")
     torch.cuda.empty_cache()
@@ -5807,9 +6105,19 @@ def main() -> int:
     for name, n in example_launches.items():
         launches[name] += n
     for name, e in example_errs.items():
-        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+        if name in rows:   # the tick tail's row comes in phase 31
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     print(f"[{card}] phase 30: {time.perf_counter() - t0:.1f} s")
     print(f"[{card}] phases 1-30 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    torch.cuda.empty_cache()
+    rows["tick_tail_stacked"], n31 = phase_tick_tail(
+        card, params0, cfg, SyntheticCIFAR, resnet_grad_fn)
+    rows["tick_tail_stacked"]["max_abs_err"] = max(
+        rows["tick_tail_stacked"]["max_abs_err"],
+        example_errs.get("tick_tail_stacked", 0.0))
+    launches["tick_tail_stacked"] += n31
+    print(f"[{card}] phases 1-31 done at {time.perf_counter() - t_start:.1f}"
           f" s")
 
     print(card)

@@ -21,6 +21,12 @@ snapshot-ring rows) and apply the robust m-term; around the fused kernel
 they run plain PyTorch, as the JAX package runs XLA there: the ring
 gathers and the ``delta_norms`` reduce.
 
+``tick`` is the tail of a clean gradient tick in one pass: the step on
+both buffers by the gradient leaves where they lie, the round's metrics
+row, and the trailing mixing segment (the ``tick_tail_stacked`` kernel on
+CUDA buffers; on the CPU the plain ops of ``Simulator._descend``, the
+row and ``mix``).
+
 The local passes (``batch_local``, ``channel_batch_local``, with
 ``pack_local`` / ``unpack_local``) run one worker's (D,) vectors: the
 per-worker event of the SPMD trainer (``core/gossip.py``).
@@ -43,8 +49,9 @@ from ..kernels.a2cid2_mixing.ops import (channel_event_local,
                                          channel_event_stacked,
                                          channel_event_worlds,
                                          gossip_event_stacked,
-                                         gossip_event_worlds, p2p_mix_event)
-from .a2cid2 import A2CiD2Params, apply_mixing
+                                         gossip_event_worlds, p2p_mix_event,
+                                         tick_tail)
+from .a2cid2 import A2CiD2Params, apply_mixing, mixing_coeff
 from .flatbuf import FlatLayout, ring_read, ring_read_worlds
 from .tree import PyTree
 
@@ -154,6 +161,27 @@ class FlatGossipEngine:
         """Standalone mixing sweep (engine prologue and gradient ticks), plain
         PyTorch: a flat buffer is a single-leaf pytree."""
         return apply_mixing(bx, bxt, self.params.eta, dt)
+
+    def tick(self, bx: torch.Tensor, bxt: torch.Tensor, grads: PyTree,
+             gscale: torch.Tensor, gamma: float, dt_next
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+        """The tail of a gradient tick in one pass on (W, D) buffers: the
+        step on both buffers by ``grads`` (a pytree of the layout's
+        leaves, (W, *shape), read where they lie), each row scaled by its
+        ``gscale`` and by ``gamma``; the round's metrics row from the
+        stepped x; then the mixing sweep for ``dt_next`` (W,).  Returns
+        ``(bx, bxt, consensus, mean_sq)``.  CUDA buffers take ONE
+        ``tick_tail_stacked`` call, which writes both buffers in place; CPU
+        buffers the plain version, the ops of ``Simulator._descend``, the
+        row and ``mix``.  Both buffers are consumed."""
+        eta = self.params.eta
+        coeff = None if eta == 0.0 else mixing_coeff(
+            eta, torch.as_tensor(dt_next, dtype=torch.float32,
+                                 device=bx.device))
+        return tick_tail(bx, bxt, self.layout.treedef.flatten_up_to(grads),
+                         [s.offset for s in self.layout.specs], gscale,
+                         coeff, gamma=gamma)
 
     def batch(self, bx: torch.Tensor, bxt: torch.Tensor,
               partner: torch.Tensor, dt_next: torch.Tensor

@@ -19,7 +19,10 @@ Two replay paths, as in the JAX package:
   * ``run_coalesced`` — the flat-buffer event engine (the default of
     ``run_schedule``): the schedule is compiled host-side to an event stream
     of fused comm batches and gradient ticks, and each comm batch is ONE
-    launch of the Hopper kernel on the packed (n, D) buffers.
+    launch of the Hopper kernel on the packed (n, D) buffers.  On the card
+    the rest of each gradient tick (the step, the metrics row, the
+    trailing mixing segment) is one more hand kernel's pass
+    (``FlatGossipEngine.tick``), which reads the gradient leaves in place.
 
 Both paths have unreliable-channel twins (``run_channel`` and
 ``run_channel_coalesced``) that ``run_schedule`` takes when the schedule
@@ -151,17 +154,20 @@ def _stack_rows(rows, cls, dim: int = 0):
 
 
 def _count_call(engine: FlatGossipEngine, n: int, is_grad, grad_pos,
-                pairs) -> None:
+                pairs, fused: bool = False) -> None:
     """The replay call's counters, from host data only: rounds, gradient
     ticks, comm steps, the directed pairs they exchange, and the bytes the
     comm steps move at least (x and x~ of each of the n workers read and
-    written once a step: 4 n D element sizes)."""
+    written once a step: 4 n D element sizes).  A call whose ticks take
+    the one-pass tail (``fused``: the clean replay on the card) also
+    counts them as ``fused_ticks``."""
     comm = ~np.asarray(is_grad, dtype=bool)
     steps = int(comm.sum())
     row_bytes = engine.layout.d * engine.layout.buf_dtype.itemsize
+    fused_ticks = {"fused_ticks": len(comm) - steps} if fused else {}
     tracing.count("replay", rounds=len(grad_pos), ticks=len(comm) - steps,
                   steps=steps, pairs=int(pairs[comm].sum()),
-                  comm_bytes=steps * 4 * n * row_bytes)
+                  comm_bytes=steps * 4 * n * row_bytes, **fused_ticks)
 
 
 def _check_telemetry(telemetry) -> None:
@@ -561,6 +567,25 @@ class Simulator:
                        (mean ** 2).sum().float())
         return bx, bxt, row
 
+    def _tail_tick(self, engine: FlatGossipEngine, bx, bxt, generator,
+                   gscale, ids, dt_next):
+        """The clean replay's gradient tick on the card: the batched
+        gradient on the unpacked buffer, then ONE pass for the rest
+        (``FlatGossipEngine.tick``: the step on both buffers, the round's
+        metrics row and the trailing mixing segment, the buffers written
+        in place).  Spans: ``replay.tick`` over ``replay.grad`` and
+        ``replay.tail``."""
+        with tracing.span("replay.tick"):
+            with tracing.span("replay.grad"):
+                losses, grads = self.grad_fn(engine.unpack(bx), generator,
+                                             ids)
+            with tracing.span("replay.tail"):
+                # the views grad_fn saw are dead: the pass may write bx
+                bx, bxt, consensus, mean_sq = engine.tick(
+                    bx, bxt, grads, gscale, self.gamma, dt_next)
+                row = (losses.mean().float(), consensus, mean_sq)
+        return bx, bxt, row
+
     @staticmethod
     def _descend(engine: FlatGossipEngine, bx, bxt, grads, gscale,
                  gamma: float):
@@ -575,14 +600,18 @@ class Simulator:
     def run_coalesced(self, state: SimState, stream_arrays
                       ) -> tuple[SimState, SimTrace]:
         """Flat-buffer engine replay of a coalesced event stream (hot path):
-        one fused kernel launch per comm step, a batched gradient call and
-        a plain mixing sweep per gradient tick."""
+        one fused kernel launch per comm step and a batched gradient call
+        per gradient tick.  On the card the rest of a tick (step, metrics
+        row, trailing mix) is one ``tick_tail_stacked`` pass
+        (``_tail_tick``); on the CPU it is ``_grad_tick``'s plain ops and a
+        mixing sweep."""
         (prologue, partners, dt_next, is_grad, grad_scale, grad_pos,
          t_final, pairs) = stream_arrays
         engine = FlatGossipEngine.for_pytree(state.x, self.params)
+        fused = tree_leaves(state.x)[0].is_cuda
         if tracing.active() is not None:
             _count_call(engine, prologue.shape[0], is_grad, grad_pos,
-                        pairs)
+                        pairs, fused)
         with tracing.span("replay.pack"):
             bx = engine.pack(state.x)
             bxt = engine.pack(state.x_tilde)
@@ -594,6 +623,12 @@ class Simulator:
             if not is_grad[s]:
                 with tracing.span("replay.comm", pairs=pairs[s]):
                     bx, bxt = engine.batch(bx, bxt, partners[s], dt_next[s])
+                continue
+            if fused:
+                bx, bxt, row = self._tail_tick(engine, bx, bxt,
+                                               state.generator, grad_scale[s],
+                                               ids, dt_next[s])
+                rows.append(row)
                 continue
             bx, bxt, row = self._grad_tick(engine, bx, bxt, state.generator,
                                            grad_scale[s], ids)

@@ -48,6 +48,10 @@ _ARGTYPES = {
     # dtype, segments, count, blocks, chunk, dt, neg2eta, alpha, alpha_t,
     # stream
     "mixing_p2p": (_I, _P, _I, _LL, _LL, _P, _F, _F, _F, _P),
+    # dtype, x, x_tilde, w, d, segments, launches, counts, kinds, blocks,
+    # gscale, coeff, gamma, factor, inv_w, partials, row, stream
+    "tick_tail_stacked": (_I, _P, _P, _LL, _LL, _P, _I, _P, _P, _P, _P, _P,
+                          _F, _F, _F, _P, _P, _P),
 }
 
 
@@ -593,3 +597,233 @@ def mixing_p2p(x: torch.Tensor, x_tilde: torch.Tensor,
 
 
 mixing_p2p.launches = 0
+
+
+# One row of tick_tail_stacked's launch table, laid out as
+# csrc/tick_tail_stacked.cu's Segment: a leaf's address, row stride and
+# first buffer column, its dims (A, B, C) and their strides, its vector
+# body and scalar head (kind KIND_VEC) or its tile (KIND_RUNS), its first
+# block and its dtype.  TICK_MAX_SEGMENTS rows take 30,720 bytes: the 32 KB
+# of kernel parameters that CUDA 12.1 and later take.
+TICK_SEGMENT = np.dtype([("g", "<u8"), ("rs", "<i8"), ("off", "<i8"),
+                         ("s", "<i8", (3,)), ("body", "<i8"),
+                         ("n", "<i4", (3,)), ("t", "<i4", (3,)),
+                         ("head", "<i4"), ("first_block", "<i4"),
+                         ("kind", "<i4"), ("gdt", "<i4")])
+TICK_MAX_SEGMENTS = 320  # leaves a launch: kMaxSegments in the source
+TICK_CHUNK = 4096        # columns a KIND_VEC block: kChunk
+RUN_MAX = 32             # elements of a KIND_RUNS tile's run: kRunMax
+KIND_VEC, KIND_RUNS = 0, 1
+LEAF_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the leaf dtypes a buffer dtype takes: those it embeds exactly, as
+# FlatLayout packs them
+TICK_LEAVES = {torch.float32: (torch.float32, torch.bfloat16, torch.float16),
+               torch.bfloat16: (torch.bfloat16,)}
+_INT32 = 2 ** 31 - 1
+
+
+def leaf_dims(shape, strides) -> list:
+    """A worker's leaf (``shape`` and ``strides`` without the worker axis)
+    as its fewest dims: size-1 dims dropped, each dim merged into the one
+    before it where the two walk memory as one.  Returns [(size, stride)],
+    the fastest logical dim last."""
+    out = []
+    for n, s in zip(shape, strides):
+        if n == 1:
+            continue
+        if out and out[-1][1] == s * n:
+            out[-1] = (out[-1][0] * n, s)
+        else:
+            out.append((n, s))
+    return out
+
+
+def tile_of(dims) -> tuple:
+    """The (Ta, Tb, Tc) tile of a KIND_RUNS leaf of dims ((A, sa), (B, sb),
+    (C, sc)): a warp takes 32 consecutive columns of C, and a column's Ta *
+    Tb tile elements form one run of memory, up to ``RUN_MAX`` long, where
+    the leaf has one: along A where sa == 1 (and over whole runs of A along
+    B where sb == A: an HWIO view of an OIHW convolution gradient, (kh kw,
+    I, O) at strides (1, kh kw, kh kw I), takes Ta = kh kw, Tb = 32 //
+    (kh kw)), along B where sb == 1 (a transposed matrix); else a run of
+    one.  A tile holds at most 1,024 columns."""
+    (a, sa), (b, sb), (_, sc) = dims
+    ta = tb = 1
+    if sc != 1 and sa == 1:
+        ta = min(a, RUN_MAX)
+        if ta == a and sb == a:
+            tb = min(b, RUN_MAX // a)
+    elif sc != 1 and sb == 1:
+        tb = min(b, RUN_MAX)
+    return ta, tb, 32 * max(1, 32 // (ta * tb))
+
+
+@functools.lru_cache(maxsize=64)
+def plan_tick(geometry: tuple, buf_dtype: torch.dtype, w: int, d: int
+              ) -> tuple:
+    """The launches of ``tick_tail_stacked`` for leaves of the given
+    geometry: one (address mod 16, row stride, first column, columns,
+    shape, strides, dtype) a leaf, shape and strides without the worker
+    axis.  A leaf whose rows are contiguous at the buffer dtype (its dims
+    merge to one of stride 1), with a row stride of whole 16-byte vectors
+    and an address that lines up with its columns' 16-byte boundaries, is
+    KIND_VEC: a scalar head up to the
+    first boundary, a body of vectors, a scalar tail, ``TICK_CHUNK``
+    columns a block.  Any other leaf whose dims merge to at most three is
+    KIND_RUNS, a tile (``tile_of``) a block.  A launch takes up to
+    ``TICK_MAX_SEGMENTS`` leaves of one kind, the KIND_VEC leaves first.
+    Returns (a ``TICK_SEGMENT`` table with the addresses 0, launch after
+    launch; the leaf index of each row; and int arrays of each launch's
+    rows, kind and blocks).  Host code only (numpy): the CPU
+    tests check it against an emulation of the kernel's block map."""
+    isz = buf_dtype.itemsize
+    lanes = 16 // isz
+    ends = sorted((off, off + n) for _, _, off, n, *_ in geometry if n)
+    for (o0, e0), (o1, _) in zip(ends, ends[1:]):
+        if o1 < e0:
+            raise ValueError(f"leaves overlap at buffer column {o1}")
+    if ends and (ends[0][0] < 0 or ends[-1][1] > d):
+        raise ValueError(f"leaves cover columns [{ends[0][0]}, "
+                         f"{ends[-1][1]}), outside the buffer's [0, {d})")
+    live = [(i, g) for i, g in enumerate(geometry) if g[3]]
+    table = np.zeros(len(live), TICK_SEGMENT)
+    blocks = np.zeros(len(live), np.int64)
+    for row, k, (i, (mod, rs, off, n, shape, strides, dtype)) in zip(
+            table, range(len(live)), live):
+        dims = leaf_dims(shape, strides)
+        if len(dims) > 3:
+            raise ValueError(f"leaf {i}: its dims {tuple(shape)} at strides "
+                             f"{tuple(strides)} merge to {len(dims)} > 3")
+        if max(size for size, _ in dims + [(1, 0)]) > _INT32:
+            raise ValueError(f"leaf {i}: a dim of {tuple(shape)} passes "
+                             f"2^31 - 1")
+        row["rs"], row["off"], row["gdt"] = rs, off, LEAF_CODE[dtype]
+        head = min((-off) % lanes, n)
+        if (dtype == buf_dtype and len(dims) <= 1
+                and (not dims or dims[0][1] == 1)
+                and (mod + head * isz) % 16 == 0
+                and (w == 1 or rs * isz % 16 == 0)):
+            body = (n - head) // lanes
+            row["kind"], row["head"], row["body"] = KIND_VEC, head, body
+            row["n"], row["s"] = (1, 1, n), (0, 0, 1)
+            blocks[k] = max(-(-body // (TICK_CHUNK // lanes)),
+                            -(-(n - body * lanes) // TICK_CHUNK))
+        else:
+            dims = [(1, 0)] * (3 - len(dims)) + dims
+            t = tile_of(dims)
+            row["kind"], row["t"] = KIND_RUNS, t
+            row["n"] = [size for size, _ in dims]
+            row["s"] = [stride for _, stride in dims]
+            blocks[k] = np.prod([-(-size // tk) for (size, _), tk
+                                 in zip(dims, t)])
+    order = np.argsort(table["kind"], kind="stable")
+    table, blocks = table[order], blocks[order]
+    counts, kinds, per_launch = [], [], []
+    for kind in (KIND_VEC, KIND_RUNS):
+        rows = np.flatnonzero(table["kind"] == kind)
+        for k in range(0, len(rows), TICK_MAX_SEGMENTS):
+            part = rows[k:k + TICK_MAX_SEGMENTS]
+            table["first_block"][part] = np.cumsum(blocks[part]) \
+                - blocks[part]
+            if blocks[part].sum() > _INT32:
+                raise ValueError(f"a launch of {blocks[part].sum()} blocks "
+                                 f"passes the grid's 2^31 - 1")
+            counts.append(len(part))
+            kinds.append(kind)
+            per_launch.append(blocks[part].sum())
+    leaf = np.asarray([i for i, _ in live], np.int64)[order]
+    return table, leaf, (np.asarray(counts, np.int32),
+                         np.asarray(kinds, np.int32),
+                         np.asarray(per_launch, np.int64))
+
+
+def _tick_geometry(x: torch.Tensor, leaves, offsets) -> tuple:
+    """The checks of the leaves of ``tick_tail_stacked`` and their
+    geometry for ``plan_tick``: each on x's card, of a dtype the buffer
+    embeds, (W, *shape)."""
+    w = x.shape[0]
+    if len(leaves) != len(offsets):
+        raise ValueError(f"need one offset a leaf, got {len(leaves)} leaves "
+                         f"and {len(offsets)} offsets")
+    allowed = TICK_LEAVES[x.dtype]
+    geometry = []
+    for i, (leaf, off) in enumerate(zip(leaves, offsets)):
+        if leaf.device != x.device:
+            raise ValueError(f"leaf {i} is on {leaf.device}, x on "
+                             f"{x.device}")
+        if leaf.dtype not in allowed:
+            raise TypeError(f"leaf {i}: dtype {leaf.dtype} does not embed "
+                            f"in a {x.dtype} buffer")
+        if leaf.dim() < 1 or leaf.shape[0] != w:
+            raise ValueError(f"leaf {i} must be (W, ...) with W = {w}, got "
+                             f"{tuple(leaf.shape)}")
+        geometry.append((leaf.data_ptr() % 16, leaf.stride(0), int(off),
+                         leaf.numel() // w, tuple(leaf.shape[1:]),
+                         leaf.stride()[1:], leaf.dtype))
+    return geometry
+
+
+def tick_tail_stacked(x: torch.Tensor, x_tilde: torch.Tensor, leaves,
+                      offsets, gscale: torch.Tensor,
+                      coeff: torch.Tensor | None, *, gamma: float):
+    """The tail of a gradient tick on the card, in one pass: the descent of
+    both buffers by the gradient leaves, the metrics row, the trailing mix.
+
+    x, x_tilde: (W, D) float32 or bfloat16, contiguous, 16-byte aligned,
+    D % 128 == 0; leaves: the gradient leaves (W, *shape), read in place at
+    any strides whose per-worker dims merge to at most three, of the
+    buffer's dtype or one it embeds (float16 or bfloat16 in a float32
+    buffer), leaf i at buffer columns offsets[i] onwards (FlatLayout's
+    specs; the columns past the leaves, the padding, are not touched);
+    gscale: (W,) float32, each row's gradient scale; coeff: (W,) float32,
+    the trailing mix's coefficient (``a2cid2.mixing_coeff(eta,
+    dt_next)``), or None for eta == 0 (no mix: the baseline's buffers stay
+    exactly the descent's); gamma, rounded here to the buffer dtype.
+
+    x and x_tilde are updated IN PLACE and returned, with the row's
+    consensus and mean squared norm, two 0-dim float32 views of one fresh
+    tensor.  x and x~ are bit for bit ``ref.tick_tail_stacked_ref``'s; the
+    row agrees to the rounding of its sums (the kernel adds in double,
+    each column at once).  The launches (one of the pass for each kind of
+    leaf present, more past ``TICK_MAX_SEGMENTS`` leaves of a kind, and
+    one of the row's sum) are queued on the current stream and not waited
+    for.  Each call adds one to
+    ``tick_tail_stacked.launches``.
+    """
+    vectors = {"gscale": (gscale, torch.float32, "row")}
+    if coeff is not None:
+        vectors["coeff"] = (coeff, torch.float32, "row")
+    _check_rows("tick_tail_stacked", x, {"x_tilde": x_tilde}, vectors)
+    w, d = x.shape
+    table, leaf, (counts, kinds, blocks) = plan_tick(
+        tuple(_tick_geometry(x, leaves, offsets)), x.dtype, w, d)
+    table = table.copy()
+    table["g"] = [leaves[i].data_ptr() for i in leaf]
+    partials = torch.empty((int(blocks.sum()), 2), dtype=torch.float64,
+                           device=x.device)
+    row = torch.empty(2, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _entry("tick_tail_stacked")(
+            DTYPE_CODE[x.dtype], x.data_ptr(), x_tilde.data_ptr(), w, d,
+            table.ctypes.data, len(blocks), counts.ctypes.data,
+            kinds.ctypes.data, blocks.ctypes.data, gscale.data_ptr(),
+            None if coeff is None else coeff.data_ptr(),
+            dtype_scalar(gamma, x.dtype),
+            float(np.float32(d) / np.float32(w * d)),
+            float(np.float32(1.0) / np.float32(w)), partials.data_ptr(),
+            row.data_ptr(), _stream(x))
+    if err != 0:
+        raise RuntimeError(f"tick_tail_stacked launch failed: CUDA error "
+                           f"{err}")
+    tick_tail_stacked.launches += 1
+    # each leaf read once at its dtype; x, x~ read and written once;
+    # gscale (and coeff) read; the partials written and read; the row
+    record("tick_tail_stacked", 0.0,
+           sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+           + 4 * x.numel() * x.element_size()
+           + (1 + (coeff is not None)) * w * 4 + 2 * partials.numel() * 8
+           + 8)
+    return x, x_tilde, row[0], row[1]
+
+
+tick_tail_stacked.launches = 0

@@ -13,10 +13,11 @@ import torch
 from .. import resolve_backend
 from .kernel import (channel_gossip_stacked, channel_gossip_worlds,
                      mixing_gossip_stacked, mixing_gossip_worlds, mixing_p2p,
-                     mixing_p2p_tree, p2p_mixing)
+                     mixing_p2p_tree, p2p_mixing, tick_tail_stacked)
 from .ref import (channel_gossip_stacked_ref, channel_gossip_worlds_ref,
                   channel_p2p_mixing_ref, mixing_gossip_stacked_ref,
-                  mixing_gossip_worlds_ref, mixing_p2p_ref, p2p_mixing_ref)
+                  mixing_gossip_worlds_ref, mixing_p2p_ref, p2p_mixing_ref,
+                  tick_tail_stacked_ref)
 
 
 def _scalar_on(v, x: torch.Tensor) -> torch.Tensor:
@@ -169,3 +170,18 @@ def channel_event_worlds(x: torch.Tensor, x_tilde: torch.Tensor,
     if resolve_backend(backend, x) == "ref":
         return channel_gossip_worlds_ref(*args, **kw)
     return channel_gossip_worlds(*args, **kw)
+
+
+def tick_tail(x: torch.Tensor, x_tilde: torch.Tensor, leaves, offsets,
+              gscale: torch.Tensor, coeff: torch.Tensor | None, *,
+              gamma: float, backend: str = "auto"):
+    """The tail of a gradient tick on worker-stacked (W, D) buffers: the
+    descent of both by the gradient ``leaves`` (leaf i at buffer columns
+    ``offsets[i]`` onwards), the metrics row, the trailing mix with the
+    (W,) ``coeff`` (None: eta == 0).  Returns ``(x, x_tilde, consensus,
+    mean_sq)``.  Callers treat both buffers as consumed: the CUDA kernel
+    writes them in place, the plain version returns new ones."""
+    args = (x, x_tilde, leaves, offsets, gscale, coeff)
+    if resolve_backend(backend, x) == "ref":
+        return tick_tail_stacked_ref(*args, gamma=gamma)
+    return tick_tail_stacked(*args, gamma=gamma)

@@ -208,3 +208,34 @@ def channel_p2p_mixing_ref(x: torch.Tensor, x_tilde: torch.Tensor,
     c = _coeff(eta, dt_next, x.dtype)
     d = xt1 - x1
     return x1 + c * d, xt1 - c * d
+
+
+def tick_tail_stacked_ref(x: torch.Tensor, x_tilde: torch.Tensor, leaves,
+                          offsets, gscale: torch.Tensor,
+                          coeff: torch.Tensor | None, *, gamma: float):
+    """The tail of a gradient tick on (W, D) buffers, as the replay's eager
+    ops compute it: the gradient leaves (W, *shape) packed at their buffer
+    columns ``offsets`` (``FlatLayout.pack``: cast to the buffer dtype,
+    zeros elsewhere), each row scaled by its ``gscale`` (W,) and by
+    ``gamma`` and taken off both buffers (``Simulator._descend``); the
+    metrics row of the descended x (its consensus distance and the squared
+    norm of its worker mean); then the mixing sweep with the (W,) f32
+    coefficient ``coeff`` (``a2cid2.apply_mixing``), none for eta == 0.
+    Returns fresh ``(x, x_tilde, consensus, mean_sq)``, the last two 0-dim
+    f32; the inputs are left as they were."""
+    w = x.shape[0]
+    g = torch.zeros_like(x)
+    for leaf, off in zip(leaves, offsets):
+        n = leaf.numel() // w
+        g[:, off:off + n] = leaf.reshape(w, n)
+    g = gscale[:, None].to(g.dtype) * g
+    gm = dtype_scalar(gamma, g.dtype)
+    x, x_tilde = x - gm * g, x_tilde - gm * g
+    mean = x.mean(dim=0, keepdim=True)
+    consensus = (((x - mean) ** 2).sum() / w).float()
+    mean_sq = (mean ** 2).sum().float()
+    if coeff is not None:
+        c = coeff.to(x.dtype)[:, None]
+        d = x_tilde - x
+        x, x_tilde = x + c * d, x_tilde - c * d
+    return x, x_tilde, consensus, mean_sq

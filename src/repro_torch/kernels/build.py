@@ -39,6 +39,7 @@ PACKAGES = {
     "channel_gossip_worlds": "a2cid2_mixing",
     "p2p_mixing": "a2cid2_mixing",
     "mixing_p2p": "a2cid2_mixing",
+    "tick_tail_stacked": "a2cid2_mixing",
     "flash_attention_bhsd": "flash_attention",
     "rmsnorm_2d": "rmsnorm",
 }
