@@ -6,7 +6,7 @@ It needs one card, the CUDA toolkit (``nvcc``) and this checkout; it never
 imports JAX or the JAX package.  Phases, each fatal on failure:
 
   1. device and build: the card, the TF32 settings (both set off: f32
-     means f32 here), all nine hand kernels built from ``src/`` in parallel
+     means f32 here), all ten hand kernels built from ``src/`` in parallel
      (``kernels/build.py``) with nvcc's register and spill report;
   2. the clean kernel ``mixing_gossip_stacked`` bit for bit its plain
      PyTorch version on the same inputs, at the slice's real shape (16
@@ -331,6 +331,14 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      its bytes bound (each leaf read once, x and x~ read and written once,
      at 3.35 TB/s) and beside the eager PyTorch sequence it replaces
      (``Simulator._grad_tick``'s descent and row, then ``engine.mix``).
+ 32. the dropless experts ``moe_experts`` at the Kanana-2 cell's shape (4
+     workers of one 1,024-token sequence, top-6 of 128 experts, 8 held,
+     d 2048, expert width 768, random picks): the routing tables, the
+     grouped products, the combine and the backward, one launch of each
+     of the ten ops, the output and the five gradients within 1e-5 of
+     the dense plain version's largest values; forward and backward
+     timed beside their bound (the held rows' FLOPs on the CUDA cores,
+     or the launches' least bytes) and the plain version's.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -456,6 +464,12 @@ KERNELS = {
         "source": "src/repro_torch/kernels/a2cid2_mixing/csrc/"
                   "tick_tail_stacked.cu",
         "replaces": "none: the JAX package leaves the tick's tail to XLA"},
+    "moe_experts": {
+        "name": "moe_experts", "route": "cuda",
+        "instructions": "f32 FFMA on the CUDA cores",
+        "source": "src/repro_torch/kernels/moe_experts/csrc/moe_experts.cu",
+        "replaces": "none: the JAX package dispatches MoE picks into "
+                    "capacity buffers (models/layers.py)"},
 }
 # the clean replay on the card: the clean kernel once a comm step, the
 # one-pass tick tail once a gradient tick
@@ -5958,6 +5972,102 @@ def phase_tick_tail(card, params0, cfg, stream_cls, grad_fn_for):
             launched["tick_tail_stacked"])
 
 
+# phase 32: the dropless experts at the Kanana-2 cell's shape: 4 workers
+# of one 1,024-token sequence, top-6 of 128 experts, 8 held, d 2048,
+# expert width 768
+MOE_CELL = dict(w=4, t=1024, k=6, e=128, n=8, d=2048, f=768)
+MOE_REPS = 20
+# kernel against the dense plain version, f32 both (FFMA against cuBLAS
+# with TF32 off): relative to each output's largest value
+MOE_RTOL = 1e-5
+
+
+def phase_moe_experts(card):
+    """Phase 32: ``moe_experts`` (route, products, combine, backward)
+    against the dense plain version at the cell's shape, timed beside its
+    bound and the plain version's forward and backward.  Returns (the
+    kernel's JSON row, its launches)."""
+    from repro_torch.kernels.moe_experts import kernel as mk
+    from repro_torch.kernels.moe_experts.ops import flops_per_row, least_bytes
+    from repro_torch.kernels.moe_experts.ref import moe_experts_ref
+    dev = torch.device("cuda")
+    c = MOE_CELL
+    w, t, k, e, n, d, f = (c[key] for key in "wtkend" + "f")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    ids = torch.rand((w, t, e), generator=gen, device=dev).argsort(
+        -1)[..., :k].contiguous()
+    gates = torch.rand((w, t, k), generator=gen, device=dev)
+    x = torch.randn((w, t, d), generator=gen, device=dev)
+    wg = torch.randn((w, n, d, f), generator=gen, device=dev) / d ** 0.5
+    wu = torch.randn((w, n, d, f), generator=gen, device=dev) / d ** 0.5
+    wd = torch.randn((w, n, f, d), generator=gen, device=dev) / f ** 0.5
+    dout = torch.randn((w, t, d), generator=gen, device=dev)
+    reset_launches()
+    before = dict(mk.moe_experts.by_op)
+
+    def forward():
+        meta, row, pick = mk.route(ids, 0, n, w * t * min(k, n))
+        hg, hu, y = mk.products(x, gates, meta, row, pick, wg, wu, wd, 0)
+        return (mk.combine(y, gates, row, t), meta, row, pick, hg, hu, y)
+
+    out, meta, row, pick, hg, hu, y = forward()
+    grads = mk.backward(dout, x, gates, meta, row, pick, wg, wu, wd, hg, hu,
+                        y, 0)
+    by_op = {op: mk.moe_experts.by_op.get(op, 0) - before.get(op, 0)
+             for op in mk.OPS}
+    require(by_op == {op: 1 for op in mk.OPS},
+            f"phase 32: launches by op {by_op}")
+    ins = [a.clone().requires_grad_() for a in (x, gates, wg, wu, wd)]
+    want = moe_experts_ref(ins[0], ids, ins[1], *ins[2:], 0)
+    want_g = torch.autograd.grad(want, ins, dout)
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip((out, *grads), (want, *want_g))]
+    require(max(errs) <= MOE_RTOL,
+            f"phase 32: kernel vs plain, relative errors {errs}")
+    rows = int(meta[:, n:].sum())
+    largest = int(meta[:, n:].max())
+    del want, want_g, ins
+
+    def backward():
+        return mk.backward(dout, x, gates, meta, row, pick, wg, wu, wd, hg,
+                           hu, y, 0)
+
+    def plain():
+        ins = [a.detach().requires_grad_() for a in (x, gates, wg, wu, wd)]
+        return torch.autograd.grad(
+            moe_experts_ref(ins[0], ids, ins[1], *ins[2:], 0), ins, dout)
+
+    fwd_ms = cuda_ms(forward, MOE_REPS)
+    bwd_ms = cuda_ms(backward, MOE_REPS)
+    plain_ms = cuda_ms(plain, 5)
+    ms = fwd_ms + bwd_ms
+    flops = rows * flops_per_row(d, f)
+    nbytes = least_bytes(rows, w, t, n, d, f)
+    b = bound(nbytes, flops)
+    require(ms >= b["bound_ms"],
+            f"phase 32: {ms:.4f} ms is below the bound {b['bound_ms']:.4f} "
+            f"ms: the work is miscounted")
+    launched = read_launches()
+    require(only_launched(launched, "moe_experts"),
+            f"phase 32 launched {launched}")
+    print(f"[{card}] phase 32: moe_experts at (W, T, K, E, n, D, F) = "
+          f"({w}, {t}, {k}, {e}, {n}, {d}, {f}): {rows} held rows (largest "
+          f"group {largest}, {w * n} groups), out and the five gradients "
+          f"within {max(errs):.2e} of the dense plain version's largest "
+          f"values (limit {MOE_RTOL:g}); forward (route, 2 products, "
+          f"combine) {fwd_ms:.4f} ms, backward (6 launches) {bwd_ms:.4f} ms, "
+          f"together {ms:.4f} against the bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} "
+          f"GB; {b['bound_ms'] / ms:.1%} of it); the dense plain version "
+          f"forward and backward {plain_ms:.4f} ms "
+          f"({plain_ms / ms:.2f}x)")
+    return ({"max_abs_err": max(errs), "ms": ms, "forward_ms": fwd_ms,
+             "backward_ms": bwd_ms, "plain_ms": plain_ms,
+             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "library_ms": None, "rows": rows},
+            launched["moe_experts"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6118,6 +6228,11 @@ def main() -> int:
         example_errs.get("tick_tail_stacked", 0.0))
     launches["tick_tail_stacked"] += n31
     print(f"[{card}] phases 1-31 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    torch.cuda.empty_cache()
+    rows["moe_experts"], n32 = phase_moe_experts(card)
+    launches["moe_experts"] += n32
+    print(f"[{card}] phases 1-32 done at {time.perf_counter() - t_start:.1f}"
           f" s")
 
     print(card)

@@ -150,6 +150,12 @@ class OpCounter(TorchDispatchMode):
                       {k: dict(v) for k, v in self.recorded.items()})
 
 
+def counting() -> bool:
+    """True while an :class:`OpCounter` is active."""
+    return any(isinstance(m, OpCounter)
+               for m in _get_current_dispatch_mode_stack())
+
+
 def record(name: str, flops: float, nbytes: float) -> None:
     """Add a hand kernel's work to every active :class:`OpCounter` (a
     no-op with none): ``flops`` as its plain version's aten ops would count

@@ -90,6 +90,15 @@ def count(name: str, **values) -> None:
         tracer.counter(name, values)
 
 
+def count_device(name: str, **values) -> None:
+    """A counter sample whose values may be tensors on the card: read
+    when the tracer resolves, never before; nothing when none is
+    active."""
+    tracer = _active
+    if tracer is not None:
+        tracer.device_counter(name, values)
+
+
 class _Span:
     """One open span of ``tracer`` (``SpanTracer.span``)."""
 
@@ -156,6 +165,7 @@ class SpanTracer:
         self._local = threading.local()
         self._last_id = 0
         self._pending: list[tuple[dict, Any, Any]] = []
+        self._pending_counts: list[tuple[dict, dict]] = []
         self._gc_open: tuple | None = None
         self.process(process)
 
@@ -239,6 +249,20 @@ class SpanTracer:
                             "args": {k: float(v) for k, v in
                                      values.items()}})
 
+    def device_counter(self, name: str, values: dict, *,
+                       process: str | None = None) -> None:
+        """A counter ("C") sample whose values may be tensors (on the
+        card): the event names the innermost open span as ``parent`` at
+        once, and takes its values in ``resolve``, so that recording
+        never waits for the card."""
+        pid = self.process(process or self._root)
+        stack = self._stack()
+        ev = {"ph": "C", "name": name, "pid": pid, "tid": 0,
+              "ts": self.now_us(), "parent": stack[-1].id if stack else 0,
+              "args": {}}
+        self.events.append(ev)
+        self._pending_counts.append((ev, dict(values)))
+
     # ---------------------------------------------------- active recording
     @contextmanager
     def activate(self):
@@ -279,12 +303,16 @@ class SpanTracer:
 
     def resolve(self) -> SpanTracer:
         """Wait for the device, then add each recorded span's CUDA event
-        time to its args as ``device_ms``."""
+        time to its args as ``device_ms``, and give each device counter
+        its values."""
         if self._pending:
             torch.cuda.synchronize()
             for ev, start, end in self._pending:
                 ev["args"]["device_ms"] = start.elapsed_time(end)
             self._pending.clear()
+        for ev, values in self._pending_counts:
+            ev["args"] = {k: float(v) for k, v in values.items()}
+        self._pending_counts.clear()
         return self
 
     # ----------------------------------------------------------- serialize

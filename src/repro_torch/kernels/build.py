@@ -42,6 +42,7 @@ PACKAGES = {
     "tick_tail_stacked": "a2cid2_mixing",
     "flash_attention_bhsd": "flash_attention",
     "rmsnorm_2d": "rmsnorm",
+    "moe_experts": "moe_experts",
 }
 KERNELS = tuple(PACKAGES)
 # the dtype argument of every entry point

@@ -237,11 +237,15 @@ def init_mla(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     d, h = cfg.d_model, cfg.num_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     dev = generator.device
+    if m.q_lora_rank is None:     # q straight from d_model (Kanana-2)
+        q = {"w_q": dense_init(generator, d, (d, h * qk), dtype)}
+    else:
+        q = {"w_dq": dense_init(generator, d, (d, m.q_lora_rank), dtype),
+             "q_norm": init_rmsnorm(m.q_lora_rank, dtype, dev),
+             "w_uq": dense_init(generator, m.q_lora_rank,
+                                (m.q_lora_rank, h * qk), dtype)}
     return {
-        "w_dq": dense_init(generator, d, (d, m.q_lora_rank), dtype),
-        "q_norm": init_rmsnorm(m.q_lora_rank, dtype, dev),
-        "w_uq": dense_init(generator, m.q_lora_rank,
-                           (m.q_lora_rank, h * qk), dtype),
+        **q,
         "w_dkv": dense_init(generator, d,
                             (d, m.kv_lora_rank + m.qk_rope_head_dim), dtype),
         "kv_norm": init_rmsnorm(m.kv_lora_rank, dtype, dev),
@@ -260,8 +264,11 @@ def _mla_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    cq = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["w_uq"]).reshape(b, s, cfg.num_heads, qk)
+    if m.q_lora_rank is None:
+        q = x @ p["w_q"]
+    else:
+        q = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps) @ p["w_uq"]
+    q = q.reshape(b, s, cfg.num_heads, qk)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)],
                   dim=-1)

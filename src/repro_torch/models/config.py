@@ -37,13 +37,28 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01  # load-balance auxiliary loss
     dense_d_ff: int = 0          # parallel dense residual MLP (Arctic) hidden
+    # port-only fields (the JAX package has none of them; at their defaults
+    # every configuration builds the JAX package's model):
+    # "softmax" | "sigmoid" (DeepSeek-V3's: experts selected by the scores
+    # plus a ``router_bias`` leaf, gated by the unbiased scores)
+    scoring: str = "softmax"
+    routed_scaling: float = 1.0  # the gates' factor after normalisation
+    # (first, count): the experts this chip holds of ``num_experts`` (the
+    # expert-parallel share), every held pick computed, no capacity
+    # (``kernels.moe_experts``; (0, num_experts) an uncut dropless layer);
+    # None: all of them, GShard capacity dispatch
+    held: tuple[int, int] | None = None
+
+
+# MoEConfig's fields that the JAX package's has not
+PORT_ONLY_MOE_FIELDS = ("scoring", "routed_scaling", "held")
 
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
     """Multi-head Latent Attention (DeepSeek-V3)."""
 
-    q_lora_rank: int = 1536
+    q_lora_rank: int | None = 1536  # None: q projected from d_model
     kv_lora_rank: int = 512
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64

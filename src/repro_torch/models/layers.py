@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..analysis import tracing
+from ..kernels.moe_experts import ops as experts
 from .config import ModelConfig, MoEConfig
 
 
@@ -157,15 +159,22 @@ def init_moe(generator: torch.Generator, d_model: int, cfg: MoEConfig,
     mlp."""
     d_e = cfg.d_expert or d_model * 4
     e = cfg.num_experts
+    held = cfg.held[1] if cfg.held else e   # the router still scores all e
     p = {
         "router": dense_init(generator, d_model, (d_model, e),
                              torch.float32),
-        "moe_up": dense_init(generator, d_model, (e, d_model, d_e), dtype),
-        "moe_down": dense_init(generator, d_e, (e, d_e, d_model), dtype),
+        "moe_up": dense_init(generator, d_model, (held, d_model, d_e),
+                             dtype),
+        "moe_down": dense_init(generator, d_e, (held, d_e, d_model), dtype),
     }
     if act == "silu":
-        p["moe_gate"] = dense_init(generator, d_model, (e, d_model, d_e),
+        p["moe_gate"] = dense_init(generator, d_model, (held, d_model, d_e),
                                    dtype)
+    if cfg.scoring == "sigmoid":
+        # DeepSeek-V3's selection bias, published at 0; training moves it
+        # by a rule outside the gradient (its gradient is 0)
+        p["router_bias"] = torch.zeros((e,), dtype=torch.float32,
+                                       device=generator.device)
     if cfg.shared_expert:
         p["shared"] = init_mlp(generator, d_model, cfg.d_shared or d_e,
                                dtype, act)
@@ -185,12 +194,24 @@ def moe_route(p: dict, x: torch.Tensor, cfg: MoEConfig):
     topi (B, S, K)).  The router product runs in x's dtype, the softmax in
     f32.  The top k come from a stable descending sort, so that equal
     probabilities keep the lower expert first, as ``lax.top_k`` does; the
-    weights are renormalised over the k, then cast to x's dtype."""
+    weights are renormalised over the k, then cast to x's dtype.
+
+    ``scoring == "sigmoid"`` (DeepSeek-V3's ``noaux_tc`` with one group):
+    the scores are sigmoids of the logits, the k experts are selected by
+    score + ``router_bias``, and their gates are the unbiased scores,
+    normalised over the k and times ``routed_scaling``."""
     logits = (x @ p["router"].to(x.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)
-    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topw, topi = topw[..., :cfg.top_k], topi[..., :cfg.top_k]
-    topw = topw / topw.sum(dim=-1, keepdim=True)
+    if cfg.scoring == "sigmoid":
+        probs = torch.sigmoid(logits)
+        _, topi = torch.sort(probs + p["router_bias"].float(), dim=-1,
+                             descending=True, stable=True)
+        topi = topi[..., :cfg.top_k]
+        topw = torch.gather(probs, -1, topi)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+        topw, topi = topw[..., :cfg.top_k], topi[..., :cfg.top_k]
+    topw = topw / topw.sum(dim=-1, keepdim=True) * cfg.routed_scaling
     return probs, topw.to(x.dtype), topi
 
 
@@ -261,21 +282,39 @@ def _expert_products(p: dict, buf: torch.Tensor, act: str) -> torch.Tensor:
 def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str = "silu"
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Group-wise capacity-based top-k MoE (GShard-style dispatch), the
-    groups the batch rows: x (B, S, D) -> (out, aux_loss f32).
+    groups the batch rows: x (B, S, D) -> (out, aux_loss f32).  With
+    ``held`` every pick of a held expert is computed
+    (``kernels.moe_experts``: no capacity, nothing dropped); the layer
+    then adds only its held experts' part, and the shared expert and dense
+    mlp once.
 
     aux is the Switch load-balance loss over the whole batch,
     ``router_aux_weight * E * sum_e mean_prob_e * count_e / (B * S * K)``,
     the counts taken from the expert mask (no ``bincount``)."""
-    b, s, _ = x.shape
+    b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
-    c = moe_capacity(s, cfg)
-    probs, topw, topi = moe_route(p, x, cfg)
-    me = probs.mean(dim=(0, 1))
-    counts = _expert_mask(topi.reshape(-1), e).float().sum(0)
-    aux = cfg.router_aux_weight * e * torch.sum(me * counts / (b * s * k))
-    buf, dest, keep = _dispatch_group(x, topi, e, c)
-    out_e = _expert_products(p, buf, act)
-    out = _combine_group(out_e, dest, keep, topw)
+    with tracing.span("moe.route"):
+        probs, topw, topi = moe_route(p, x, cfg)
+        me = probs.mean(dim=(0, 1))
+        counts = _expert_mask(topi.reshape(-1), e).float().sum(0)
+        aux = cfg.router_aux_weight * e * torch.sum(me * counts
+                                                    / (b * s * k))
+        if cfg.held is not None:
+            e0, n = cfg.held
+            ids = topi.reshape(1, b * s, k)
+            routing = experts.moe_route(ids, e0, n)
+    if cfg.held is not None:
+        if act != "silu":
+            raise ValueError("the held experts are SwiGLU (silu) only")
+        out = experts.moe_experts(
+            x.reshape(1, b * s, d), topw.reshape(1, b * s, k), ids, routing,
+            p["moe_gate"][None], p["moe_up"][None], p["moe_down"][None],
+            e0).reshape(b, s, d)
+    else:
+        c = moe_capacity(s, cfg)
+        buf, dest, keep = _dispatch_group(x, topi, e, c)
+        out_e = _expert_products(p, buf, act)
+        out = _combine_group(out_e, dest, keep, topw)
     if "shared" in p:
         out = out + apply_mlp(p["shared"], x, act)
     if "dense" in p:

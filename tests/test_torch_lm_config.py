@@ -25,6 +25,8 @@ from repro_torch.core.tree import tree_flatten, tree_leaves
 from repro_torch.models.config import Block, MoEConfig, uniform_blocks
 from repro_torch.models.transformer import Model
 
+from port_parity import as_jax_fields
+
 
 def test_architecture_list_matches_jax():
     assert ARCHITECTURES == J_ARCHITECTURES
@@ -34,10 +36,10 @@ def test_architecture_list_matches_jax():
 @pytest.mark.parametrize("name", J_ARCHITECTURES + ("nano-lm",))
 def test_config_equals_jax(name, reduced):
     tc, jc = get_config(name, reduced), j_get_config(name, reduced)
-    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert as_jax_fields(tc) == dataclasses.asdict(jc)
     assert (tc.num_layers, tc.resolved_head_dim, tc.padded_vocab) == \
         (jc.num_layers, jc.resolved_head_dim, jc.padded_vocab)
-    assert dataclasses.asdict(tc.windowed(32)) == \
+    assert as_jax_fields(tc.windowed(32)) == \
         dataclasses.asdict(jc.windowed(32))
 
 

@@ -27,6 +27,7 @@ from repro.models import layers as jl
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import layers as tl
+from repro_torch.models.config import MoEConfig
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16)}
@@ -96,6 +97,12 @@ def _j_route(router, x, k):
     return probs, topw.astype(x.dtype), topi
 
 
+def _port(moe):
+    """The port's MoEConfig of the JAX package's (its port-only fields at
+    their defaults)."""
+    return MoEConfig(**dataclasses.asdict(moe))
+
+
 def _tied_moe(dtype=np.float32):
     """A MoE config of 6 experts, top 3, whose router columns 1 = 4 and
     2 = 5: every token ties those pairs exactly."""
@@ -117,7 +124,7 @@ def test_top_k_ties_keep_the_lower_expert_first():
     jprobs, jw, ji = _j_route(jnp.asarray(jp["router"]), jnp.asarray(x),
                               moe.top_k)
     probs, w, i = tl.moe_route(params_from_jax(jp, device="cpu"),
-                               torch.from_numpy(x), moe)
+                               torch.from_numpy(x), _port(moe))
     ji = np.asarray(ji)
     # the constructed ties do reach the top k, and a tied pair keeps its
     # lower expert first
@@ -136,7 +143,7 @@ def test_apply_moe_with_ties_and_drops_matches_jax():
         size=(2, 16, cfg.d_model)).astype(np.float32)
     jout, jaux = jl.apply_moe(jp, jnp.asarray(x), moe, "silu")
     out, aux = tl.apply_moe(params_from_jax(jp, device="cpu"),
-                            torch.from_numpy(x), moe, "silu")
+                            torch.from_numpy(x), _port(moe), "silu")
     jout = np.asarray(jout)
     assert np.abs(out.numpy() - jout).max() <= 1e-5 * np.abs(jout).max()
     np.testing.assert_allclose(aux.item(), float(jaux), rtol=1e-6)

@@ -230,3 +230,19 @@ def test_cuda_tracer_records_device_time():
     (outer,) = _spans(tracer, "outer")
     inner = sum(e["args"]["device_ms"] for e in _spans(tracer, "inner"))
     assert inner <= outer["args"]["device_ms"] * 1.001
+
+
+def test_device_counter_reads_its_tensors_at_resolve():
+    tracer = SpanTracer("test")
+    rows = torch.tensor(3)
+    tracing.count_device("moe", rows=rows)          # none active: nothing
+    with tracer.activate():
+        with tracing.span("outer"):
+            tracing.count_device("moe", rows=rows, groups=4)
+    (sample,) = [e for e in tracer.events if e["ph"] == "C"]
+    (outer,) = _spans(tracer, "outer")
+    assert sample["parent"] == outer["args"]["id"] and sample["args"] == {}
+    rows += 2                  # read at resolve, never while recording
+    tracer.resolve()
+    assert sample["args"] == {"rows": 5.0, "groups": 4.0}
+    validate_trace(tracer.to_dict())

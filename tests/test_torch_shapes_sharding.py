@@ -39,6 +39,9 @@ from repro_torch.launch.mesh import (AbstractMesh as TMesh,
 from repro_torch.models.layers import SHAPE_ONLY
 from repro_torch.models.transformer import Model
 
+from port_parity import as_jax_fields
+
+
 CONFIGS = ARCHITECTURES + ("nano-lm",)
 MESHES = {
     "single": (make_production_mesh(), AbstractMesh((16, 16),
@@ -107,7 +110,7 @@ def test_shapes_and_rules_equal_jax():
 def test_input_specs_equal_jax(name):
     cfg, jcfg = get_config(name), jax_config(name)
     for shape in shapes.SHAPES:
-        assert dataclasses.asdict(shapes.adapt_config(
+        assert as_jax_fields(shapes.adapt_config(
             cfg, shapes.shape_for(shape))) == dataclasses.asdict(
             jshapes.adapt_config(jcfg, jshapes.shape_for(shape)))
         port = shapes.input_specs(cfg, shape)
