@@ -6,7 +6,7 @@ It needs one card, the CUDA toolkit (``nvcc``) and this checkout; it never
 imports JAX or the JAX package.  Phases, each fatal on failure:
 
   1. device and build: the card, the TF32 settings (both set off: f32
-     means f32 here), all ten hand kernels built from ``src/`` in parallel
+     means f32 here), all eleven hand kernels built from ``src/`` in parallel
      (``kernels/build.py``) with nvcc's register and spill report;
   2. the clean kernel ``mixing_gossip_stacked`` bit for bit its plain
      PyTorch version on the same inputs, at the slice's real shape (16
@@ -339,6 +339,24 @@ imports JAX or the JAX package.  Phases, each fatal on failure:
      the dense plain version's largest values; forward and backward
      timed beside their bound (the held rows' FLOPs on the CUDA cores,
      or the launches' least bytes) and the plain version's.
+ 33. the f32 weight products ``gemm_3xtf32`` (3xTF32 on wgmma): the HGMMA
+     count of the built library's SASS (none fails); at each product
+     shape of the two LM cells (forward, dX and dW of Qwen3-0.6B's and
+     Kanana-2's projections, MLPs and heads, W = 4 workers of 1,024
+     tokens, operands in the layouts the tick hands over) within 1e-6 of
+     the largest element of |A| |B| from ``torch.matmul``
+     (``max_rel_err``; cuBLAS's plain TF32 reads 9.6e-6 at the tied
+     head's dX, the kernel 3.3e-7), timed beside its bound (3xTF32 at
+     164.9 TFLOP/s or the bytes; a time below it fails) and beside
+     ``torch.matmul`` (TF32 off: FFMA on the CUDA cores, the yardstick
+     ``library_ms``); then one ``lm_grad_fn`` tick of reduced Qwen3 and
+     Kanana-2 blocks at 4 workers of 256 tokens with a tracer active,
+     whose ``dense`` counter must carry every weight product on the
+     kernel, as many launches as products, 3 a weight product.  Every
+     f32 LM phase before launches the kernel beside its own: each holds
+     its launches to the count its config gives (``weight_products``:
+     one a weight product of a forward whose rows reach 64, three in a
+     gradient), and a bf16 model, a decode step or a ResNet none.
 
 The line before the last is a JSON summary of every kernel, the last line
 the status object.  Every printed number is prefixed with the card's name
@@ -470,7 +488,18 @@ KERNELS = {
         "source": "src/repro_torch/kernels/moe_experts/csrc/moe_experts.cu",
         "replaces": "none: the JAX package dispatches MoE picks into "
                     "capacity buffers (models/layers.py)"},
+    "gemm_3xtf32": {
+        "name": "gemm_3xtf32", "route": "cuda",
+        "instructions": "f32 as 3xTF32 on wgmma (HGMMA)",
+        "source": "src/repro_torch/kernels/dense_f32/csrc/gemm_3xtf32.cu",
+        "replaces": "none: the JAX package leaves the weight products to "
+                    "XLA"},
 }
+# the f32 weight products of every model on the card (``models`` call
+# ``kernels/dense_f32``'s ``dense``): each f32 LM phase holds its launches
+# to ``weight_products`` (``require_products``), which tallies them here
+DENSE = "gemm_3xtf32"
+DENSE_TALLY = {"launches": 0}
 # the clean replay on the card: the clean kernel once a comm step, the
 # one-pass tick tail once a gradient tick
 CLEAN_REPLAY = ("mixing_gossip_stacked", "tick_tail_stacked")
@@ -565,6 +594,59 @@ def read_launches() -> dict:
 def only_launched(launches: dict, *names: str) -> bool:
     """True when no kernel other than ``names`` launched."""
     return all(v == 0 for k, v in launches.items() if k not in names)
+
+
+def weight_products(cfg, batch: int, seq: int, loss: bool = False,
+                    cache: int = 0) -> int:
+    """The ``gemm_3xtf32`` launches of one forward of ``cfg`` on (batch,
+    seq) tokens, from the config alone: each weight product of a block (q,
+    k, v and o of GQA; MLA's q, or its q down and up, then kv down, k up,
+    v up and o; an MLP's up and down, and gate where it is gated: of a
+    dense layer, of a MoE's shared expert and of its parallel dense MLP)
+    and the head, where the model is f32 and the product's rows reach
+    ``dense_f32.ops.MIN_ROWS``; with ``loss``, the multi-token prediction
+    block's and its head's on seq - 1 rows too.  With ``cache``, one
+    decode step (seq 1) against caches of that length: no o (``matmul``),
+    and MLA's k and v up-projections on the cache's batch x cache rows.
+    A gradient launches three a product (Y, dX, dW)."""
+    from repro_torch.kernels.dense_f32.ops import MIN_ROWS
+    from repro_torch.models.transformer import mtp_block
+    if not cfg.param_dtype == cfg.compute_dtype == "float32":
+        return 0
+    mlp = 3 if cfg.mlp_act == "silu" else 2
+
+    def block(b, rows: int) -> int:
+        on = rows >= MIN_ROWS
+        n = 0
+        if b.mixer == "attn":
+            n = on * (3 if cache else 4)
+        elif b.mixer == "mla":
+            q = 1 if cfg.mla.q_lora_rank is None else 2
+            n = on * (q + 1 + (not cache))
+            n += 2 * ((batch * cache if cache else rows) >= MIN_ROWS)
+        if b.mlp == "dense":
+            n += on * mlp
+        elif b.mlp != "none":
+            n += on * mlp * (bool(cfg.moe.shared_expert)
+                             + bool(cfg.moe.dense_d_ff))
+        return n
+
+    rows = batch * (1 if cache else seq)
+    n = sum(block(b, rows) for b in cfg.all_blocks()) + (rows >= MIN_ROWS)
+    if loss and cfg.mtp and cfg.input_mode == "tokens":
+        rows = batch * (seq - 1)
+        n += block(mtp_block(cfg), rows) + (rows >= MIN_ROWS)
+    return n
+
+
+def require_products(launches: dict, want: int, what: str) -> int:
+    """``gemm_3xtf32`` launched exactly ``want`` times in the window (its
+    count from ``weight_products``); the launches join the tally."""
+    got = launches[DENSE]
+    require(got == want, f"{what}: gemm_3xtf32 launched {got} times, the "
+                         f"weight products give {want}")
+    DENSE_TALLY["launches"] += got
+    return got
 
 
 class ReplayTimer:
@@ -1852,6 +1934,8 @@ def phase_lm_replay(card):
     finally:
         train.lm_grad_fn, FlatGossipEngine.batch = orig_grad_fn, orig_batch
     launches = read_launches()
+    products = weight_products(cfg, base.batch_size, base.seq_len)
+    require_products(launches, 2 * LM_ROUNDS * 3 * products, "the LM replay")
     n_params = sum(a[0].numel() for a in tree_leaves(runs["a2cid2"].state.x))
     require(n_params == NANO_PARAMS,
             f"nano-lm has {n_params} parameters, JAX's eval_shape "
@@ -1862,7 +1946,7 @@ def phase_lm_replay(card):
     require(launches["tick_tail_stacked"] == 2 * LM_ROUNDS,
             f"the tick tail launched {launches['tick_tail_stacked']} times "
             f"for 2 x {LM_ROUNDS} gradient ticks")
-    require(only_launched(launches, *CLEAN_REPLAY),
+    require(only_launched(launches, *CLEAN_REPLAY, DENSE),
             f"another kernel launched on the LM replay: {launches}")
     for arm, run in runs.items():
         tr = run.trace
@@ -1891,7 +1975,8 @@ def phase_lm_replay(card):
           f"mixing_gossip_stacked launches "
           f"{launches['mixing_gossip_stacked']} == 2 x {comm_steps}, "
           f"tick_tail_stacked {launches['tick_tail_stacked']} == 2 x "
-          f"{LM_ROUNDS}, every other kernel 0")
+          f"{LM_ROUNDS}, gemm_3xtf32 {launches[DENSE]} == 2 x {LM_ROUNDS} "
+          f"ticks x 3 x {products} weight products, every other kernel 0")
     acid = runs["a2cid2"]
     return ({name: launches[name] for name in CLEAN_REPLAY}, acid.model.cfg,
             acid.stream, worker_mean(acid.state.x))
@@ -2008,7 +2093,9 @@ def check_prefill(card, label, cfg, params, tokens, n_attn, tol=MODEL_TOL,
     require(launches["flash_attention_bhsd"] == n_attn,
             f"{label}: flash launched {launches['flash_attention_bhsd']} "
             f"times, the model has {n_attn} attention layers")
-    require(only_launched(launches, "flash_attention_bhsd"),
+    b, s = inputs.shape
+    products = require_products(launches, weight_products(cfg, b, s), label)
+    require(only_launched(launches, "flash_attention_bhsd", DENSE),
             f"{label}: another kernel launched in the prefill: {launches}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2034,10 +2121,10 @@ def check_prefill(card, label, cfg, params, tokens, n_attn, tol=MODEL_TOL,
     ce = F.cross_entropy(logits.reshape(-1, v).float(),
                          labels.reshape(-1)).item()
     require(np.isfinite(ce), f"{label}: CE is not finite")
-    b, s = inputs.shape
     print(f"[{card}] prefill {label} (B={b}, S={s}): flash launches "
           f"{launches['flash_attention_bhsd']} == {n_attn} attention layers,"
-          f" other kernels 0; logits vs the xla path max|d|/max|logit| "
+          f" gemm_3xtf32 {products} == the weight products, other kernels "
+          f"0; logits vs the xla path max|d|/max|logit| "
           f"{rel:.3e} (< {tol:g}){gaps}; CE {ce:.4f}; forward "
           f"{fwd_ms:.2f} ms (CUDA events), flash kernel {sum(flash):.2f} ms"
           f" over {len(flash)} launches ({sum(flash) / fwd_ms:.1%} of the "
@@ -3307,7 +3394,10 @@ def phase_sync_train(card, stream) -> None:
         train.sgd, train.make_train_step = orig
     peaks["plain"] = (torch.cuda.max_memory_allocated() - base, base)
     launched = read_launches()
-    require(all(v == 0 for v in launched.values()),
+    require_products(launched, SYNC_STEPS * 3 * weight_products(
+        run.model.cfg, run.stream.batch_size, run.stream.seq_len),
+        "the sync step")
+    require(only_launched(launched, DENSE),
             f"the sync step launched a hand kernel: {launched}")
     n_params = sum(a.numel() for a in tree_leaves(run.state.params))
     require(n_params == NANO_PARAMS, f"nano-lm has {n_params} parameters")
@@ -3437,9 +3527,12 @@ FLEET_KW = dict(max_batch=4, max_len=24, drift_scale=0.02,
                 stall_per_event=0.03)
 
 
-def require_no_hand_kernel(what: str) -> None:
+def require_no_hand_kernel(what: str, products: int = 0) -> None:
+    """Nothing launched but ``products`` weight products (a decode step's
+    rows, a bf16 model: none)."""
     launched = read_launches()
-    require(all(v == 0 for v in launched.values()),
+    require_products(launched, products, what)
+    require(only_launched(launched, DENSE),
             f"{what} launched a hand kernel: {launched}")
 
 
@@ -4116,7 +4209,12 @@ def phase_ssm_hybrid(card, qwen_step_ms):
         model.forward(params, long_toks)
         fwd_ms = cuda_ms(lambda: model.forward(params, long_toks), reps=3,
                          warmup=0)
-    require_no_hand_kernel("mamba2-780m")
+    # the decode check's forward and decode steps, the long forward's four
+    # (generate's and the token loop's steps of two rows: none)
+    require_no_hand_kernel("mamba2-780m", weight_products(cfg, *toks.shape)
+                           + 4 * weight_products(cfg, *long_toks.shape)
+                           + toks.shape[1] * weight_products(
+                               cfg, 2, 1, cache=toks.shape[1]))
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     print(f"[{card}] 26 mamba2-780m full ({cfg.num_layers} SSD layers, "
           f"d_model {cfg.d_model}, f32): {n_params} parameters, "
@@ -4147,7 +4245,10 @@ def phase_ssm_hybrid(card, qwen_step_ms):
                          generator=gen, device=dev)
     reset_launches()
     rel, steps, _ = decode_vs_forward(model, params, toks)
-    require_no_hand_kernel("recurrentgemma-9b's decode")
+    require_no_hand_kernel("recurrentgemma-9b's decode",
+                           weight_products(cfg, *toks.shape)
+                           + toks.shape[1] * weight_products(
+                               cfg, 2, 1, cache=toks.shape[1]))
     require(rel < DECODE_TOL, f"recurrentgemma-9b decode vs forward "
                               f"{rel:.3e}")
     attn = [b for b in cfg.all_blocks() if b.mixer == "attn"]
@@ -4239,6 +4340,7 @@ def phase_zoo_reduced(card):
     gen = torch.Generator(device=dev).manual_seed(SEED + 27)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    products = 0
     for arch in ZOO_ARCHS:
         cfg = get_config(arch, reduced=True)
         model = Model(cfg)
@@ -4250,6 +4352,13 @@ def phase_zoo_reduced(card):
             moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
         rel, _, _ = decode_vs_forward(Model(uncapped), params, toks[:, :-1])
         require(rel < DECODE_TOL, f"{arch} decode vs forward {rel:.3e}")
+        # each forward below (this check's and its s decode steps on
+        # caches of s, the rings' the same, the SGD steps' and the f32
+        # gradients': lm_grad_fn's and two separate calls) on (2, s)
+        products += (1 + (cfg.rglru is not None)) * (
+            weight_products(cfg, 2, s) + s * weight_products(
+                cfg, 2, 1, cache=s)) + 3 * (ZOO_TRAIN_STEPS + 3) \
+            * weight_products(cfg, 2, s, loss=True)
         notes = [f"decode vs forward {rel:.3e}"]
         if cfg.rglru is not None:
             ring = cfg.windowed(8)
@@ -4291,7 +4400,7 @@ def phase_zoo_reduced(card):
         print(f"[{card}] 27 {arch} reduced ({model.param_count(params)} "
               f"parameters, f32): " + "; ".join(notes))
         del model, params
-    require_no_hand_kernel("the reduced families")
+    require_no_hand_kernel("the reduced families", products)
     args = train.build_parser().parse_args(
         ["--arch", "deepseek-v3-671b", "--workers", "4", "--steps", "2",
          "--seq-len", "32", "--batch-size", "2", "--acid", "--no-bayes-ce"])
@@ -4301,14 +4410,19 @@ def phase_zoo_reduced(card):
     comm_steps = int((~coalesced_stream(
         coalesce_schedule(sched), np.zeros(args.workers, np.float32)
     ).is_grad).sum())
+    reset_launches()
     run = train.run_sim(args)
     launches = read_launches()
+    products = weight_products(run.model.cfg, args.batch_size, args.seq_len,
+                               loss=True)
+    require_products(launches, stream_ticks(sched) * 3 * products,
+                     "run_sim on reduced DeepSeek-V3")
     require(bool(torch.isfinite(run.trace.loss).all())
             and run.trace.loss.shape == (2,),
             f"run_sim on reduced DeepSeek-V3: losses {run.trace.loss}")
     require(launches["mixing_gossip_stacked"] == comm_steps
             and launches["tick_tail_stacked"] == stream_ticks(sched)
-            and only_launched(launches, *CLEAN_REPLAY),
+            and only_launched(launches, *CLEAN_REPLAY, DENSE),
             f"run_sim launched {launches}, {comm_steps} comm steps, "
             f"{stream_ticks(sched)} gradient ticks")
     print(f"[{card}] 27 run_sim reduced DeepSeek-V3 (4 workers, ring, "
@@ -4316,7 +4430,9 @@ def phase_zoo_reduced(card):
           f"mixing_gossip_stacked launches "
           f"{launches['mixing_gossip_stacked']} == {comm_steps} comm "
           f"steps, tick_tail_stacked {launches['tick_tail_stacked']} == "
-          f"{stream_ticks(sched)} gradient ticks, every other kernel 0; the "
+          f"{stream_ticks(sched)} gradient ticks, gemm_3xtf32 "
+          f"{launches[DENSE]} == {stream_ticks(sched)} x 3 x {products} "
+          f"weight products, every other kernel 0; the "
           f"phase's peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {name: launches[name] for name in CLEAN_REPLAY}
@@ -5152,8 +5268,7 @@ def card_step(card, label, arch, updates, shape_args) -> int:
         require(flash == cfg.num_layers and rec == flash,
                 f"{label}: flash launched {flash} times, reported {rec}; "
                 f"{cfg.num_layers} attention layers")
-    require(all(v == 0 for k, v in launches.items()
-                if k != "flash_attention_bhsd"),
+    require(only_launched(launches, "flash_attention_bhsd"),
             f"{label}: another kernel launched: {launches}")
     require(cost.flops == meta.flops,
             f"{label}: {cost.flops:.6e} FLOPs counted on the card, "
@@ -5394,8 +5509,10 @@ def timed_path(dev, run):
 
 def require_launched(launches: dict, expect: dict, what: str) -> None:
     """Each kernel of ``expect`` launched exactly its count and no other
-    kernel launched (``expect`` empty: nothing launched at all)."""
+    kernel launched (``expect`` empty: nothing launched at all); the
+    weight products' launches join the tally."""
     got = {k: v for k, v in launches.items() if v or k in expect}
+    require_products(launches, expect.get(DENSE, 0), what)
     require(got == expect,
             f"{what}: launches {launches}, expected {expect} alone")
 
@@ -5613,6 +5730,7 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
     and each kernel's max abs err."""
     from repro_torch.core import (Simulator, Telemetry, build_graph,
                                   params_from_graph, ring_graph)
+    from repro_torch.configs import get_config
     from repro_torch.core.flatbuf import FlatLayout
     from repro_torch.examples import cifar_decentralized as cifar
     from repro_torch.examples import lm_decentralized as lm
@@ -5722,6 +5840,11 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
         worlds, sched = two_arms(graph, args.rounds, args.seed)
         n, n_ticks = 2 * stream_comm_steps(sched), 2 * stream_ticks(sched)
         require(args.rounds == rounds, f"{twin}: {args.rounds} rounds")
+        want = {"mixing_gossip_stacked": n, "tick_tail_stacked": n_ticks}
+        if mod is lm and dev.type == "cuda":
+            want[DENSE] = n_ticks * 3 * weight_products(
+                get_config("nano-lm", reduced=not args.full),
+                args.batch_size, args.seq_len)
         if getattr(args, "full", False):
             def twin_main():
                 return lm_full_main(lm, dev, flag + argv)
@@ -5731,8 +5854,7 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
         start = len(ticks)
         with held_ticks(ticks):
             out, wall, launched, printed = timed_path(dev, twin_main)
-        require_launched(launched, {"mixing_gossip_stacked": n,
-                                    "tick_tail_stacked": n_ticks}, twin)
+        require_launched(launched, want, twin)
         held_both(start, twin)
         count(launched)
         walls[twin] = wall
@@ -5745,7 +5867,8 @@ def phase_examples(card, dev=None) -> tuple[dict, dict]:
         print(f"[{card}] phase 30b: {twin}: {wall:.2f} s, "
               f"mixing_gossip_stacked x {n} (2 arms x {n // 2} comm steps)"
               f", tick_tail_stacked x {n_ticks} (2 arms x {n_ticks // 2} "
-              f"gradient ticks), losses finite")
+              f"gradient ticks), gemm_3xtf32 x {want.get(DENSE, 0)} (3 a "
+              f"weight product a tick), losses finite")
         layout = FlatLayout.from_pytree(arms["a2cid2"].state.x, stacked=True)
         paths += [("mixing_gossip_stacked", args.workers, layout,
                    algo_dyn(world.algorithm_params()))
@@ -6067,6 +6190,169 @@ def phase_moe_experts(card):
              "library_ms": None, "rows": rows},
             launched["moe_experts"])
 
+# phase 33: the product shapes of the two LM cells, (W, M, N, K, A K-major,
+# B K-major): Y = X W (X K-major, W N-major), dX = dY W^T (both K-major),
+# dW = X^T dY (both M/N-major); the tied head's dW as (dY^T X)^T
+DENSE_SHAPES = [
+    ("Qwen3 q fwd", 4, 1024, 2048, 1024, True, False),
+    ("Qwen3 q dX", 4, 1024, 1024, 2048, True, True),
+    ("Qwen3 q dW", 4, 1024, 2048, 1024, False, False),
+    ("Qwen3 mlp up fwd", 4, 1024, 3072, 1024, True, False),
+    ("Qwen3 mlp up dX", 4, 1024, 1024, 3072, True, True),
+    ("Qwen3 mlp up dW", 4, 1024, 3072, 1024, False, False),
+    ("Qwen3 mlp down fwd", 4, 1024, 1024, 3072, True, False),
+    ("Qwen3 tied head fwd", 4, 1024, 152064, 1024, True, True),
+    ("Qwen3 tied head dX", 4, 1024, 1024, 152064, True, False),
+    ("Qwen3 tied head dW^T", 4, 152064, 1024, 1024, False, False),
+    ("Kanana-2 q fwd", 4, 1024, 6144, 2048, True, False),
+    ("Kanana-2 q dW", 4, 2048, 6144, 1024, False, False),
+    ("Kanana-2 w_dkv fwd", 4, 1024, 576, 2048, True, False),
+    ("Kanana-2 w_dkv dX", 4, 1024, 2048, 576, True, True),
+    ("Kanana-2 w_dkv dW", 4, 2048, 576, 1024, False, False),
+    ("Kanana-2 w_uk fwd", 4, 1024, 4096, 512, True, False),
+    ("Kanana-2 head fwd", 4, 1024, 16128, 2048, True, False),
+    ("Kanana-2 head dX", 4, 1024, 2048, 16128, True, True),
+    ("Kanana-2 head dW", 4, 2048, 16128, 1024, False, False),
+]
+DENSE_REPS = 10
+# kernel against torch.matmul (both off f64 by ~1e-7 of |A| |B|): the
+# largest gap over the largest element of |A| |B|
+DENSE_RTOL = 1e-6
+# the f32 route on the tensor cores: three TF32 products a product
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+
+
+def dense_operands(gen, w, m, n, k, a_kmajor, b_kmajor):
+    """A (W, M, K) and B (W, K, N) in the given layouts, B a slice of a
+    stack of 2 (a batch stride of 2 matrices), as the tick's leaves."""
+    dev = torch.device("cuda")
+    a = torch.randn((w, m, k) if a_kmajor else (w, k, m), generator=gen,
+                    device=dev)
+    b = torch.randn((w, 2, n, k) if b_kmajor else (w, 2, k, n),
+                    generator=gen, device=dev)[:, 1] / math.sqrt(k)
+    return (a if a_kmajor else a.transpose(1, 2),
+            b.transpose(1, 2) if b_kmajor else b)
+
+
+def dense_tick_launches(card, name: str) -> None:
+    """One ``lm_grad_fn`` tick of a reduced block, 4 workers of 256
+    tokens, with a tracer active: every weight product on the kernel,
+    three launches each (Y, dX, dW), none on matmul."""
+    from repro_torch.analysis.tracing import SpanTracer
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.dense_f32.kernel import gemm_3xtf32
+    from repro_torch.models.transformer import Model, lm_grad_fn
+    dev = torch.device("cuda")
+    if name == "Qwen3":
+        from repro_torch.configs import get_config
+        cfg = get_config("qwen3-0.6b", reduced=True)
+    else:
+        sys.path.insert(0, str(ROOT))
+        from perfbench.models import mla_moe
+        kcfg = json.loads((ROOT / "perfbench/configs/kanana2_30b_a3b.json")
+                          .read_text())
+        kcfg.update(hidden_size=256, num_attention_heads=4,
+                    kv_lora_rank=32, qk_rope_head_dim=16,
+                    qk_nope_head_dim=32, v_head_dim=32,
+                    intermediate_size=512, moe_intermediate_size=64,
+                    router_experts=16, n_routed_experts=4,
+                    num_experts_per_tok=4, vocab_size=500,
+                    num_hidden_layers=3)
+        cfg = mla_moe.model_config(kcfg)
+    model = Model(cfg)
+    x = tree_map(lambda *a: torch.stack(a), *[
+        model.init(torch.Generator(device=dev).manual_seed(i))
+        for i in range(4)])
+
+    class Stream:
+        def sample_workers(self, gen, n):
+            t = torch.randint(0, cfg.vocab_size, (n, 1, 257), generator=gen,
+                              device=dev)
+            return {"inputs": t[..., :-1], "labels": t[..., 1:]}
+
+    before = gemm_3xtf32.launches
+    tracer = SpanTracer("dense", device=dev)
+    with tracer.activate():
+        losses, _ = lm_grad_fn(model, Stream())(
+            x, torch.Generator(device=dev).manual_seed(1),
+            torch.arange(4, device=dev))
+    torch.cuda.synchronize()
+    tracer.resolve()
+    launched = gemm_3xtf32.launches - before
+    got = {k: 0.0 for k in ("kernel_products", "kernel_flops",
+                            "matmul_products", "matmul_flops")}
+    for ev in tracer.to_dict()["traceEvents"]:
+        if ev.get("ph") == "C" and ev["name"] == "dense":
+            for k in got:
+                got[k] += ev["args"][k]
+    require(bool(torch.isfinite(losses).all()), f"phase 33: {name} losses "
+            f"{losses.tolist()}")
+    require_products({DENSE: launched}, 3 * weight_products(cfg, 1, 256),
+                     f"phase 33: a reduced {name} tick")
+    require(got["matmul_products"] == 0
+            and got["kernel_products"] == launched,
+            f"phase 33: {name} tick: {launched} launches, counter {got}")
+    print(f"[{card}] phase 33: a reduced {name} tick (4 workers of 256 "
+          f"tokens): {launched} gemm_3xtf32 launches, every weight product "
+          f"({got['kernel_flops'] / 1e9:.2f} GFLOP) on the kernel, none on "
+          f"matmul")
+
+
+def phase_dense_f32(card):
+    """Phase 33: ``gemm_3xtf32`` at the LM cells' product shapes against
+    ``torch.matmul`` and timed beside its bound, its SASS, and a reduced
+    Qwen3 and Kanana-2 tick through it, each window's launches held to
+    its count (``require_products``).  Returns the kernel's JSON row."""
+    from repro_torch.kernels.build import lib_path
+    from repro_torch.kernels.dense_f32.kernel import gemm_3xtf32
+    lib = lib_path("gemm_3xtf32")
+    sass = tensor_core_instructions(lib)
+    if sass is None:
+        print(f"[{card}] gemm_3xtf32 SASS: not measured (no cuobjdump)")
+    else:
+        require(sass["HGMMA"] > 0, f"gemm_3xtf32 without wgmma: {sass}")
+        print(f"[{card}] gemm_3xtf32 SASS ({lib.name}): {sass['HGMMA']} "
+              f"HGMMA, {sass['HMMA']} HMMA")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    reset_launches()
+    rows, worst = [], 0.0
+    for label, w, m, n, k, akm, bkm in DENSE_SHAPES:
+        a, b = dense_operands(gen, w, m, n, k, akm, bkm)
+        c = gemm_3xtf32(a, b)
+        want = torch.matmul(a, b)
+        err = float((c - want).abs().max()
+                    / torch.matmul(a.abs(), b.abs()).max())
+        worst = max(worst, err)
+        require(err <= DENSE_RTOL, f"phase 33: {label}: {err:.3e} of the "
+                f"largest |A| |B| from torch.matmul's")
+        ms = cuda_ms(lambda: gemm_3xtf32(a, b), DENSE_REPS)
+        lib_ms = cuda_ms(lambda: torch.matmul(a, b), DENSE_REPS)
+        flops = 2.0 * w * m * n * k
+        nbytes = 4 * w * (m * k + k * n + m * n)
+        bd = bound(nbytes, flops, PEAK_3XTF32_FLOPS)
+        require(ms >= bd["bound_ms"], f"phase 33: {label} {ms:.4f} ms is "
+                f"below its bound {bd['bound_ms']:.4f} ms")
+        rows.append({"label": label, "ms": ms, "library_ms": lib_ms,
+                     "bound_ms": bd["bound_ms"], "err": err})
+        print(f"[{card}] phase 33: {label} (W, M, N, K) = ({w}, {m}, {n}, "
+              f"{k}): {ms:.4f} ms, {bd['bound_ms'] / ms:.1%} of its bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s); torch.matmul {lib_ms:.4f} "
+              f"ms ({lib_ms / ms:.2f}x); within {err:.2e}")
+        del a, b, c, want
+    launched = read_launches()
+    require_products(launched, len(DENSE_SHAPES) * (DENSE_REPS + 3),
+                     "phase 33's shapes")
+    require(only_launched(launched, DENSE), f"phase 33 launched {launched}")
+    for name in ("Qwen3", "Kanana-2"):
+        dense_tick_launches(card, name)
+    # the plain version (ref.py) is torch.matmul itself
+    head = next(r for r in rows if r["label"] == "Qwen3 tied head fwd")
+    return {"max_rel_err": worst, "ms": head["ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "operations",
+            "plain_ms": head["library_ms"],
+            "library_ms": head["library_ms"], "shapes": rows}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -6107,8 +6393,10 @@ def main() -> int:
     rows = {"mixing_gossip_stacked": phase_kernel(card, layout.d,
                                                   layout.d_real, dyn)}
     torch.cuda.empty_cache()
-    launches = phase_slice(card, params0, cfg, SyntheticCIFAR,
-                           resnet_grad_fn)
+    # every kernel's launches over the phases, 0 until a phase adds some
+    launches = {**dict.fromkeys(KERNELS, 0),
+                **phase_slice(card, params0, cfg, SyntheticCIFAR,
+                              resnet_grad_fn)}
     phase_engine_vs_reference(card)
     torch.cuda.empty_cache()
     rows["channel_gossip_stacked"] = phase_channel_kernel(
@@ -6233,6 +6521,12 @@ def main() -> int:
     rows["moe_experts"], n32 = phase_moe_experts(card)
     launches["moe_experts"] += n32
     print(f"[{card}] phases 1-32 done at {time.perf_counter() - t_start:.1f}"
+          f" s")
+    torch.cuda.empty_cache()
+    rows["gemm_3xtf32"] = phase_dense_f32(card)
+    # every checked window's weight products (``require_products``)
+    launches["gemm_3xtf32"] = DENSE_TALLY["launches"]
+    print(f"[{card}] phases 1-33 done at {time.perf_counter() - t_start:.1f}"
           f" s")
 
     print(card)

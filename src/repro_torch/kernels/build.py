@@ -43,6 +43,7 @@ PACKAGES = {
     "flash_attention_bhsd": "flash_attention",
     "rmsnorm_2d": "rmsnorm",
     "moe_experts": "moe_experts",
+    "gemm_3xtf32": "dense_f32",
 }
 KERNELS = tuple(PACKAGES)
 # the dtype argument of every entry point

@@ -27,7 +27,7 @@ import contextlib
 import torch
 
 from ...analysis import tracing
-from .. import resolve_backend
+from .. import fold, plain, resolve_backend
 from . import kernel
 from .ref import combine_dense, experts_dense, moe_experts_ref, route_ref
 
@@ -46,19 +46,6 @@ def least_bytes(rows, w: int, t: int, n: int, d: int, f: int):
     products, the three gradients written), and the (W, T, D) output,
     its cotangent and dx once each."""
     return 4 * (rows * (10 * d + 14 * f) + 9 * w * n * d * f + 3 * w * t * d)
-
-
-def _fold(info, in_dims, args) -> list:
-    """Each tensor of ``args`` with the vmapped axis merged into its
-    leading W axis (an unbatched one broadcast along it)."""
-    out = []
-    for a, d in zip(args, in_dims):
-        if isinstance(a, torch.Tensor):
-            a = a.expand(info.batch_size, *a.shape) if d is None \
-                else a.movedim(d, 0)
-            a = a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
-        out.append(a)
-    return out
 
 
 # the ids of each route op while ``keep_picks`` is open, else None
@@ -100,7 +87,7 @@ class _Route(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, ids, e0, n, backend):
-        (ids,) = _fold(info, in_dims[:1], (ids,))
+        (ids,) = fold(info.batch_size, in_dims[:1], (ids,))
         return _unfold(info, _Route.forward(ids, e0, n, backend)), (0, 0, 0)
 
 
@@ -153,7 +140,9 @@ class _Experts(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        outs = _Experts.forward(*_fold(info, in_dims, args))
+        # applied again to the folded tensors, so that plain autograd over
+        # a vmapped forward records it (``kernels.plain``)
+        outs = plain(_Experts.apply, *fold(info.batch_size, in_dims, args))
         return _unfold(info, outs), (0, 0, 0, 0)
 
 
@@ -187,7 +176,7 @@ class _ExpertsBackward(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        outs = _ExpertsBackward.forward(*_fold(info, in_dims, args))
+        outs = _ExpertsBackward.forward(*fold(info.batch_size, in_dims, args))
         return _unfold(info, outs), (0,) * 5
 
 

@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from ..kernels.dense_f32.ops import dense
 from ..kernels.flash_attention.ops import flash_attention
 from .config import MLAConfig, ModelConfig
 from .layers import dense_init, init_rmsnorm, rmsnorm
@@ -91,9 +92,9 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
          positions: torch.Tensor):
     b, s, _ = x.shape
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    q = dense(x, p["wq"]).reshape(b, s, h, hd)
+    k = dense(x, p["wk"]).reshape(b, s, kv, hd)
+    v = dense(x, p["wv"]).reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -153,7 +154,7 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         out = _sdpa(q, k, v, causal_mask(x.shape[1], window, x.device), cfg)
     else:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
-    return out @ p["wo"]
+    return dense(out, p["wo"])
 
 
 # ------------------------------------------------------------- GQA decoding
@@ -265,14 +266,15 @@ def _mla_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
     b, s, _ = x.shape
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     if m.q_lora_rank is None:
-        q = x @ p["w_q"]
+        q = dense(x, p["w_q"])
     else:
-        q = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps) @ p["w_uq"]
+        q = dense(rmsnorm(dense(x, p["w_dq"]), p["q_norm"], cfg.norm_eps),
+                  p["w_uq"])
     q = q.reshape(b, s, cfg.num_heads, qk)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)],
                   dim=-1)
-    dkv = x @ p["w_dkv"]
+    dkv = dense(x, p["w_dkv"])
     c = rmsnorm(dkv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(dkv[..., m.kv_lora_rank:], positions, cfg.rope_theta)
     return q, c, k_rope
@@ -285,8 +287,8 @@ def _mla_expand_kv(p: dict, cfg: ModelConfig, c: torch.Tensor,
     m: MLAConfig = cfg.mla
     b, t, _ = c.shape
     h = cfg.num_heads
-    k_nope = (c @ p["w_uk"]).reshape(b, t, h, m.qk_nope_head_dim)
-    v = (c @ p["w_uv"]).reshape(b, t, h, m.v_head_dim)
+    k_nope = dense(c, p["w_uk"]).reshape(b, t, h, m.qk_nope_head_dim)
+    v = dense(c, p["w_uv"]).reshape(b, t, h, m.v_head_dim)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, t, h, m.qk_rope_head_dim)], dim=-1)
     return k, v
@@ -300,7 +302,7 @@ def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor,
     q, c, k_rope = _mla_qkv(p, cfg, x, positions)
     k, v = _mla_expand_kv(p, cfg, c, k_rope)
     out = _sdpa(q, k, v, causal_mask(x.shape[1], window, x.device), cfg)
-    return out @ p["wo"]
+    return dense(out, p["wo"])
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, length: int,

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..analysis import tracing
+from ..kernels.dense_f32.ops import dense
 from ..kernels.moe_experts import ops as experts
 from .config import ModelConfig, MoEConfig
 
@@ -139,15 +140,15 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype,
 
 
 def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    up = x @ p["w_up"]
+    up = dense(x, p["w_up"])
     if act == "silu":
-        h = F.silu(x @ p["w_gate"]) * up
+        h = F.silu(dense(x, p["w_gate"])) * up
     elif act == "gelu":
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(act)
-    return h @ p["w_down"]
+    return dense(h, p["w_down"])
 
 
 # ---------------------------------------------------------------------- MoE
@@ -356,5 +357,5 @@ def apply_lm_head(head_p: dict, embed_p: dict, cfg: ModelConfig,
                   x: torch.Tensor) -> torch.Tensor:
     """x (..., D) -> logits (..., num_codebooks*vocab) [codebooks folded]."""
     if cfg.tie_embeddings and cfg.input_mode == "tokens":
-        return x @ embed_p["tok"].T.to(x.dtype)
-    return x @ head_p["w"]
+        return dense(x, embed_p["tok"].T.to(x.dtype))
+    return dense(x, head_p["w"])

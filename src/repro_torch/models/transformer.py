@@ -24,10 +24,10 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.func import grad_and_value, vmap
+from torch.func import vmap
 from torch.utils.checkpoint import checkpoint
 
-from ..core.tree import PyTree, tree_leaves, tree_map
+from ..core.tree import PyTree, tree_flatten, tree_leaves, tree_map
 from ..device import resolve_device
 from . import attention, rglru, ssm
 from .config import Block, ModelConfig
@@ -335,18 +335,32 @@ def lm_grad_fn(model: Model, stream):
 
     ``stream.sample_workers(generator, n)`` draws one batch per worker,
     ``{"inputs": (n, B, S), "labels": (n, B, S)}``, outside the vmap; the
-    per-worker loss and gradient are then one ``torch.func.vmap`` of
-    ``grad_and_value`` over the worker-stacked parameters.
+    per-worker losses are one ``torch.func.vmap`` of the loss over the
+    worker-stacked parameters, and their gradients one plain
+    ``torch.autograd.grad`` of the losses' sum (the workers share no
+    parameter, so each worker's gradient is its own loss's).  Plain
+    autograd runs each op's backward once on the stacked tensors, where
+    ``vmap(grad_and_value)`` takes every ``autograd.Function`` (RMSNorm,
+    the products, the experts) through the transforms' Python a call.  A
+    leaf the loss does not read gets a zero gradient, as
+    ``grad_and_value`` gives it.
     """
     def loss_one(p: PyTree, inputs, labels):
         return model.loss(p, {"inputs": inputs, "labels": labels})[0]
 
-    per_worker = vmap(grad_and_value(loss_one))
+    per_worker = vmap(loss_one)
 
     def grad_fn(x_stacked, generator, worker_ids):
         batch = stream.sample_workers(generator, worker_ids.shape[0])
-        grads, losses = per_worker(x_stacked, batch["inputs"],
-                                   batch["labels"])
-        return losses, grads
+        leaves, spec = tree_flatten(x_stacked)
+        params = [leaf.detach().requires_grad_() for leaf in leaves]
+        with torch.enable_grad():
+            losses = per_worker(spec.unflatten(params),
+                                batch["inputs"], batch["labels"])
+            grads = torch.autograd.grad(losses.sum(), params,
+                                        allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        return losses.detach(), spec.unflatten(grads)
 
     return grad_fn

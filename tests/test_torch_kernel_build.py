@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 SIX = ("mixing_gossip_stacked", "channel_gossip_stacked",
        "mixing_gossip_worlds", "channel_gossip_worlds", "p2p_mixing",
        "mixing_p2p", "tick_tail_stacked", "flash_attention_bhsd",
-       "rmsnorm_2d", "moe_experts")
+       "rmsnorm_2d", "moe_experts", "gemm_3xtf32")
 
 
 def test_six_kernels_each_with_one_source():
@@ -31,7 +31,7 @@ def test_six_kernels_each_with_one_source():
         src = build.source(name)
         assert src.is_file() and src.parent.name == "csrc"
         assert f'extern "C" int {name}_launch(' in src.read_text()
-    assert len({build.lib_path(n) for n in SIX}) == len(SIX) == 10
+    assert len({build.lib_path(n) for n in SIX}) == len(SIX) == 11
 
 
 @pytest.mark.parametrize("name,headers", [
