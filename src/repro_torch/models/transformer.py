@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch.func import vmap
 from torch.utils.checkpoint import checkpoint
 
+from ..analysis import tracing
 from ..core.tree import PyTree, tree_flatten, tree_leaves, tree_map
 from ..device import resolve_device
 from . import attention, rglru, ssm
@@ -183,13 +184,16 @@ class Model:
         summed aux loss, 0 without MoE.  With ``remat`` each unit (one
         step of a group's ``repeat`` loop, the blocks JAX checkpoints
         together) runs under ``torch.utils.checkpoint``: the backward
-        keeps only the unit's inputs and runs the unit's forward again."""
+        keeps only the unit's inputs and runs the unit's forward again.
+        Under an active tracer a ``model.layers`` counter sample gives
+        the layer-stacked leaves unbound and the layer views served."""
         cfg = self.cfg
         x = embed_inputs(params["embed"], cfg, inputs)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        n_leaves = n_slices = 0
         for (unit, repeat), group_p in zip(cfg.blocks, params["groups"]):
 
             def unit_fn(x, layer_p, unit=unit):
@@ -200,9 +204,16 @@ class Model:
                     aux = aux + a
                 return x, aux
 
+            # each leaf unbound along its layer axis once: the backward
+            # stacks the layers' gradients in one write, where a slice
+            # ``a[r]`` a layer gives a zero-filled full gradient to sum
+            leaves, spec = tree_flatten(group_p)
+            views = [torch.unbind(a, 0) for a in leaves]
+            n_leaves += len(leaves)
+            n_slices += len(leaves) * repeat
             auxs = []
             for r in range(repeat):
-                layer_p = tree_map(lambda a, r=r: a[r], group_p)
+                layer_p = spec.unflatten([v[r] for v in views])
                 if remat:
                     x, aux = checkpoint(unit_fn, x, layer_p,
                                         use_reentrant=False)
@@ -210,6 +221,7 @@ class Model:
                     x, aux = unit_fn(x, layer_p)
                 auxs.append(aux)
             aux_total = aux_total + torch.stack(auxs).sum()
+        tracing.count("model.layers", leaves=n_leaves, slices=n_slices)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = apply_lm_head(params["head"], params["embed"], cfg, x)
         return logits, aux_total, x
